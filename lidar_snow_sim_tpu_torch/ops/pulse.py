@@ -1,0 +1,147 @@
+"""Phase C of the dense snowfall assembly: first-claim sweep and received
+pulse peak per occluded beam (counterpart of
+`lidar_snow_sim_tpu/ops/pallas_pulse.py`).
+
+`pulse_peaks` launches kernel C1 (`csrc/pulse.cu`) on CUDA tensors and
+runs `pulse_plain`, the same function in plain torch, on CPU tensors. Both
+follow the arithmetic of the TPU kernel `_kernel` (pallas_pulse.py:173):
+
+1. the sweep: extract-min over the 2K+2 interval endpoints, each trip
+   retiring every copy of the minimum, the lowest-index covering occluder
+   claiming [prev, cur];
+2. amplitudes amp_scale * share * xsi(r) / r^2 (the unclaimed remainder
+   goes to the hard target);
+3. the waveform over the M-bin grid, summed bin by bin as target bump, then
+   occluder bumps 0, 1, 2, ...; a bump covers r * ipm <= bin <=
+   (r + c_tau) * ipm with pulse 0.5 * (1 - (cos_g * cb + sin_g * sb));
+4. the peak and its first bin.
+
+Inputs are K-outer: feats (4, cap) rows [d_orig, right, left,
+0.9 * max_intensity]; a1, a2, rr, valid (K, cap); cos_b, sin_b (K+1, cap),
+row K the hard target; cos_g, sin_g (M,). Outputs (cap,) each: peak f32,
+first peak bin int32, touched bool, remainder f32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lidar_snow_sim_tpu_torch import _kernels
+from lidar_snow_sim_tpu_torch.ops.f32 import div
+from lidar_snow_sim_tpu_torch.ops.geometry import TWO_PI
+
+BIG = 3.0e38
+_CHUNK = 512    # beams per waveform step of the plain version (bounds memory)
+
+
+def pulse_plain(feats, a1, a2, rr, valid, cos_b, sin_b, cos_g, sin_g, *,
+                beam_rad: float, ipm: float, c_tau: float, xsi_r1: float,
+                xsi_r2: float):
+    """Plain torch version of kernel C1, the waveform _CHUNK beams at a
+    time. Trip counts are maxima over all beams (the sweep) or over the
+    chunk (the bumps); the extra trips add exact zeros."""
+    k_occ, cap = a1.shape
+    m_bins = cos_g.shape[0]
+    dev = feats.device
+    d_orig, right, left, amp_scale = feats[0], feats[1], feats[2], feats[3]
+
+    wrapped = right > left
+    right_u = torch.where(wrapped, right - TWO_PI, right)
+    vb = valid > 0.5
+    a1 = torch.where(wrapped & (a1 > a2), a1 - TWO_PI, a1)
+    a1 = torch.where(vb, a1, left)
+    a2 = torch.where(vb, a2, left)
+
+    score = torch.cat([right_u[None], left[None], a1, a2], dim=0)
+    n_valid = vb.sum(dim=0)
+    trips = min(2 * int(n_valid.max()) + 3, 2 * k_occ + 2) if cap else 0
+    row_k = torch.arange(k_occ, device=dev)[:, None]
+    prev = torch.zeros(cap, device=dev)
+    claimed = torch.zeros((k_occ, cap), device=dev)
+    unclaimed = torch.zeros(cap, device=dev)
+    for k in range(trips):
+        cur = score.min(dim=0).values
+        live = cur < BIG / 2
+        width = torch.where(live & (k > 0), cur - prev, 0.0)
+        mid = 0.5 * (cur + prev)
+        cover = (a1 <= mid) & (mid <= a2) & vb
+        widx = torch.where(cover, row_k, k_occ).min(dim=0).values
+        claimed = claimed + torch.where(row_k == widx, width, 0.0)
+        unclaimed = unclaimed + torch.where(widx >= k_occ, width, 0.0)
+        score = torch.where(score == cur, BIG, score)
+        prev = torch.where(live, cur, prev)
+
+    ratio = torch.clamp(div(claimed, beam_rad), 0.0, 1.0)
+    remainder = torch.clamp(div(unclaimed, beam_rad), 0.0, 1.0)
+    touched = (claimed > 0.0).any(dim=0)
+    rr_all = torch.cat([rr, d_orig[None]], dim=0)             # (K+1, cap)
+    share = torch.cat([ratio, remainder[None]], dim=0)
+    r_amp = torch.clamp(rr_all, 1e-6, 1e6)
+    xsi = torch.clamp(div(r_amp - xsi_r1, xsi_r2 - xsi_r1), 0.0, 1.0)
+    amp = amp_scale * share * xsi / (r_amp * r_amp)
+    last_active = torch.where(ratio > 0.0, row_k + 1, 0)     # (K, cap)
+
+    bins = torch.arange(m_bins, device=dev)
+    binf = bins.to(torch.float32)[:, None]
+    cg, sg = cos_g[:, None], sin_g[:, None]
+    peak = torch.empty(cap, device=dev)
+    first = torch.empty(cap, dtype=torch.int32, device=dev)
+    for c0 in range(0, cap, _CHUNK):
+        sl = slice(c0, min(c0 + _CHUNK, cap))
+
+        def bump(b):
+            r = rr_all[b, sl]
+            window = (binf >= r * ipm) & (binf <= (r + c_tau) * ipm)
+            pulse = 0.5 * (1.0 - (cg * cos_b[b, sl] + sg * sin_b[b, sl]))
+            return torch.where(window, amp[b, sl] * pulse, 0.0)   # (M, n)
+
+        wave = bump(k_occ)
+        for b in range(int(last_active[:, sl].max())):
+            wave = wave + bump(b)
+        pk = wave.max(dim=0).values
+        peak[sl] = pk
+        first[sl] = torch.where(
+            wave == pk, bins[:, None], m_bins
+        ).min(dim=0).values.to(torch.int32)
+    return peak, first, touched, remainder
+
+
+def pulse_peaks(feats, a1, a2, rr, valid, cos_b, sin_b, cos_g, sin_g, *,
+                beam_rad: float, ipm: float, c_tau: float, xsi_r1: float,
+                xsi_r2: float):
+    """Phase C: kernel C1 on CUDA tensors, its plain version on CPU
+    tensors. Returns (peak, idx, touched, remainder), each (cap,)."""
+    if feats.device.type == "cpu":
+        return pulse_plain(feats, a1, a2, rr, valid, cos_b, sin_b, cos_g,
+                           sin_g, beam_rad=beam_rad, ipm=ipm, c_tau=c_tau,
+                           xsi_r1=xsi_r1, xsi_r2=xsi_r2)
+    k_occ, cap = a1.shape
+    m_bins = cos_g.shape[0]
+    for name, t, shape in (
+        ("feats", feats, (4, cap)), ("a1", a1, (k_occ, cap)),
+        ("a2", a2, (k_occ, cap)), ("rr", rr, (k_occ, cap)),
+        ("valid", valid, (k_occ, cap)), ("cos_b", cos_b, (k_occ + 1, cap)),
+        ("sin_b", sin_b, (k_occ + 1, cap)), ("cos_g", cos_g, (m_bins,)),
+        ("sin_g", sin_g, (m_bins,)),
+    ):
+        _kernels.check_input(name, t, torch.float32, shape)
+    dev = feats.device
+    peak = torch.empty(cap, dtype=torch.float32, device=dev)
+    idx = torch.empty(cap, dtype=torch.int32, device=dev)
+    touched = torch.empty(cap, dtype=torch.int32, device=dev)
+    remainder = torch.empty(cap, dtype=torch.float32, device=dev)
+    lib = _kernels.load("pulse")
+    err = lib.pulse_c1(
+        feats.data_ptr(), a1.data_ptr(), a2.data_ptr(), rr.data_ptr(),
+        valid.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(),
+        cos_g.data_ptr(), sin_g.data_ptr(), peak.data_ptr(), idx.data_ptr(),
+        touched.data_ptr(), remainder.data_ptr(), cap, k_occ, m_bins,
+        beam_rad, ipm, c_tau, xsi_r1, xsi_r2 - xsi_r1,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _kernels.check(err, "kernel C1 (pulse_c1)")
+    pulse_peaks.launches += 1
+    return peak, idx, touched.bool(), remainder
+
+
+pulse_peaks.launches = 0
