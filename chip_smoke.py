@@ -13,15 +13,23 @@ Phases, each printing one line of numbers:
      csrc/, launched on the card at the main path's shapes and held
      against their plain torch versions on the same inputs: exact
      equality (a1/a2 compared where dist < 1e37); CUDA-event times, median
-     of 10 runs after warm-up, for each kernel and each plain version;
+     of 10 runs after warm-up, for each kernel and each plain version.
+     Then A2 (span-routed phase A) at the JAX bench's config (route_band
+     384, band_group 16) against its plain version and against A1 on the
+     in-channel beams, with its chunks' mode split, and A3 (dual-banded
+     phase A, band_width 256, band_group 8) against its plain version,
+     coverage plane included;
   4. end to end: SnowfallAugmenter on the scene, 10 timed scans, with the
      kernels' launch counters reset just before and read just after; all
-     five overflow counters 0, labels in {0, 1, 2}; and the same small
+     five overflow counters 0, labels in {0, 1, 2}; the same on the routed
+     config (A2) and, 3 scans, the banded one (A3); and the same small
      scene through the GPU and the CPU paths, which must agree;
   5. datagen through the CLI (python -m lidar_snow_sim_tpu_torch.tools.
      precompute ... --wet) on 4 synthetic scans, then a rerun that must
-     skip all 4; then api.augment and api.ground_water_augmentation on the
-     card from the same particle files.
+     skip all 4, then a run with --route-band 384 --band-group 16 (A2);
+     then api.augment (default and routed config) and
+     api.ground_water_augmentation on the card from the same particle
+     files.
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before it; so
 does a machine without a CUDA device, or a directory without the port.
@@ -29,6 +37,7 @@ does a machine without a CUDA device, or a directory without the port.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -61,6 +70,25 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def max_err(a12d, ovf, a12d_p, ovf_p, k: int, name: str) -> float:
+    """Hold a phase-A kernel's (a12d, ovf) against its plain version's:
+    overflow and dist plane equal, a1/a2 compared where dist < 1e37;
+    returns their largest difference there (0.0 when they agree)."""
+    import torch
+
+    if not torch.equal(ovf, ovf_p):
+        fail(f"{name} overflow differs at {(ovf != ovf_p).sum().item()} "
+             "beams")
+    if not torch.equal(a12d[2 * k:], a12d_p[2 * k:]):
+        fail(f"{name} dist plane differs from the plain version")
+    live = torch.cat([a12d_p[2 * k:] < 1e37] * 2)
+    err = (a12d[:2 * k] - a12d_p[:2 * k]).abs()[live]
+    err = float(err.max()) if err.numel() else 0.0
+    if err != 0.0:
+        fail(f"{name} a1/a2 differ from the plain version: max {err}")
+    return err
 
 
 def bank_sets(cache_dir: Path, rate_mm_h=2.5, velocity=1.6, seed=42):
@@ -109,7 +137,11 @@ def main() -> int:
     from lidar_snow_sim_tpu_torch.ops.fitting import ransac_draws
     from lidar_snow_sim_tpu_torch.ops.occluders import (
         find_occluders,
+        find_occluders_banded,
+        find_occluders_routed,
+        occluders_banded_plain,
         occluders_plain,
+        occluders_routed_plain,
     )
     from lidar_snow_sim_tpu_torch.ops.pulse import pulse_peaks, pulse_plain
 
@@ -167,14 +199,7 @@ def main() -> int:
     a12d_p, ovf_p = occluders_plain(*lay.occluder_args, **lay.occluder_kw)
     k = cfg.max_occluders
     live = a12d_p[2 * k:] < 1e37
-    if not torch.equal(ovf, ovf_p):
-        fail(f"A1 overflow differs at {(ovf != ovf_p).sum().item()} beams")
-    if not torch.equal(a12d[2 * k:], a12d_p[2 * k:]):
-        fail("A1 dist plane differs from the plain version")
-    a_err = (a12d[:2 * k] - a12d_p[:2 * k]).abs()[torch.cat([live, live])]
-    a1_err = float(a_err.max()) if a_err.numel() else 0.0
-    if a1_err != 0.0:
-        fail(f"A1 a1/a2 differ from the plain version: max {a1_err}")
+    a1_err = max_err(a12d, ovf, a12d_p, ovf_p, k, "A1")
     a1_ms = time_ms(lambda: find_occluders(*lay.occluder_args,
                                            **lay.occluder_kw))
     a1_plain_ms = time_ms(lambda: occluders_plain(*lay.occluder_args,
@@ -198,6 +223,48 @@ def main() -> int:
     print(f"C1: cap {comp.cap} occluded {int(comp.c_ok.sum())} "
           f"touched {int(out_k[2].sum())} max_abs_err {c1_err} "
           f"ms {c1_ms:.4f} plain_ms {c1_plain_ms:.4f}", flush=True)
+
+    # A2 at the JAX bench's config, against its plain version and A1
+    cfg_r = dataclasses.replace(cfg, route_band=384, band_group=16)
+    lay_r = dense_layout(points, mask, bank_t, order, draws, cfg_r)
+    if lay_r.kernel != "A2":
+        fail(f"the routed config laid out for {lay_r.kernel}, not A2")
+    args_r, kw_r = lay_r.occluder_args, lay_r.occluder_kw
+    a12d_r, ovf_r = find_occluders_routed(*args_r, **kw_r)
+    a12d_rp, ovf_rp = occluders_routed_plain(*args_r, **kw_r)
+    a2_err = max_err(a12d_r, ovf_r, a12d_rp, ovf_rp, k, "A2")
+    valid = lay.valid_blk.reshape(-1)
+    if not torch.equal(lay_r.valid_blk.reshape(-1), valid) or \
+            not torch.equal(ovf_r.reshape(-1)[valid], ovf.reshape(-1)[valid]) \
+            or not torch.equal(a12d_r[2 * k:, valid], a12d[2 * k:, valid]):
+        fail("A2 and A1 differ on the in-channel beams")
+    modes = torch.bincount(args_r[5].long(), minlength=3).tolist()
+    a2_ms = time_ms(lambda: find_occluders_routed(*args_r, **kw_r))
+    a2_plain_ms = time_ms(lambda: occluders_routed_plain(*args_r, **kw_r))
+    print(f"A2: route_band {kw_r['band']} band_group {kw_r['group']} "
+          f"wide_sl {kw_r['wide_sl']} modes_0_1_2 {modes} "
+          f"window_overflow {int(lay_r.window_overflow)} max_abs_err "
+          f"{a2_err} ms {a2_ms:.4f} plain_ms {a2_plain_ms:.4f} "
+          f"a1_ms {a1_ms:.4f} equal_to_A1_on_valid_beams True", flush=True)
+
+    # A3 (band_width 256), against its plain version
+    cfg_b = dataclasses.replace(cfg, band_width=256, band_group=8)
+    lay_b = dense_layout(points, mask, bank_t, order, draws, cfg_b)
+    if lay_b.kernel != "A3":
+        fail(f"the banded config laid out for {lay_b.kernel}, not A3")
+    args_b, kw_b = lay_b.occluder_args, lay_b.occluder_kw
+    a12d_b, ovf_b, unc_b = find_occluders_banded(*args_b, **kw_b)
+    a12d_bp, ovf_bp, unc_bp = occluders_banded_plain(*args_b, **kw_b)
+    a3_err = max_err(a12d_b, ovf_b, a12d_bp, ovf_bp, k, "A3")
+    if not torch.equal(unc_b, unc_bp):
+        fail(f"A3 coverage differs at {(unc_b != unc_bp).sum().item()} beams")
+    uncovered = int(torch.where(lay_b.cover_mask, unc_b, 0).sum())
+    a3_ms = time_ms(lambda: find_occluders_banded(*args_b, **kw_b))
+    a3_plain_ms = time_ms(lambda: occluders_banded_plain(*args_b, **kw_b))
+    print(f"A3: band_width {kw_b['band']} band_group {kw_b['group']} "
+          f"unc_beams {int(unc_b.sum())} counted {uncovered} max_abs_err "
+          f"{a3_err} ms {a3_ms:.4f} plain_ms {a3_plain_ms:.4f} "
+          f"a1_ms {a1_ms:.4f}", flush=True)
     for name in ("occluders", "pulse"):   # nvcc -Xptxas -v, if built here
         log = _kernels.BUILD_DIR / f"{name}.log"
         if log.exists():
@@ -206,39 +273,56 @@ def main() -> int:
                     print(f"ptxas {name}: {line.strip()}", flush=True)
 
 
-    # --- 4. end to end through SnowfallAugmenter ---
-    aug = SnowfallAugmenter(bank=bank, calib=calib, cfg=cfg, seed=0,
-                            device=dev)
+    # --- 4. end to end through SnowfallAugmenter, on each phase-A path ---
     perm = np.random.default_rng(1).permutation(64)
-    for _ in range(3):           # warm-up; grows any capacity it needs
-        aug(pc, order=perm)
-    find_occluders.launches = 0
-    pulse_peaks.launches = 0
-    n_scans = 10
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n_scans):
-        stats, out = aug(pc, order=perm)
-    end.record()
-    end.synchronize()
-    launches = {"A1": find_occluders.launches, "C1": pulse_peaks.launches}
-    e2e_ms = start.elapsed_time(end)
-    res = aug.last_result
-    counters = {n: int(getattr(res, n)) for n in OVERFLOW_COUNTERS}
-    if any(counters.values()):
-        fail(f"overflow counters after growth: {counters}")
-    if not set(np.unique(out[:, 4])) <= {0.0, 1.0, 2.0}:
-        fail("labels outside {0, 1, 2}")
-    if out.shape[1] != 5 or not np.isfinite(out).all():
-        fail(f"output not finite (n, 5): {out.shape}")
-    if min(launches.values()) < 1:
-        fail(f"a kernel of the main path never launched: {launches}")
-    print(f"e2e: stats {stats} out {out.shape} counters {counters} "
-          f"launches {launches} scans {n_scans} ms {e2e_ms:.3f} "
-          f"scans_per_s {n_scans * 1000.0 / e2e_ms:.3f} "
-          f"grown slice_width {aug.cfg.slice_width} "
-          f"max_occluders {aug.cfg.max_occluders}", flush=True)
+    counted = (find_occluders, find_occluders_routed, find_occluders_banded,
+               pulse_peaks)
+
+    def drive(label, run_cfg, path, n_scans=10):
+        """Warm up (growing any capacity), zero every launch counter, run
+        n_scans timed scans; the counts of `path`'s kernels must be >= 1."""
+        aug = SnowfallAugmenter(bank=bank, calib=calib, cfg=run_cfg, seed=0,
+                                device=dev)
+        for _ in range(3):
+            aug(pc, order=perm)
+        for fn in counted:
+            fn.launches = 0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n_scans):
+            stats, out = aug(pc, order=perm)
+        end.record()
+        end.synchronize()
+        counts = dict(zip(("A1", "A2", "A3", "C1"),
+                          (fn.launches for fn in counted)))
+        e2e_ms = start.elapsed_time(end)
+        res = aug.last_result
+        counters = {n: int(getattr(res, n)) for n in OVERFLOW_COUNTERS}
+        if any(counters.values()):
+            fail(f"{label}: overflow counters after growth: {counters}")
+        if not set(np.unique(out[:, 4])) <= {0.0, 1.0, 2.0}:
+            fail(f"{label}: labels outside {{0, 1, 2}}")
+        if out.shape[1] != 5 or not np.isfinite(out).all():
+            fail(f"{label}: output not finite (n, 5): {out.shape}")
+        if min(counts[name] for name in path) < 1:
+            fail(f"{label}: a kernel of the path never launched: {counts}")
+        print(f"{label}: stats {stats} out {out.shape} counters {counters} "
+              f"launches {counts} scans {n_scans} ms {e2e_ms:.3f} "
+              f"scans_per_s {n_scans * 1000.0 / e2e_ms:.3f} "
+              f"grown slice_width {aug.cfg.slice_width} band_width "
+              f"{aug.cfg.band_width} max_occluders {aug.cfg.max_occluders}",
+              flush=True)
+        return counts, stats, out
+
+    launches, stats, out = drive("e2e", cfg, ("A1", "C1"))
+    launches_r, stats_r, out_r = drive("e2e_routed", cfg_r, ("A2", "C1"))
+    launches_b, stats_b, out_b = drive("e2e_banded", cfg_b, ("A3", "C1"),
+                                       n_scans=3)
+    for label, s2, o2 in (("routed", stats_r, out_r),
+                          ("banded", stats_b, out_b)):
+        if s2 != stats or not np.array_equal(o2, out):
+            fail(f"the {label} path's output differs from A1's")
 
     # the small test scene through the GPU and the CPU paths
     small = synthetic_scan(n_azimuth=100, seed=2, calib=calib)
@@ -337,6 +421,19 @@ def main() -> int:
         if rerun["stats"]["frames_skipped"] != 4 or \
                 rerun["stats"]["frames_done"] != 0:
             fail(f"resume did not skip all 4 scans: {rerun['stats']}")
+        n_r = find_occluders_routed.launches
+        argv_r = [*argv, "--route-band", "384", "--band-group", "16"]
+        argv_r[argv_r.index("--out-root") + 1] = str(tmp / "out_routed")
+        if precompute.main(argv_r) != 0:
+            fail("precompute --route-band returned non-zero")
+        routed_dir = tmp / "out_routed" / out_dir.relative_to(tmp / "out")
+        if find_occluders_routed.launches - n_r < 1:
+            fail("precompute --route-band did not launch A2")
+        for b in bins:
+            if not np.array_equal(
+                    np.fromfile(routed_dir / b.name, np.float32),
+                    np.fromfile(b, np.float32)):
+                fail(f"precompute --route-band output differs: {b.name}")
 
         # the reference API on the card, from the same particle files
         from lidar_snow_sim_tpu_torch import api
@@ -350,6 +447,16 @@ def main() -> int:
         if min(find_occluders.launches - n0[0],
                pulse_peaks.launches - n0[1]) < 1:
             fail("api.augment did not launch both kernels")
+        n_r = find_occluders_routed.launches
+        api_r = api.augment(
+            pc, f"gunn_{rr}_{occ}", cfg.beam_divergence_deg,
+            root_path=str(banks), device="cuda",
+            config=dict(route_band=384, band_group=16),
+        )
+        if find_occluders_routed.launches - n_r < 1:
+            fail("api.augment with route_band did not launch A2")
+        if api_r[1].shape[1] != 5 or not np.isfinite(api_r[1]).all():
+            fail(f"api routed output malformed: {api_r[1].shape}")
         for name, arr in (("augment", api_pc), ("wet", wet_pc)):
             if arr.shape[1] != 5 or not np.isfinite(arr).all() or \
                     not set(np.unique(arr[:, 4])) <= {0.0, 1.0, 2.0}:
@@ -357,10 +464,11 @@ def main() -> int:
     print(f"datagen: frames {manifest['stats']['frames_done']} points_out "
           f"{[len(r) for r in rows]} growths "
           f"{manifest['stats']['capacity_growths']} first_run_s "
-          f"{first_s:.1f} rerun_skipped {rerun['stats']['frames_skipped']}",
-          flush=True)
+          f"{first_s:.1f} rerun_skipped {rerun['stats']['frames_skipped']} "
+          f"route_band_run_equal True", flush=True)
 
-    print(f"api: augment stats {api_stats} out {api_pc.shape} "
+    print(f"api: augment stats {api_stats} out {api_pc.shape} routed stats "
+          f"{api_r[0]} out {api_r[1].shape} "
           f"ground_water_augmentation out {wet_pc.shape}", flush=True)
 
     kernels = [
@@ -374,6 +482,18 @@ def main() -> int:
          "replaces": "lidar_snow_sim_tpu/ops/pallas_pulse.py:173",
          "launches": launches["C1"], "max_abs_err": c1_err,
          "ms": c1_ms, "plain_ms": c1_plain_ms},
+        {"name": "A2 span-routed occluders (phase A, route_band)",
+         "route": "cuda",
+         "source": "lidar_snow_sim_tpu_torch/csrc/occluders.cu",
+         "replaces": "lidar_snow_sim_tpu/ops/pallas_occluders.py:584",
+         "launches": launches_r["A2"], "max_abs_err": a2_err,
+         "ms": a2_ms, "plain_ms": a2_plain_ms},
+        {"name": "A3 dual-banded occluders (phase A, band_width)",
+         "route": "cuda",
+         "source": "lidar_snow_sim_tpu_torch/csrc/occluders.cu",
+         "replaces": "lidar_snow_sim_tpu/ops/pallas_occluders.py:423",
+         "launches": launches_b["A3"], "max_abs_err": a3_err,
+         "ms": a3_ms, "plain_ms": a3_plain_ms},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,7 @@ reference each module is held against. Host-side code that never imports
 jax (configs, calibration, particle banks, scan IO, synthetic scenes) is
 imported from the JAX package rather than copied, and re-exported here.
 
-Kernels: phase A (`ops/occluders.py`, kernel A1) and phase C
+Kernels: phase A (`ops/occluders.py`, kernels A1, A2 and A3) and phase C
 (`ops/pulse.py`, kernel C1) are hand-written CUDA in `csrc/`, built by
 `nvcc` at first use. CUDA tensors go to the kernels, CPU tensors to their
 plain torch versions.

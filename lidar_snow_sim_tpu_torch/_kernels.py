@@ -41,6 +41,17 @@ SIGNATURES = {
             _I, _I, _I, _I, _I, _I,                    # sizes
             _P,                                        # stream
         ],
+        "occluders_a2": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+            _I, _I, _I, _I, _I, _I, _I, _I, _I,
+            _P,
+        ],
+        "occluders_a3": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+            _I, _I, _I, _I, _I, _I, _I, _I,
+            _F,                                        # delta
+            _P,
+        ],
     },
     "pulse": {
         "pulse_c1": [

@@ -4,8 +4,10 @@
 names, defaults and return contracts (`tools/snowfall/simulation.py:427-446`,
 `tools/wet_ground/augmentation.py:25-41`); the particle files are the
 reference's `{prefix}_{line}.npy`. Both take one extra keyword, `device`
-(default: the GPU when there is one). Loaded banks and augmenters are cached
-per (prefix, config, device).
+(default: the GPU when there is one); `augment` also takes `config`, a dict
+of SnowfallConfig fields set over its defaults (for example route_band=384,
+band_group=16 for the span-routed phase A). Loaded banks and augmenters are
+cached per (prefix, config, device).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ def augment(
     noise_floor: float = 0.7,
     root_path: str | None = None,
     device=None,
+    config: dict | None = None,
 ):
     """Snowfall augmentation with the reference's signature and semantics.
 
@@ -58,18 +61,22 @@ def augment(
         os.environ.get("SNOWFLAKES_DIR", "snowflakes")
     )
     cap = _next_pow2(len(pc))
+    overrides = dict(config or {})
     key = (str(directory), particle_file_prefix, beam_divergence,
-           noise_floor, cap, str(dev))
+           noise_floor, cap, str(dev), tuple(sorted(overrides.items())))
     if key not in _AUGMENTER_CACHE:
         pch = max(cap // 64, 256)
-        cfg = SnowfallConfig(
-            beam_divergence_deg=beam_divergence,
-            noise_floor=noise_floor,
-            max_points=cap,
-            assembly="dense",
-            channel_capacity=pch,
-            block_points=max(min(128, pch // 8), 32),
-        )
+        cfg = SnowfallConfig(**{
+            **dict(
+                beam_divergence_deg=beam_divergence,
+                noise_floor=noise_floor,
+                max_points=cap,
+                assembly="dense",
+                channel_capacity=pch,
+                block_points=max(min(128, pch // 8), 32),
+            ),
+            **overrides,
+        })
         bank = load_bank_files(
             directory, particle_file_prefix,
             window_size=cfg.window_size,

@@ -11,8 +11,19 @@ Per scan:
    block, one spill window per channel, and a `has` gate for windows with
    no in-channel point. Each chunk reads one bank slice of slice_width +
    128 columns, its start aligned down to 128, from the bank's azimuth LUT;
-3. phase A: kernel A1 (`ops/occluders.py`), the nearest K occluders of
-   every beam;
+3. phase A (`ops/occluders.py`), the nearest K occluders of every beam, by
+   one of three kernels:
+   - A1, the full slice per chunk (the default);
+   - A2 with `route_band > 0`: chunks whose every `band_group` of beams
+     provably fits one `route_band`-wide window (conservative LUT bounds
+     per group) test only that band, the rest take A1's body;
+   - A3 with `band_width > 0` (supersedes `route_band`): two bands per
+     group, head- and tail-anchored, and a per-beam coverage plane that
+     counts into window_overflow where the group's hull is uncovered.
+   A2 and A3 run where the JAX package takes them
+   (models/snowfall.py:504-514): `block_points % band_group == 0` and a
+   widened slice at least `route_band` (A2) or `2 * band_width` (A3) wide;
+   elsewhere A1 runs;
 4. phase B: the occluded beams compacted, keyed (occluder count, slot);
 5. phase C: kernel C1 (`ops/pulse.py`), sweep and pulse peak, then the
    label/intensity decision tail in torch;
@@ -21,14 +32,15 @@ Per scan:
 The slice geometry, and so every overflow counter, is the JAX Pallas
 branch's, so the counters of the two packages can be compared. Where a
 bank row is shorter than the widened slice (the JAX package then takes its
-XLA branch) the port keeps this layout and clips the slice to the row.
+XLA branch, which neither routes nor bands) the port keeps A1's layout and
+clips the slice to the row.
 
 Configuration knobs that only choose between bit-identical TPU layouts are
 ignored: pallas_pair, pallas_transposed, pulse_pair, batch_fold,
 pulse_block, use_pallas, pallas_interpret and chunk_group. The device
 decides instead: a CUDA tensor goes to the kernels, a CPU tensor to their
-plain versions. `route_band > 0` and `band_width > 0` (kernels A2 and A3)
-and `assembly="window"` raise NotImplementedError (ROADMAP.md, Open items).
+plain versions. `assembly="window"` raises NotImplementedError (ROADMAP.md,
+Open items).
 """
 
 from __future__ import annotations
@@ -61,6 +73,8 @@ from lidar_snow_sim_tpu_torch.ops.geometry import beam_limits, norm3
 from lidar_snow_sim_tpu_torch.ops.laser import estimate_laser_parameters
 from lidar_snow_sim_tpu_torch.ops.occluders import (
     find_occluders,
+    find_occluders_banded,
+    find_occluders_routed,
     point_features,
 )
 from lidar_snow_sim_tpu_torch.ops.pulse import pulse_peaks
@@ -149,11 +163,6 @@ def check_supported(cfg: SnowfallConfig) -> None:
             "yet (ROADMAP.md, Open items 1, window assembly); use "
             "assembly='dense', whose output equals it"
         )
-    if cfg.route_band > 0 or cfg.band_width > 0:
-        raise NotImplementedError(
-            "route_band/band_width select kernels A2/A3, which are not "
-            "ported yet (ROADMAP.md, Open items 2)"
-        )
 
 
 def _plane_and_noise(xyz, intensity, mask, dist, draws, cfg, plane):
@@ -180,7 +189,7 @@ def _plane_and_noise(xyz, intensity, mask, dist, draws, cfg, plane):
 @dataclasses.dataclass
 class DenseLayout:
     """A scan laid out for phase A: the (channel, azimuth)-sorted payload,
-    the chunk windows, and the arguments of `find_occluders`."""
+    the chunk windows, and the phase-A kernel with its arguments."""
 
     n: int
     n_pad: int
@@ -196,9 +205,65 @@ class DenseLayout:
     valid_blk: torch.Tensor  # (n_chunks, blk) in-channel rows
     rank_flat: torch.Tensor  # (n_chunks * blk,) sorted rank of each slot
     channel_overflow: torch.Tensor
-    window_overflow: torch.Tensor
-    occluder_args: tuple     # positional arguments of find_occluders
+    window_overflow: torch.Tensor  # the layout's share (see run_phase_a)
+    kernel: str              # phase-A kernel: "A1", "A2" or "A3"
+    occluder_args: tuple     # positional arguments of its wrapper
     occluder_kw: dict        # its keyword arguments
+    # (n_chunks,) each chunk's bank-slice start; A3's bands lie inside the
+    # slice, and its kernel reads them from the bank directly
+    slice_lo: torch.Tensor
+    # A3: (n_chunks, blk) in-channel beams whose group's LUT hull its band
+    # A does not cover; those the kernel finds uncovered count as overflow
+    cover_mask: torch.Tensor | None = None
+
+
+def _lut_bounds(bank: BankTensors, rows, min_az, max_az, delta: float):
+    """Conservative bank-column bounds (lo, hi) of the azimuth windows
+    [min_az - delta, max_az + delta] in bank rows `rows`, from the bank's
+    azimuth-bin LUT with a one-bin guard on each side."""
+    inv_w = LUT_BINS / (LUT_HI - LUT_LO)
+    b_lo = torch.clamp(
+        torch.floor((min_az - delta - LUT_LO) * inv_w) - 1, 0, LUT_BINS
+    ).to(torch.int64)
+    b_hi = torch.clamp(
+        torch.floor((max_az + delta - LUT_LO) * inv_w) + 2, 0, LUT_BINS
+    ).to(torch.int64)
+    return bank.lut[rows, b_lo], bank.lut[rows, b_hi]
+
+
+def group_az_bounds(sx, sy, s_key, w0_raw, ch_of_chunk, gsz: int,
+                    g_dim: int):
+    """Azimuth bounds (min, max), each (n_chunks, G), of the in-channel
+    rows of every chunk's `gsz`-row groups (models/snowfall.py:591-665).
+
+    The JAX package's rule, kept exactly: statistics are taken over every
+    `gsz`-aligned window of the sorted order under two hypotheses, the
+    channel of the window's first row and that of its last; a chunk takes
+    the one that is its own channel. A window holding three channels (a
+    channel of fewer than `gsz` rows in its middle) matches neither for the
+    middle one, whose bounds fall back to -1e9 / 1e9. Callers mask groups
+    without an in-channel row.
+    """
+    inf = float("inf")
+    wz = torch.atan2(sy, sx).reshape(-1, gsz)
+    wch = torch.round(s_key / 8.0).to(torch.int64).reshape(-1, gsz)
+    chf, chl = wch[:, 0], wch[:, -1]
+    mf = wch == chf[:, None]
+    ml = wch == chl[:, None]
+    minf = torch.where(mf, wz, inf).amin(dim=1)
+    maxf = torch.where(mf, wz, -inf).amax(dim=1)
+    minl = torch.where(ml, wz, inf).amin(dim=1)
+    maxl = torch.where(ml, wz, -inf).amax(dim=1)
+    n_win = wz.shape[0]
+    win = (w0_raw // gsz)[:, None] + torch.arange(g_dim, device=sx.device)
+    inside = win < n_win          # windows past the end hold no row
+    win = win.clamp(max=n_win - 1)
+    ch = ch_of_chunk[:, None]
+    sel_f = inside & (chf[win] == ch)
+    sel_l = inside & (chl[win] == ch)
+    lo = torch.where(sel_f, minf[win], torch.where(sel_l, minl[win], -1e9))
+    hi = torch.where(sel_f, maxf[win], torch.where(sel_l, maxl[win], 1e9))
+    return lo, hi
 
 
 def dense_layout(points, mask, bank: BankTensors, order, draws,
@@ -262,51 +327,144 @@ def dense_layout(points, mask, bank: BankTensors, order, draws,
         & (rank_blk >= start_c[:, None])
         & (rank_blk < end_c[:, None])
     )
-    a_lo = torch.maximum(w0, start_c)
-    a_hi = torch.minimum(w0 + blk, end_c)
-    has = alive & (a_lo < a_hi)
-
-    # azimuth ascends within a channel, so a window's bounds are its first
-    # and last in-channel rows, recomputed with the sort key's atan2
-    ia = a_lo.clamp(0, n_pad - 1)
-    ib = (a_hi - 1).clamp(0, n_pad - 1)
-    min_az = torch.where(has, torch.atan2(sy[ia], sx[ia]), float("inf"))
-    max_az = torch.where(has, torch.atan2(sy[ib], sx[ib]), -float("inf"))
-    # conservative slice bounds from the bank's azimuth-bin LUT (+-1 bin)
-    inv_w = LUT_BINS / (LUT_HI - LUT_LO)
-    b_lo = torch.clamp(
-        torch.floor((min_az - delta - LUT_LO) * inv_w) - 1, 0, LUT_BINS
-    ).to(torch.int64)
-    b_hi = torch.clamp(
-        torch.floor((max_az + delta - LUT_LO) * inv_w) + 2, 0, LUT_BINS
-    ).to(torch.int64)
-    lo_raw = bank.lut[row_of_chunk, b_lo]
-    hi_req = bank.lut[row_of_chunk, b_hi]
-    lo = lo_raw.clamp(0, max(k_ext - w_pallas, 0))
-    lo = (lo // 128) * 128
-    # a slice at least count wide covers one wrap period = every particle,
-    # so only count > w_pallas can under-cover
     counts = bank.count
-    uncovered = counts[row_of_chunk] > w_pallas
-    window_overflow = torch.where(
-        has & uncovered, (hi_req - (lo + w_pallas)).clamp_min(0), 0
-    ).sum()
-
-    feats = point_features(sx, sy, sz, cfg.beam_divergence_rad)
+    feats = point_features(sx, sy, sz, cfg.beam_divergence_rad).contiguous()
     i32 = torch.int32
+    head = (feats, (w0 // blk).to(i32), row_of_chunk.to(i32))
+    tail = (counts.to(i32), bank.data_t, bank.wide_t)
+    k_occ = cfg.max_occluders
+
+    # A2 and A3 where the JAX package takes them (models/snowfall.py:
+    # 504-524); its XLA branch, for a bank row shorter than the widened
+    # slice, takes neither
+    gsz = cfg.band_group
+    grouped = blk % gsz == 0 and k_ext >= w_pallas
+    band = cfg.band_width if (
+        grouped and 0 < 2 * cfg.band_width <= w_pallas
+    ) else 0
+    band_r = cfg.route_band if (
+        grouped and not band and 0 < cfg.route_band <= w_pallas
+    ) else 0
+    cover_mask = None
+    if band or band_r:
+        g_dim = blk // gsz
+        lo_row = w0[:, None] + torch.arange(g_dim, device=dev) * gsz
+        has = alive[:, None] & (
+            torch.maximum(lo_row, start_c[:, None])
+            < torch.minimum(lo_row + gsz, end_c[:, None])
+        )                                               # (n_chunks, G)
+        g_lo, g_hi = group_az_bounds(sx, sy, s_key, w0_raw, ch_of_chunk,
+                                     gsz, g_dim)
+        min_az = torch.where(has, g_lo, float("inf"))
+        max_az = torch.where(has, g_hi, -float("inf"))
+        lo_raw, hi_req = _lut_bounds(bank, row_of_chunk[:, None], min_az,
+                                     max_az, delta)
+        # the chunk's slice is anchored on the hull of its groups, as A1's
+        lo_c_raw, hi_c_req = _lut_bounds(bank, row_of_chunk,
+                                         min_az.amin(dim=1),
+                                         max_az.amax(dim=1), delta)
+        lo_c = (lo_c_raw.clamp(0, k_ext - w_pallas) // 128) * 128
+        cnt_c = counts[row_of_chunk]
+        chunk_unc = (cnt_c > w_pallas) & (hi_c_req > lo_c + w_pallas)
+        window_overflow = torch.where(
+            chunk_unc, (hi_c_req - (lo_c + w_pallas)).clamp_min(0), 0
+        ).sum()
+        cnt_g = cnt_c[:, None]
+        lo_c1 = lo_c[:, None]
+        # only the first wide_capacity wide columns can hold particles
+        wide_sl = min(bank.wide_t.shape[2],
+                      max(32, -(-cfg.wide_capacity // 32) * 32))
+    if band:
+        # two bands per group, both inside the chunk's slice: A aligned
+        # down from the group's first column, B ending at or past its last
+        lo_a = (lo_raw.clamp(0, k_ext - band) // 128) * 128
+        lo_b = (-torch.div(band - hi_req, 128, rounding_mode="floor")
+                * 128).clamp(0, k_ext - band)
+        lo_a = lo_a.clamp(lo_c1, lo_c1 + (w_pallas - band))
+        lo_b = lo_b.clamp(lo_c1, lo_c1 + (w_pallas - band))
+        # a beam is uncovered only if both checks say so: the hull check
+        # cannot see an azimuth gap, the kernel's angle check an empty
+        # window (models/snowfall.py:773-789)
+        hull_unc = (cnt_g > band) & (hi_req > lo_a + band)
+        cover_mask = (
+            valid_blk.reshape(n_chunks, g_dim, gsz) & hull_unc[:, :, None]
+        ).reshape(n_chunks, blk)
+        kernel = "A3"
+        args = (*head, lo_a.reshape(-1).to(i32), lo_b.reshape(-1).to(i32),
+                *tail)
+        kw = dict(blk=blk, k_occ=k_occ, band=band, group=gsz,
+                  wide_sl=wide_sl, delta=delta)
+    elif band_r:
+        # one band per group aligned down from its first column, inside the
+        # chunk's slice; the upper clamp floors to 128 for any band width
+        lo_a = (lo_raw.clamp(0, k_ext - band_r) // 128) * 128
+        lo_a = lo_a.clamp(lo_c1, lo_c1 + ((w_pallas - band_r) // 128) * 128)
+        # a chunk is fast when every live group's conservative window lies
+        # in its band (or the band holds a whole wrap period) and the
+        # chunk's own slice is covered; the deficit summed below is then 0
+        # by construction and guards the routing itself
+        fits_g = ~has | (cnt_g <= band_r) | (hi_req <= lo_a + band_r)
+        fits = fits_g.all(dim=1) & ~chunk_unc
+        mode = torch.where(has.any(dim=1), torch.where(fits, 2, 1), 0)
+        window_overflow = window_overflow + torch.where(
+            has & fits[:, None] & (cnt_g > band_r),
+            (hi_req - (lo_a + band_r)).clamp_min(0), 0,
+        ).sum()
+        kernel = "A2"
+        args = (*head, lo_c.to(i32), lo_a.reshape(-1).to(i32), mode.to(i32),
+                *tail)
+        kw = dict(blk=blk, w_sl=w_pallas, k_occ=k_occ, band=band_r,
+                  group=gsz, wide_sl=wide_sl)
+    else:
+        a_lo = torch.maximum(w0, start_c)
+        a_hi = torch.minimum(w0 + blk, end_c)
+        has = alive & (a_lo < a_hi)
+        # azimuth ascends within a channel, so a window's bounds are its
+        # first and last in-channel rows, recomputed with the sort key's
+        # atan2
+        ia = a_lo.clamp(0, n_pad - 1)
+        ib = (a_hi - 1).clamp(0, n_pad - 1)
+        min_az = torch.where(has, torch.atan2(sy[ia], sx[ia]), float("inf"))
+        max_az = torch.where(has, torch.atan2(sy[ib], sx[ib]),
+                             -float("inf"))
+        lo_raw, hi_req = _lut_bounds(bank, row_of_chunk, min_az, max_az,
+                                     delta)
+        lo = lo_raw.clamp(0, max(k_ext - w_pallas, 0))
+        lo = (lo // 128) * 128
+        # a slice at least count wide covers one wrap period = every
+        # particle, so only count > w_pallas can under-cover
+        uncovered = counts[row_of_chunk] > w_pallas
+        window_overflow = torch.where(
+            has & uncovered, (hi_req - (lo + w_pallas)).clamp_min(0), 0
+        ).sum()
+        kernel = "A1"
+        args = (*head, lo.to(i32), has.to(i32), *tail)
+        kw = dict(blk=blk, w_sl=w_pallas, k_occ=k_occ)
+
     return DenseLayout(
         n=n, n_pad=n_pad, n_chunks=n_chunks, blk=blk, bpc1=bpc1,
         xyz=xyz, intensity=intensity, mask=mask, noise_at=noise_at,
         sorted_cols=cols, sperm=perm, valid_blk=valid_blk,
         rank_flat=rank_blk.reshape(-1),
         channel_overflow=channel_overflow, window_overflow=window_overflow,
-        occluder_args=(
-            feats.contiguous(), (w0 // blk).to(i32),
-            row_of_chunk.to(i32), lo.to(i32), has.to(i32),
-            counts.to(i32), bank.data_t, bank.wide_t,
-        ),
-        occluder_kw=dict(blk=blk, w_sl=w_pallas, k_occ=cfg.max_occluders),
+        kernel=kernel, occluder_args=args, occluder_kw=kw,
+        slice_lo=lo_c if (band or band_r) else lo, cover_mask=cover_mask,
     )
+
+
+def run_phase_a(lay: DenseLayout):
+    """Phase A on the layout's kernel. Returns (a12d, ovf,
+    window_overflow): A3 adds to the layout's count the beams its coverage
+    plane flags among `cover_mask`."""
+    if lay.kernel == "A3":
+        a12d, ovf, unc = find_occluders_banded(*lay.occluder_args,
+                                               **lay.occluder_kw)
+        return a12d, ovf, lay.window_overflow + torch.where(
+            lay.cover_mask, unc, 0
+        ).sum()
+    run = find_occluders_routed if lay.kernel == "A2" else find_occluders
+    a12d, ovf = run(*lay.occluder_args, **lay.occluder_kw)
+    return a12d, ovf, lay.window_overflow
 
 
 @dataclasses.dataclass
@@ -408,9 +566,10 @@ def compact_occluded(lay: DenseLayout, a12d, ovf, calib: CalibTensors,
 
 
 def scatter_back(lay: DenseLayout, comp: Compacted, pulse_out,
-                 cfg: SnowfallConfig) -> SnowfallResult:
+                 cfg: SnowfallConfig, window_overflow) -> SnowfallResult:
     """Decision tail (simulation.py:151-192) and phase D, the touched-only
-    scatter back to the original order (models/snowfall.py:1155-1325)."""
+    scatter back to the original order (models/snowfall.py:1155-1325).
+    `window_overflow` is phase A's count (`run_phase_a`)."""
     i_peak, peak_idx, touched, _ = pulse_out
     cap, c_ok = comp.cap, comp.c_ok
     c_min, c_fs, c_fo, c_max = comp.c_lut
@@ -493,7 +652,7 @@ def scatter_back(lay: DenseLayout, comp: Compacted, pulse_out,
         num_attenuated=num_attenuated.to(i32),
         num_removed=num_removed.to(i32),
         avg_intensity_diff=avg_diff.to(i32),
-        window_overflow=lay.window_overflow.to(i32),
+        window_overflow=window_overflow.to(i32),
         occluder_overflow=comp.occluder_overflow.to(i32),
         bump_overflow=torch.zeros((), dtype=i32, device=mask.device),
         channel_overflow=lay.channel_overflow.to(i32),
@@ -518,10 +677,10 @@ def snowfall_augment_dense(points, mask, bank: BankTensors,
     host with `keep`.
     """
     lay = dense_layout(points, mask, bank, order, draws, cfg, plane)
-    a12d, ovf = find_occluders(*lay.occluder_args, **lay.occluder_kw)
+    a12d, ovf, window_overflow = run_phase_a(lay)
     comp = compact_occluded(lay, a12d, ovf, calib, cfg)
     out = pulse_peaks(*comp.pulse_args, **comp.pulse_kw)
-    return scatter_back(lay, comp, out, cfg)
+    return scatter_back(lay, comp, out, cfg, window_overflow)
 
 
 def grown_config(cfg: SnowfallConfig, name: str, k_ext: int,
@@ -530,9 +689,15 @@ def grown_config(cfg: SnowfallConfig, name: str, k_ext: int,
     doubled, or None when nothing can grow (the dense assembly's healers,
     models/snowfall.py:1358-1402)."""
     if name == "window_overflow":
-        if cfg.slice_width >= k_ext:
+        new = {}
+        if cfg.band_width:
+            nb = min(cfg.band_width * 2, (k_ext // 128) * 128)
+            if nb > cfg.band_width:
+                new["band_width"] = nb
+        if cfg.slice_width < k_ext:
+            new["slice_width"] = min(cfg.slice_width * 2, k_ext)
+        if not new:
             return None
-        new = dict(slice_width=min(cfg.slice_width * 2, k_ext))
     elif name == "occluder_overflow":
         new = dict(
             max_occluders=cfg.max_occluders * 2,

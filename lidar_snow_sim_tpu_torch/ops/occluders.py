@@ -1,12 +1,31 @@
 """Phase A of the dense snowfall assembly: the nearest K occluders of each
 beam (counterpart of `lidar_snow_sim_tpu/ops/pallas_occluders.py`).
 
-`find_occluders` launches kernel A1 (`csrc/occluders.cu`) on CUDA tensors
-and runs `occluders_plain`, the same function in plain torch, on CPU
-tensors. Both follow the arithmetic of the TPU kernel `_kernel`
-(pallas_occluders.py:150): an exact hit test of every beam of a chunk
-against one bank slice plus the row's wide list, then the K nearest hits
-in lax.top_k order (ascending range, ties to the lowest column).
+Three kernels, all in `csrc/occluders.cu`, each with a wrapper that
+launches it on CUDA tensors and runs its plain torch version on CPU
+tensors. All follow the arithmetic of the TPU kernels: an exact hit test
+of every beam of a chunk against a candidate list, then the K nearest hits
+in lax.top_k order over that list (ascending range, ties to the lowest
+candidate column).
+
+- A1 (`find_occluders`, `occluders_plain`; TPU `_kernel`,
+  pallas_occluders.py:150): every beam against one bank slice plus the
+  row's whole wide list. The default layout.
+- A2 (`find_occluders_routed`, `occluders_routed_plain`; TPU
+  `_kernel_routed`, :584): each chunk in one of three modes, chosen by the
+  layout from conservative per-group LUT bounds: 0 dead, 1 A1's body, 2
+  each `group` of beams against its own `band`-wide window of the slice
+  plus the first `wide_sl` wide columns. Chosen by `route_band > 0`.
+- A3 (`find_occluders_banded`, `occluders_banded_plain`; TPU
+  `_kernel_banded`, :423): each group against two bands, head- and
+  tail-anchored, plus `wide_sl` wide columns, and a per-beam coverage
+  plane. Chosen by `band_width > 0`, which supersedes `route_band`.
+
+Wrap-pad dedup: a bank row repeats its narrow particles with period
+`count`, so a candidate is kept only as the first copy counted from where
+its list starts (A1 and mode 1: the slice start; mode 2: the band start;
+A3: band A's start, and band B drops what band A holds). Copies carry
+bit-identical properties, so the layouts agree.
 
 Point-feature rows (`point_features`): [d_orig, right, left, sin_r, cos_r,
 sin_l, cos_l, wrapped_beam, signed azimuth]. Bank property rows
@@ -14,10 +33,11 @@ sin_l, cos_l, wrapped_beam, signed azimuth]. Bank property rows
 half-width, signed sort angle, 0].
 
 Outputs: a12d (3K, n_chunks * blk) holding [a1; a2; dist], K outer, with
-a1 = a2 = 0 and dist = 3e38 in empty slots (the TPU kernel leaves a retired
-column's a1/a2 there, so compare a1/a2 only where dist < 1e37), and the
-per-beam overflow max(n_hit - K, 0) as (n_chunks, blk) int32. Dead chunks
-(`has == 0`) hold the empty-slot sentinels and zero overflow.
+a1 = a2 = 0 and dist = 3e38 in empty slots (the TPU kernels leave a
+retired column's a1/a2 there, so compare a1/a2 only where dist < 1e37), and
+the per-beam overflow max(n_hit - K, 0) as (n_chunks, blk) int32. Dead
+chunks (A1 `has == 0`, A2 mode 0) hold the empty-slot sentinels and zero
+overflow; A3 computes every chunk, as the TPU kernel does.
 """
 
 from __future__ import annotations
@@ -29,8 +49,9 @@ from lidar_snow_sim_tpu_torch.ops.geometry import TWO_PI, beam_limits
 
 BIG = 3.0e38
 N_FEAT = 9
+SANG_ROW = 6          # bank property row of the signed sort angle
 MAX_OCCLUDERS = 512   # largest K the kernel's per-thread list is built for
-_GROUP = 32           # chunks per step of the plain version (bounds memory)
+_GROUP = 32           # chunks per step of the plain versions (bounds memory)
 
 
 def point_features(x, y, z, beam_rad: float):
@@ -48,6 +69,73 @@ def point_features(x, y, z, beam_rad: float):
     )
 
 
+def _nearest(f, cand, keep, k_occ: int):
+    """Hit test of beams f (B, P, 9) against candidates cand (B, C, 8),
+    where keep (B, C) is set; the K nearest hits of each beam in candidate
+    order. Returns (top (3, B, P, min(K, C)) [a1; a2; dist], ovf (B, P))."""
+    px, py, pr, pdist, pang, halfw = (cand[:, None, :, i] for i in range(6))
+    d_orig, right, left, sin_r, cos_r, sin_l, cos_l = (
+        f[:, :, i:i + 1] for i in range(7)
+    )                                                   # (B, P, 1)
+    wrapped = f[:, :, 7:8] > 0.5
+
+    center_in = (right <= pang) & (pang <= left)
+    center_in |= wrapped & (right - TWO_PI <= pang) & (pang <= left)
+    center_in |= wrapped & (right <= pang) & (pang <= left + TWO_PI)
+    dist_r = torch.abs(px * sin_r - py * cos_r)
+    dist_l = torch.abs(px * sin_l - py * cos_l)
+    right_hit = (dist_r < pr) & (cos_r * px + sin_r * py > 0)
+    left_hit = (dist_l < pr) & (cos_l * px + sin_l * py > 0)
+    hit = (center_in | right_hit | left_hit) & (pdist < d_orig)
+    hit &= keep[:, None, :]
+
+    a1_raw = pang - halfw
+    a1_raw = torch.where(a1_raw < 0, a1_raw + TWO_PI, a1_raw)
+    a2_raw = pang + halfw
+    a2_raw = torch.where(a2_raw > TWO_PI, a2_raw - TWO_PI, a2_raw)
+    a1 = torch.where(right_hit, right, a1_raw)
+    a2 = torch.where(left_hit, left, a2_raw)
+
+    n_hit = hit.sum(dim=2)
+    score = torch.where(hit, pdist, BIG)
+    # stable sort: ascending range, ties to the lowest column
+    val, idx = torch.sort(score, dim=2, stable=True)
+    k_have = min(k_occ, val.shape[2])
+    val, idx = val[:, :, :k_have], idx[:, :, :k_have]
+    kept = val < BIG
+    top = torch.stack([
+        torch.where(kept, torch.gather(a1, 2, idx), 0.0),
+        torch.where(kept, torch.gather(a2, 2, idx), 0.0),
+        val,                                            # BIG where empty
+    ])
+    return top, (n_hit - k_occ).clamp_min(0).to(torch.int32)
+
+
+def _empty(n_chunks: int, blk: int, k_occ: int, dev):
+    """The [a1; a2; dist] planes (3, K, n_chunks, blk) and the overflow
+    (n_chunks, blk) of chunks that hold no hit."""
+    a12d = torch.zeros((3, k_occ, n_chunks, blk), dtype=torch.float32,
+                       device=dev)
+    a12d[2] = BIG
+    return a12d, torch.zeros((n_chunks, blk), dtype=torch.int32, device=dev)
+
+
+def _put(a12d, ovf, sl, top, o, blk: int):
+    """Store the (3, B * blk // P, P, k) top lists of chunks `sl`."""
+    k_have = top.shape[3]
+    a12d[:, :k_have, sl] = top.reshape(3, len(sl), blk, k_have).permute(
+        0, 3, 1, 2
+    )
+    ovf[sl] = o.reshape(len(sl), blk)
+
+
+def _band_cands(props, row, starts, band: int, k_ext: int):
+    """Bank columns starts[b, g] + j, j < band, of rows `row` (B,): their
+    (B, G, band, 8) properties and column indices."""
+    cols = starts[:, :, None] + torch.arange(band, device=row.device)
+    return props[row[:, None, None], cols.clamp(max=k_ext - 1)], cols
+
+
 def occluders_plain(feats, w0b, rows, los, has, counts, data_t, wide_t, *,
                     blk: int, w_sl: int, k_occ: int):
     """Plain torch version of kernel A1, _GROUP live chunks at a time."""
@@ -57,25 +145,19 @@ def occluders_plain(feats, w0b, rows, los, has, counts, data_t, wide_t, *,
     props = data_t.permute(0, 2, 1)                    # (C, k_ext, 8)
     wide = wide_t.permute(0, 2, 1)                     # (C, wc, 8)
     fb = feats.reshape(-1, blk, N_FEAT)
-    # [a1; a2; dist] planes start as the empty-slot sentinels, which is
-    # all a dead chunk holds
-    a12d = torch.zeros((3, k_occ, n_chunks, blk), dtype=torch.float32,
-                       device=dev)
-    a12d[2] = BIG
-    ovf = torch.zeros((n_chunks, blk), dtype=torch.int32, device=dev)
+    a12d, ovf = _empty(n_chunks, blk, k_occ, dev)
     offs = torch.arange(w_sl, device=dev)
     live = torch.nonzero(has).flatten()
     for g0 in range(0, live.shape[0], _GROUP):
         sl = live[g0:g0 + _GROUP]
         row = rows[sl].long()
-        f = fb[w0b[sl].long()]                          # (G, blk, 9)
-        cols = los[sl].long()[:, None] + offs[None, :]  # (G, w_sl)
+        cols = los[sl].long()[:, None] + offs[None, :]  # (B, w_sl)
         cand = torch.cat(
             [props[row[:, None], cols.clamp(max=k_ext - 1)], wide[row]], dim=1
-        )                                               # (G, Ct, 8)
+        )                                               # (B, Ct, 8)
         # wrap-pad dedup (a slice column at or past the row's narrow count
         # repeats an earlier particle) and the end of the bank row
-        col_ok = torch.cat(
+        keep = torch.cat(
             [
                 (cols < k_ext) & (offs[None, :] < counts[row].long()[:, None]),
                 torch.ones((row.shape[0], wide.shape[1]), dtype=torch.bool,
@@ -83,46 +165,149 @@ def occluders_plain(feats, w0b, rows, los, has, counts, data_t, wide_t, *,
             ],
             dim=1,
         )
-        px, py, pr, pdist, pang, halfw = (
-            cand[:, None, :, i] for i in range(6)
-        )                                               # (G, 1, Ct)
-        d_orig, right, left, sin_r, cos_r, sin_l, cos_l = (
-            f[:, :, i:i + 1] for i in range(7)
-        )                                               # (G, blk, 1)
-        wrapped = f[:, :, 7:8] > 0.5
-
-        center_in = (right <= pang) & (pang <= left)
-        center_in |= wrapped & (right - TWO_PI <= pang) & (pang <= left)
-        center_in |= wrapped & (right <= pang) & (pang <= left + TWO_PI)
-        dist_r = torch.abs(px * sin_r - py * cos_r)
-        dist_l = torch.abs(px * sin_l - py * cos_l)
-        right_hit = (dist_r < pr) & (cos_r * px + sin_r * py > 0)
-        left_hit = (dist_l < pr) & (cos_l * px + sin_l * py > 0)
-        hit = (center_in | right_hit | left_hit) & (pdist < d_orig)
-        hit &= col_ok[:, None, :]
-
-        a1_raw = pang - halfw
-        a1_raw = torch.where(a1_raw < 0, a1_raw + TWO_PI, a1_raw)
-        a2_raw = pang + halfw
-        a2_raw = torch.where(a2_raw > TWO_PI, a2_raw - TWO_PI, a2_raw)
-        a1 = torch.where(right_hit, right, a1_raw)
-        a2 = torch.where(left_hit, left, a2_raw)
-
-        n_hit = hit.sum(dim=2)
-        score = torch.where(hit, pdist, BIG)
-        # stable sort: ascending range, ties to the lowest column
-        val, idx = torch.sort(score, dim=2, stable=True)
-        k_have = min(k_occ, val.shape[2])
-        val, idx = val[:, :, :k_have], idx[:, :, :k_have]
-        kept = val < BIG
-        top = torch.stack([
-            torch.where(kept, torch.gather(a1, 2, idx), 0.0),
-            torch.where(kept, torch.gather(a2, 2, idx), 0.0),
-            val,                                        # BIG where empty
-        ])                                              # (3, G, blk, k_have)
-        a12d[:, :k_have, sl] = top.permute(0, 3, 1, 2)
-        ovf[sl] = (n_hit - k_occ).clamp_min(0).to(torch.int32)
+        top, o = _nearest(fb[w0b[sl].long()], cand, keep, k_occ)
+        _put(a12d, ovf, sl, top, o, blk)
     return a12d.reshape(3 * k_occ, n_chunks * blk), ovf
+
+
+def occluders_routed_plain(feats, w0b, rows, los, gloa, mode, counts, data_t,
+                           wide_t, *, blk: int, w_sl: int, k_occ: int,
+                           band: int, group: int, wide_sl: int):
+    """Plain torch version of kernel A2: mode-1 chunks through A1's plain
+    version, mode-2 chunks _GROUP at a time, each group of `group` beams
+    against bank columns [gloa, gloa + band) then wide[:wide_sl]."""
+    n_chunks = rows.shape[0]
+    k_ext = data_t.shape[2]
+    dev = feats.device
+    g_dim = blk // group
+    a12d, ovf = occluders_plain(
+        feats, w0b, rows, los, (mode == 1).to(torch.int32), counts, data_t,
+        wide_t, blk=blk, w_sl=w_sl, k_occ=k_occ,
+    )
+    a12d = a12d.reshape(3, k_occ, n_chunks, blk)
+    props = data_t.permute(0, 2, 1)
+    wide = wide_t.permute(0, 2, 1)[:, :wide_sl]
+    fb = feats.reshape(-1, blk, N_FEAT)
+    starts = gloa.reshape(n_chunks, g_dim).long()
+    fast = torch.nonzero(mode == 2).flatten()
+    for g0 in range(0, fast.shape[0], _GROUP):
+        sl = fast[g0:g0 + _GROUP]
+        nb = sl.shape[0]
+        row = rows[sl].long()
+        band_c, cols = _band_cands(props, row, starts[sl], band, k_ext)
+        cand = torch.cat(
+            [band_c, wide[row][:, None].expand(nb, g_dim, wide_sl, 8)], dim=2
+        ).reshape(nb * g_dim, band + wide_sl, 8)
+        # one copy per wrap period, counted from the band start
+        j = torch.arange(band, device=dev)
+        keep = torch.cat(
+            [
+                (cols < k_ext) & (j < counts[row].long()[:, None, None]),
+                torch.ones((nb, g_dim, wide_sl), dtype=torch.bool,
+                           device=dev),
+            ],
+            dim=2,
+        ).reshape(nb * g_dim, -1)
+        f = fb[w0b[sl].long()].reshape(nb * g_dim, group, N_FEAT)
+        top, o = _nearest(f, cand, keep, k_occ)
+        _put(a12d, ovf, sl, top, o, blk)
+    return a12d.reshape(3 * k_occ, n_chunks * blk), ovf
+
+
+def occluders_banded_plain(feats, w0b, rows, gloa, glob, counts, data_t,
+                           wide_t, *, blk: int, k_occ: int, band: int,
+                           group: int, wide_sl: int, delta: float):
+    """Plain torch version of kernel A3, every chunk, _GROUP at a time.
+
+    Each group of `group` beams tests bank columns [gloa, gloa + band)
+    (band A), then [glob, glob + band) less the columns band A holds (band
+    B), then wide[:wide_sl]. Returns (a12d, ovf, unc): unc (n_chunks, blk)
+    int32 is 1 where a beam's sort-angle window [az - delta, az + delta]
+    lies in neither band nor, when they overlap or adjoin, their union
+    (pallas_occluders.py:536-556).
+    """
+    n_chunks = rows.shape[0]
+    k_ext = data_t.shape[2]
+    dev = feats.device
+    g_dim = blk // group
+    a12d, ovf = _empty(n_chunks, blk, k_occ, dev)
+    unc = torch.zeros((n_chunks, blk), dtype=torch.int32, device=dev)
+    props = data_t.permute(0, 2, 1)
+    wide = wide_t.permute(0, 2, 1)[:, :wide_sl]
+    fb = feats.reshape(-1, blk, N_FEAT)
+    starts_a = gloa.reshape(n_chunks, g_dim).long()
+    starts_b = glob.reshape(n_chunks, g_dim).long()
+    delta = torch.full((), delta, dtype=torch.float32, device=dev)
+    j = torch.arange(band, device=dev)
+    for c0 in range(0, n_chunks, _GROUP):
+        sl = torch.arange(c0, min(c0 + _GROUP, n_chunks), device=dev)
+        nb = sl.shape[0]
+        row = rows[sl].long()
+        cnt = counts[row].long()[:, None, None]
+        la, lb = starts_a[sl], starts_b[sl]             # (B, G)
+        d_ab = (lb - la)[:, :, None]
+        cand_a, cols_a = _band_cands(props, row, la, band, k_ext)
+        cand_b, cols_b = _band_cands(props, row, lb, band, k_ext)
+        cand = torch.cat(
+            [cand_a, cand_b,
+             wide[row][:, None].expand(nb, g_dim, wide_sl, 8)], dim=2,
+        ).reshape(nb * g_dim, 2 * band + wide_sl, 8)
+        keep = torch.cat(
+            [
+                (cols_a < k_ext) & (j < cnt),
+                (cols_b < k_ext) & (d_ab + j >= band) & (d_ab + j < cnt),
+                torch.ones((nb, g_dim, wide_sl), dtype=torch.bool,
+                           device=dev),
+            ],
+            dim=2,
+        ).reshape(nb * g_dim, -1)
+        f = fb[w0b[sl].long()].reshape(nb * g_dim, group, N_FEAT)
+        top, o = _nearest(f, cand, keep, k_occ)
+        _put(a12d, ovf, sl, top, o, blk)
+
+        sang = data_t[row, SANG_ROW]                    # (B, k_ext)
+
+        def edge(c):
+            return torch.gather(sang, 1, c.clamp(max=k_ext - 1))[:, :, None]
+
+        s_a0, s_a1 = edge(la), edge(la + band - 1)      # (B, G, 1)
+        s_b0, s_b1 = edge(lb), edge(lb + band - 1)
+        azp = f[:, :, 8].reshape(nb, g_dim, group)
+        need_l, need_r = azp - delta, azp + delta
+        in_a = (s_a0 <= need_l) & (need_r <= s_a1)
+        in_b = (s_b0 <= need_l) & (need_r <= s_b1)
+        in_j = (d_ab <= band) & (s_a0 <= need_l) & (need_r <= s_b1)
+        covered = (cnt <= band) | in_a | in_b | in_j
+        unc[sl] = (~covered).reshape(nb, blk).to(torch.int32)
+    return a12d.reshape(3 * k_occ, n_chunks * blk), ovf, unc
+
+
+def _check_args(feats, w0b, rows, counts, data_t, wide_t, per_chunk,
+                per_group, *, blk: int, k_occ: int, group: int = 1):
+    """Raise unless the arguments are what the kernels take: contiguous
+    CUDA tensors of the right types and shapes, K and blk in range."""
+    n_chunks = rows.shape[0]
+    c_banks, _, k_ext = data_t.shape
+    if not 0 < k_occ <= MAX_OCCLUDERS:
+        raise ValueError(f"max_occluders {k_occ} outside 1..{MAX_OCCLUDERS}")
+    if not 0 < blk <= 1024 or feats.shape[0] % blk:
+        raise ValueError(f"block_points {blk} must divide {feats.shape[0]} "
+                         "and be at most 1024")
+    if group <= 0 or blk % group:
+        raise ValueError(f"band_group {group} must divide block_points {blk}")
+    check = _kernels.check_input
+    check("feats", feats, torch.float32, (feats.shape[0], N_FEAT))
+    for name, t in dict(w0b=w0b, rows=rows, **per_chunk).items():
+        check(name, t, torch.int32, (n_chunks,))
+    for name, t in per_group.items():
+        check(name, t, torch.int32, (n_chunks * (blk // group),))
+    check("counts", counts, torch.int32, (c_banks,))
+    check("data_t", data_t, torch.float32, (c_banks, 8, k_ext))
+    check("wide_t", wide_t, torch.float32, (c_banks, 8, wide_t.shape[2]))
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def find_occluders(feats, w0b, rows, los, has, counts, data_t, wide_t, *,
@@ -137,35 +322,92 @@ def find_occluders(feats, w0b, rows, los, has, counts, data_t, wide_t, *,
     if feats.device.type == "cpu":
         return occluders_plain(feats, w0b, rows, los, has, counts, data_t,
                                wide_t, blk=blk, w_sl=w_sl, k_occ=k_occ)
+    _check_args(feats, w0b, rows, counts, data_t, wide_t,
+                dict(los=los, has=has), {}, blk=blk, k_occ=k_occ)
     n_chunks = rows.shape[0]
-    c_banks, _, k_ext = data_t.shape
-    if not 0 < k_occ <= MAX_OCCLUDERS:
-        raise ValueError(f"max_occluders {k_occ} outside 1..{MAX_OCCLUDERS}")
-    if not 0 < blk <= 1024 or feats.shape[0] % blk:
-        raise ValueError(f"block_points {blk} must divide {feats.shape[0]} "
-                         "and be at most 1024")
-    check = _kernels.check_input
-    check("feats", feats, torch.float32, (feats.shape[0], N_FEAT))
-    for name, t in (("w0b", w0b), ("rows", rows), ("los", los),
-                    ("has", has)):
-        check(name, t, torch.int32, (n_chunks,))
-    check("counts", counts, torch.int32, (c_banks,))
-    check("data_t", data_t, torch.float32, (c_banks, 8, k_ext))
-    check("wide_t", wide_t, torch.float32, (c_banks, 8, wide_t.shape[2]))
     a12d = torch.empty((3 * k_occ, n_chunks * blk), dtype=torch.float32,
                        device=feats.device)
     ovf = torch.empty((n_chunks, blk), dtype=torch.int32, device=feats.device)
-    lib = _kernels.load("occluders")
-    err = lib.occluders_a1(
+    err = _kernels.load("occluders").occluders_a1(
         feats.data_ptr(), w0b.data_ptr(), rows.data_ptr(), los.data_ptr(),
         has.data_ptr(), counts.data_ptr(), data_t.data_ptr(),
         wide_t.data_ptr(), a12d.data_ptr(), ovf.data_ptr(),
-        n_chunks, blk, w_sl, k_ext, wide_t.shape[2], k_occ,
-        torch.cuda.current_stream(feats.device).cuda_stream,
+        n_chunks, blk, w_sl, data_t.shape[2], wide_t.shape[2], k_occ,
+        _stream(feats),
     )
     _kernels.check(err, "kernel A1 (occluders_a1)")
     find_occluders.launches += 1
     return a12d, ovf
 
 
+def find_occluders_routed(feats, w0b, rows, los, gloa, mode, counts, data_t,
+                          wide_t, *, blk: int, w_sl: int, k_occ: int,
+                          band: int, group: int, wide_sl: int):
+    """Span-routed phase A: kernel A2 on CUDA tensors, its plain version
+    on CPU tensors. As `find_occluders`, with gloa (n_chunks * blk //
+    group,) int32 per-group band starts and mode (n_chunks,) int32 (0 dead,
+    1 full slice, 2 per-group band) in place of has."""
+    kw = dict(blk=blk, w_sl=w_sl, k_occ=k_occ, band=band, group=group,
+              wide_sl=wide_sl)
+    if feats.device.type == "cpu":
+        return occluders_routed_plain(feats, w0b, rows, los, gloa, mode,
+                                      counts, data_t, wide_t, **kw)
+    _check_args(feats, w0b, rows, counts, data_t, wide_t,
+                dict(los=los, mode=mode), dict(gloa=gloa), blk=blk,
+                k_occ=k_occ, group=group)
+    if not 0 <= wide_sl <= wide_t.shape[2]:
+        raise ValueError(f"wide_sl {wide_sl} outside 0..{wide_t.shape[2]}")
+    n_chunks = rows.shape[0]
+    a12d = torch.empty((3 * k_occ, n_chunks * blk), dtype=torch.float32,
+                       device=feats.device)
+    ovf = torch.empty((n_chunks, blk), dtype=torch.int32, device=feats.device)
+    err = _kernels.load("occluders").occluders_a2(
+        feats.data_ptr(), w0b.data_ptr(), rows.data_ptr(), los.data_ptr(),
+        gloa.data_ptr(), mode.data_ptr(), counts.data_ptr(),
+        data_t.data_ptr(), wide_t.data_ptr(), a12d.data_ptr(),
+        ovf.data_ptr(), n_chunks, blk, w_sl, data_t.shape[2],
+        wide_t.shape[2], k_occ, band, group, wide_sl, _stream(feats),
+    )
+    _kernels.check(err, "kernel A2 (occluders_a2)")
+    find_occluders_routed.launches += 1
+    return a12d, ovf
+
+
+def find_occluders_banded(feats, w0b, rows, gloa, glob, counts, data_t,
+                          wide_t, *, blk: int, k_occ: int, band: int,
+                          group: int, wide_sl: int, delta: float):
+    """Dual-banded phase A: kernel A3 on CUDA tensors, its plain version
+    on CPU tensors. gloa, glob (n_chunks * blk // group,) int32 are the
+    per-group band starts; returns (a12d, ovf, unc) as
+    `occluders_banded_plain`."""
+    kw = dict(blk=blk, k_occ=k_occ, band=band, group=group, wide_sl=wide_sl,
+              delta=delta)
+    if feats.device.type == "cpu":
+        return occluders_banded_plain(feats, w0b, rows, gloa, glob, counts,
+                                      data_t, wide_t, **kw)
+    _check_args(feats, w0b, rows, counts, data_t, wide_t, {},
+                dict(gloa=gloa, glob=glob), blk=blk, k_occ=k_occ,
+                group=group)
+    if not 0 <= wide_sl <= wide_t.shape[2]:
+        raise ValueError(f"wide_sl {wide_sl} outside 0..{wide_t.shape[2]}")
+    n_chunks = rows.shape[0]
+    dev = feats.device
+    a12d = torch.empty((3 * k_occ, n_chunks * blk), dtype=torch.float32,
+                       device=dev)
+    ovf = torch.empty((n_chunks, blk), dtype=torch.int32, device=dev)
+    unc = torch.empty((n_chunks, blk), dtype=torch.int32, device=dev)
+    err = _kernels.load("occluders").occluders_a3(
+        feats.data_ptr(), w0b.data_ptr(), rows.data_ptr(), gloa.data_ptr(),
+        glob.data_ptr(), counts.data_ptr(), data_t.data_ptr(),
+        wide_t.data_ptr(), a12d.data_ptr(), ovf.data_ptr(), unc.data_ptr(),
+        n_chunks, blk, data_t.shape[2], wide_t.shape[2], wide_sl, k_occ,
+        band, group, delta, _stream(feats),
+    )
+    _kernels.check(err, "kernel A3 (occluders_a3)")
+    find_occluders_banded.launches += 1
+    return a12d, ovf, unc
+
+
 find_occluders.launches = 0
+find_occluders_routed.launches = 0
+find_occluders_banded.launches = 0

@@ -97,7 +97,9 @@ def run_snowfall_datagen(
 
     def grow(cfg, out_pts, counts):
         """(grown config, grown out_points or None); (None, None) when no
-        capacity behind an overflow can grow."""
+        capacity behind an overflow can grow. window_overflow doubles
+        band_width and slice_width (`grown_config`, as the JAX package's
+        datagen does)."""
         new_out = None
         for name, count in zip(_OVF, counts):
             if not count:

@@ -10,7 +10,9 @@ to
     {out_root}/snowfall_simulation/{mode}/{lidar_name}_rainrate_{int(rr)}/{id}.bin
 
 with skip-if-exists resume. Same flags as the JAX CLI without --mesh, plus
---device. Run: python -m lidar_snow_sim_tpu_torch.tools.precompute --help
+--device and the phase-A layout (--route-band, --band-width, --band-group;
+SnowfallConfig's fields of those names). Run:
+python -m lidar_snow_sim_tpu_torch.tools.precompute --help
 """
 
 from __future__ import annotations
@@ -63,6 +65,12 @@ def main(argv=None):
     ap.add_argument("--overwrite", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda when available)")
+    ap.add_argument("--route-band", type=int, default=0,
+                    help="span-routed phase A (kernel A2) band width; 0: off")
+    ap.add_argument("--band-width", type=int, default=0,
+                    help="dual-banded phase A (kernel A3) band width; 0: off")
+    ap.add_argument("--band-group", type=int, default=8,
+                    help="beams per band of --route-band/--band-width")
     args = ap.parse_args(argv)
 
     from lidar_snow_sim_tpu.calib import load_hdl64_calib
@@ -101,6 +109,8 @@ def main(argv=None):
         channel_capacity=pch,
         block_points=max(min(128, pch // 8), 32),
         slice_width=1536,
+        route_band=args.route_band, band_width=args.band_width,
+        band_group=args.band_group,
     )
     wet_cfg = WetGroundConfig(replace=False) if args.wet else None
 

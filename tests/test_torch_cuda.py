@@ -1,4 +1,5 @@
-"""Kernels A1 and C1 on the card against their plain torch versions.
+"""Kernels A1, A2, A3 and C1 on the card against their plain torch
+versions.
 
 These tests need an NVIDIA GPU and nvcc and skip elsewhere. They import no
 jax, so they also run where jax is not installed:
@@ -23,7 +24,11 @@ from lidar_snow_sim_tpu_torch import (
 from lidar_snow_sim_tpu_torch.models import snowfall as ts
 from lidar_snow_sim_tpu_torch.ops.occluders import (
     find_occluders,
+    find_occluders_banded,
+    find_occluders_routed,
+    occluders_banded_plain,
     occluders_plain,
+    occluders_routed_plain,
 )
 from lidar_snow_sim_tpu_torch.ops.pulse import pulse_peaks, pulse_plain
 
@@ -50,8 +55,9 @@ CASES = {
 }
 
 
-def layout(case, device="cpu", slice_width=256):
-    """The port's phase-A layout of the small scene for one case."""
+def layout(case, device="cpu", slice_width=256, **cfg_kw):
+    """The port's phase-A layout of the small scene for one case; `cfg_kw`
+    (route_band, band_width, band_group) selects kernel A2 or A3."""
     spec = CASES[case]
     calib = load_hdl64_calib()
     pc = synthetic_scan(n_azimuth=100, seed=2, calib=calib)
@@ -61,6 +67,7 @@ def layout(case, device="cpu", slice_width=256):
         max_points=8192, window_size=256, wide_capacity=spec["wide"],
         max_occluders=spec["k"], max_bumps=spec["k"], assembly="dense",
         channel_capacity=128, block_points=32, slice_width=slice_width,
+        **cfg_kw,
     )
     padded = pad_cloud(pc, cfg.max_points)
     plane = (torch.tensor(PLANE[0], dtype=torch.float32, device=device),
@@ -122,3 +129,52 @@ def test_cuda_wrapper_checks_inputs(cuda):
         find_occluders(*lay.occluder_args,
                        **dict(lay.occluder_kw, k_occ=1024))
     assert find_occluders.launches == n0
+    lay2, _, _ = layout("scene", device=cuda, route_band=128, band_group=8)
+    n2 = find_occluders_routed.launches
+    with pytest.raises(ValueError, match="band_group"):
+        find_occluders_routed(*lay2.occluder_args,
+                              **dict(lay2.occluder_kw, group=5))
+    args = list(lay2.occluder_args)
+    args[4] = args[4][:-1]                            # gloa one short
+    with pytest.raises(ValueError, match="gloa"):
+        find_occluders_routed(*args, **lay2.occluder_kw)
+    assert find_occluders_routed.launches == n2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", [128, 96])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cuda_routed_matches_plain(cuda, case, route):
+    """On the card: A2 equals its plain version exactly, and A1 on the
+    in-channel beams (dist plane and overflow)."""
+    lay, _, cfg = layout(case, device=cuda, route_band=route, band_group=8)
+    assert lay.kernel == "A2"
+    n0 = find_occluders_routed.launches
+    a12d, ovf = find_occluders_routed(*lay.occluder_args, **lay.occluder_kw)
+    assert find_occluders_routed.launches == n0 + 1
+    a12d_p, ovf_p = occluders_routed_plain(*lay.occluder_args,
+                                           **lay.occluder_kw)
+    k = cfg.max_occluders
+    assert torch.equal(ovf, ovf_p)
+    assert torch.equal(a12d, a12d_p)
+    lay1, _, _ = layout(case, device=cuda)
+    a12d_1, ovf_1 = find_occluders(*lay1.occluder_args, **lay1.occluder_kw)
+    valid = lay.valid_blk.reshape(-1)
+    assert torch.equal(ovf.reshape(-1)[valid], ovf_1.reshape(-1)[valid])
+    assert torch.equal(a12d[2 * k:, valid], a12d_1[2 * k:, valid])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cuda_banded_matches_plain(cuda, case):
+    """On the card: A3 equals its plain version exactly, coverage plane
+    included."""
+    lay, _, _ = layout(case, device=cuda, slice_width=384, band_width=256,
+                       band_group=8)
+    assert lay.kernel == "A3"
+    n0 = find_occluders_banded.launches
+    got = find_occluders_banded(*lay.occluder_args, **lay.occluder_kw)
+    assert find_occluders_banded.launches == n0 + 1
+    want = occluders_banded_plain(*lay.occluder_args, **lay.occluder_kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

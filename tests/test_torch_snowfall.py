@@ -5,6 +5,11 @@ and injected ground plane; the JAX package runs its Pallas branch in
 interpret mode (`use_pallas=True, pallas_interpret=True`), whose slice
 geometry, and so whose overflow counters, the port keeps.
 
+Phase A runs on each of the port's three kernels: A1 (the default), A2
+(`route_band`) and A3 (`band_width`), each against the JAX package's
+branch of the same configuration, and inside the port all three give the
+same output bit for bit (tests/test_dense_assembly.py:109).
+
 Contract (tests/test_snowfall_parity.py:115-187): the five overflow
 counters are equal; labels, intensities and keep flags are equal except on
 decision boundaries, judged by the oracle's hit-set and pulse-decision
@@ -122,6 +127,18 @@ def _run_port(pc, bank, order, cfg):
     return res, noise_at.numpy()
 
 
+def _kernel_of(pc, bank, order, cfg):
+    """The phase-A kernel the port's layout picks for `cfg`."""
+    padded = pad_cloud(pc, cfg.max_points)
+    plane = (torch.tensor(PLANE[0], dtype=torch.float32),
+             torch.tensor(PLANE[1], dtype=torch.float32))
+    return ts.dense_layout(
+        torch.as_tensor(padded.points), torch.as_tensor(padded.mask),
+        ts.bank_to_torch(bank, "cpu"), torch.as_tensor(order), None, cfg,
+        plane=plane,
+    ).kernel
+
+
 def _on_boundary(pc, j, sets, order, noise_at, new_int):
     """Whether point j's decision sits on an f32-sensitive boundary."""
     calib = load_hdl64_calib()
@@ -200,6 +217,10 @@ def test_slice_wider_than_bank_row():
 @pytest.mark.parametrize("starve,fires", [
     (dict(slice_width=8), "window_overflow"),
     (dict(max_occluders=1, max_bumps=1), "occluder_overflow"),
+    # routing on (a 136-column slice holds a 128-wide band)
+    (dict(slice_width=8, route_band=128, band_group=8), "window_overflow"),
+    # banding on, with bands too narrow to cover
+    (dict(band_width=32, band_group=8), "window_overflow"),
 ])
 def test_starved_capacities_count_like_jax(starve, fires):
     """Capacities too small: the counters fire with the JAX Pallas branch's
@@ -211,6 +232,8 @@ def test_starved_capacities_count_like_jax(starve, fires):
         base, channel_capacity=64, compact_capacity=64, pulse_chunk=64,
         touch_capacity=16, scatter_capacity=16, **starve,
     ))
+    assert _kernel_of(pc, bank, order, cfg) == (
+        "A3" if cfg.band_width else "A2" if cfg.route_band else "A1")
     rj = _run_jax(pc, bank, order, cfg)
     rt, _ = _run_port(pc, bank, order, cfg)
     got = {c: int(getattr(rt, c)) for c in COUNTERS}
@@ -241,12 +264,157 @@ def test_capacities_grow_to_the_comfortable_result():
     assert set(np.unique(out_t[:, 4])) <= {0.0, 1.0, 2.0}
 
 
-@pytest.mark.parametrize("change", [
-    dict(assembly="window"), dict(route_band=384), dict(band_width=256),
-])
+@pytest.mark.parametrize("change", [dict(assembly="window")])
 def test_unported_paths_raise(change):
     pc, sets, base = _scene("fov")
     bank = build_bank(sets, window_size=256, wide_capacity=64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ts.SnowfallAugmenter(bank, load_hdl64_calib(),
                              SnowfallConfig(**dict(base, **change)))
+
+
+# (scene, config change, kernel): A2 at three band widths, one not a
+# multiple of 128, and on the seam scenes; A3 needs a slice of at least two
+# bands, so its case widens the slice to 384 (+128)
+GROUPED = [
+    ("fov", dict(route_band=256, band_group=8), "A2"),
+    ("fov", dict(route_band=128, band_group=8), "A2"),
+    ("fov", dict(route_band=96, band_group=8), "A2"),
+    ("360", dict(route_band=128, band_group=8), "A2"),
+    ("seam", dict(route_band=128, band_group=8), "A2"),
+    ("fov", dict(band_width=256, band_group=8, slice_width=384), "A3"),
+]
+
+
+@pytest.mark.parametrize("scene,change,kernel", GROUPED)
+def test_grouped_phase_a_matches_jax(scene, change, kernel):
+    """The routed (A2) and banded (A3) slices against the JAX package's
+    routed and banded Pallas branches."""
+    pc, sets, base = _scene(scene)
+    bank = build_bank(sets, window_size=256, wide_capacity=64)
+    order = np.random.default_rng(3).permutation(64)
+    cfg = SnowfallConfig(**dict(base, **change))
+    assert _kernel_of(pc, bank, order, cfg) == kernel
+    rj = _run_jax(pc, bank, order, cfg)
+    rt, noise_at = _run_port(pc, bank, order, cfg)
+    assert all(int(getattr(rt, c)) == 0 for c in COUNTERS)
+    assert (rt.planes[4, :len(pc)].numpy() > 0).sum() > 10
+    _assert_parity(pc, sets, order, rj, rt, noise_at)
+
+
+@pytest.mark.parametrize("scene", ["fov", "360", "seam"])
+def test_routed_and_banded_equal_a1(scene):
+    """Inside the port, A1, A2 and A3 give the same slice output bit for
+    bit."""
+    pc, sets, base = _scene(scene)
+    bank = build_bank(sets, window_size=256, wide_capacity=64)
+    order = np.random.default_rng(3).permutation(64)
+    base = dict(base, slice_width=384, band_group=8)
+    out = {}
+    for kernel, change in (("A1", {}), ("A2", dict(route_band=128)),
+                           ("A3", dict(band_width=256))):
+        cfg = SnowfallConfig(**dict(base, **change))
+        assert _kernel_of(pc, bank, order, cfg) == kernel
+        out[kernel], _ = _run_port(pc, bank, order, cfg)
+    for kernel in ("A2", "A3"):
+        for name, a, b in zip(ts.SnowfallResult._fields, out["A1"],
+                              out[kernel]):
+            assert torch.equal(a, b), (kernel, name)
+
+
+def _three_channel_window(pc, mid=10, gsz=8):
+    """The scan with channel `mid` cut to 3 points and channel mid - 1 cut
+    so that those 3 sorted rows sit inside one gsz-aligned window between
+    rows of channels mid - 1 and mid + 1."""
+    ch = pc[:, 4].astype(int)
+    keep = np.ones(len(pc), bool)
+    keep[np.where(ch == mid)[0][3:]] = False
+    drop = ((ch < mid).sum() - 3) % gsz
+    keep[np.where(ch == mid - 1)[0][:drop]] = False
+    return pc[keep]
+
+
+def test_three_channel_window_falls_back_like_jax():
+    """A channel of fewer than band_group rows in the middle of an aligned
+    window matches neither of the window's channel hypotheses: its group
+    bounds fall back to -1e9 / 1e9, which widens its slice to the whole
+    bank row, and window_overflow counts what the slice misses, as the JAX
+    package does. A1 (exact chunk bounds) sees no overflow there."""
+    pc, sets, base = _scene("fov")
+    pc = _three_channel_window(pc)
+    bank = build_bank(sets, window_size=256, wide_capacity=64)
+    order = np.random.default_rng(3).permutation(64)
+    gsz, blk = 8, base["block_points"]
+
+    # the group bounds of channel 10's window
+    ch = torch.as_tensor(pc[:, 4]).long()
+    xy = torch.as_tensor(pc[:, :2])
+    s_key, perm = torch.sort(ch * 8.0 + torch.atan2(xy[:, 1], xy[:, 0]),
+                             stable=True)
+    n_pad = -(-len(pc) // blk) * blk
+    s_key = torch.nn.functional.pad(s_key, (0, n_pad - len(pc)), value=1e9)
+    sx, sy = (torch.nn.functional.pad(xy[perm, i], (0, n_pad - len(pc)))
+              for i in (0, 1))
+    start = int((ch < 10).sum())
+    assert start % gsz == 3 and int((ch == 10).sum()) == 3
+    w0_raw = torch.tensor([start // blk * blk] * 3)
+    lo, hi = ts.group_az_bounds(sx, sy, s_key, w0_raw,
+                                torch.tensor([9, 10, 11]), gsz, blk // gsz)
+    g = start % blk // gsz
+    assert (float(lo[1, g]), float(hi[1, g])) == (-1e9, 1e9)
+    assert abs(float(lo[0, g])) < 4 and abs(float(hi[2, g])) < 4
+
+    for change in (dict(route_band=128, slice_width=128),
+                   dict(band_width=128, slice_width=128)):
+        cfg = SnowfallConfig(**dict(base, band_group=gsz, **change))
+        assert _kernel_of(pc, bank, order, cfg) == (
+            "A3" if cfg.band_width else "A2")
+        rj = _run_jax(pc, bank, order, cfg)
+        rt, _ = _run_port(pc, bank, order, cfg)
+        got = int(rt.window_overflow)
+        assert got == int(rj.window_overflow) and got > 0, change
+    a1, _ = _run_port(pc, bank, order,
+                      SnowfallConfig(**dict(base, slice_width=128)))
+    assert int(a1.window_overflow) == 0
+
+
+def test_band_width_grows_to_the_comfortable_result():
+    """A band too narrow to cover grows (with the slice) until
+    window_overflow is 0; the output equals a comfortably sized run. (Here
+    the slice outgrows this small bank's row on the way, and the JAX
+    package and the port then leave the banded kernel for A1's layout.)"""
+    pc, sets, base = _scene("fov")
+    calib = load_hdl64_calib()
+    bank = build_bank(sets, window_size=256, wide_capacity=64)
+    order = np.random.default_rng(3).permutation(64)
+    ok = ts.SnowfallAugmenter(bank, calib, SnowfallConfig(**base))
+    cfg = SnowfallConfig(**dict(base, band_width=32, band_group=8))
+    assert _kernel_of(pc, bank, order, cfg) == "A3"
+    tight = ts.SnowfallAugmenter(bank, calib, cfg)
+    stats_ok, out_ok = ok(pc, order=order)
+    stats_t, out_t = tight(pc, order=order)
+    assert tight.cfg.band_width > 32
+    assert stats_t == stats_ok
+    np.testing.assert_array_equal(out_t, out_ok)
+    assert all(int(getattr(tight.last_result, c)) == 0 for c in COUNTERS)
+
+
+@pytest.mark.parametrize("cfg,name,want", [
+    (dict(band_width=256, slice_width=256), "window_overflow",
+     dict(band_width=512, slice_width=512)),
+    # the band stops at the row's largest 128 multiple, the slice at k_ext
+    (dict(band_width=512, slice_width=700), "window_overflow",
+     dict(band_width=768, slice_width=812)),
+    (dict(band_width=768, slice_width=812), "window_overflow", None),
+    (dict(route_band=384, slice_width=512), "window_overflow",
+     dict(route_band=384, slice_width=812)),
+])
+def test_grown_config_band_width(cfg, name, want):
+    """grown_config's window_overflow branch (models/snowfall.py:1363-1374):
+    band_width doubles up to (k_ext // 128) * 128, slice_width up to k_ext;
+    None when neither can grow."""
+    got = ts.grown_config(SnowfallConfig(**cfg), name, 812, 64)
+    if want is None:
+        assert got is None
+    else:
+        assert {k: getattr(got, k) for k in want} == want

@@ -7,6 +7,7 @@ intensities within float32 rounding. The datagen outputs must equal the
 port's SnowfallAugmenter on the same channel order and RANSAC draws.
 """
 
+import dataclasses
 import json
 import zlib
 
@@ -149,14 +150,72 @@ def test_datagen_resume_manifest_and_equality(tmp_path, bank):
     assert again.frames_skipped == 3 and again.frames_done == 0
 
 
-def test_precompute_cli_wet(tmp_path):
-    """The CLI end to end with --wet: FOV filter, bank files, outputs,
-    manifest, then the resume."""
+def test_datagen_grows_band_width(tmp_path, bank):
+    """Datagen on the banded phase A (kernel A3) with bands too narrow to
+    cover: band_width grows and the outputs equal a comfortably sized
+    run's."""
+    calib = load_hdl64_calib()
+    frames = {f"f{s}": synthetic_scan(n_azimuth=60, seed=s, calib=calib)
+              for s in range(2)}
+    tight = dataclasses.replace(CFG, band_width=32, band_group=8)
+    stats = run_snowfall_datagen(
+        list(frames), frames.__getitem__, tmp_path / "t", bank, calib, tight,
+        batch=2, seed=7,
+    )
+    run_snowfall_datagen(list(frames), frames.__getitem__, tmp_path / "ok",
+                         bank, calib, CFG, batch=2, seed=7)
+    assert stats.capacity_growths > 0
+    for sid in frames:
+        np.testing.assert_array_equal(
+            load_velodyne_bin(tmp_path / "t" / f"{sid}.bin"),
+            load_velodyne_bin(tmp_path / "ok" / f"{sid}.bin"),
+        )
+
+
+def _bank_files(banks):
+    """The test particle sets as the 2.5 mm/h, 1.6 m/s gunn bank files;
+    returns (rainfall rate, occupancy)."""
     from lidar_snow_sim_tpu.sampling.distributions import (
         compute_occupancy,
         snowfall_rate_to_rainfall_rate,
     )
 
+    rr = snowfall_rate_to_rainfall_rate(2.5, 1.6)
+    occ = compute_occupancy(2.5, 1.6)
+    for i, part in enumerate(_sets()):
+        np.save(banks / f"gunn_{rr}_{occ}_{i + 1}.npy", part)
+    return rr, occ
+
+
+@pytest.mark.parametrize("flags,want", [
+    ([], dict(route_band=0, band_width=0, band_group=8)),
+    (["--route-band", "384", "--band-group", "16"],
+     dict(route_band=384, band_width=0, band_group=16)),
+    (["--band-width", "256"], dict(route_band=0, band_width=256)),
+])
+def test_precompute_cli_phase_a_flags(tmp_path, monkeypatch, flags, want):
+    """The CLI's phase-A flags reach the datagen config."""
+    from lidar_snow_sim_tpu_torch.parallel import datagen
+
+    seen = []
+    monkeypatch.setattr(datagen, "run_snowfall_datagen",
+                        lambda *a, **k: seen.append(a[5]) or
+                        datagen.DatagenStats())
+    (tmp_path / "banks").mkdir()
+    _bank_files(tmp_path / "banks")
+    (tmp_path / "split.txt").write_text("d,0\n")
+    assert precompute.main([
+        "--split", str(tmp_path / "split.txt"),
+        "--lidar-dir", str(tmp_path / "lidar"),
+        "--bank-dir", str(tmp_path / "banks"), "--modes", "gunn",
+        "--rates", "2.5", "--velocities", "1.6", "--device", "cpu", *flags,
+    ]) == 0
+    assert [{k: getattr(c, k) for k in want} for c in seen] == [want]
+
+
+def test_precompute_cli_wet(tmp_path):
+    """The CLI end to end with --wet: FOV filter, bank files, outputs,
+    manifest, then the resume."""
     calib = load_hdl64_calib()
     lidar = tmp_path / "lidar_hdl64_strongest"
     banks = tmp_path / "banks"
@@ -167,10 +226,7 @@ def test_precompute_cli_wet(tmp_path):
             lidar / f"d_{s}.bin"
         )
     (tmp_path / "split.txt").write_text("d,0\nd,1\n")
-    rr = snowfall_rate_to_rainfall_rate(2.5, 1.6)
-    occ = compute_occupancy(2.5, 1.6)
-    for i, part in enumerate(_sets()):
-        np.save(banks / f"gunn_{rr}_{occ}_{i + 1}.npy", part)
+    rr, occ = _bank_files(banks)
     argv = [
         "--split", str(tmp_path / "split.txt"), "--lidar-dir", str(lidar),
         "--bank-dir", str(banks), "--out-root", str(tmp_path / "out"),
@@ -205,3 +261,22 @@ def test_api_contracts(tmp_path):
     assert set(np.unique(aug[:, 4])) <= {0.0, 1.0, 2.0}
     wet = api.ground_water_augmentation(pc, device="cpu")
     assert wet.shape[1] == 5 and len(wet) <= len(pc)
+
+
+@pytest.mark.parametrize("config", [
+    dict(route_band=128, band_group=8),
+    dict(band_width=128, band_group=8),
+])
+def test_api_takes_a_phase_a_config(tmp_path, config):
+    """api.augment runs a routed or banded config; its output equals the
+    default config's."""
+    prefix = "gunn_test"
+    for i, part in enumerate(_sets()):
+        np.save(tmp_path / f"{prefix}_{i + 1}.npy", part)
+    pc = synthetic_scan(n_azimuth=60, seed=3)
+    kw = dict(beam_divergence=0.1719, root_path=str(tmp_path), device="cpu",
+              shuffle=False)
+    want = api.augment(pc, prefix, **kw)
+    got = api.augment(pc, prefix, config=config, **kw)
+    assert got[0] == want[0]
+    np.testing.assert_array_equal(got[1], want[1])
