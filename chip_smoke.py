@@ -5,6 +5,7 @@ Run from the repository root: python3 chip_smoke.py
 
 Phases, each printing one line of numbers:
   1. environment: the card's name and power limit (nvidia-smi), TF32 off;
+     every csrc/*.cu built by its own nvcc, all started together;
   2. inputs at the bench scale: an 870-azimuth synthetic HDL-64 scan
      (50,475 points) and a gunn 2.5 mm/h, 1.6 m/s particle bank of 64 sets
      (~18k particles per channel; the sets are cached under
@@ -29,7 +30,17 @@ Phases, each printing one line of numbers:
      skip all 4, then a run with --route-band 384 --band-group 16 (A2);
      then api.augment (default and routed config) and
      api.ground_water_augmentation on the card from the same particle
-     files.
+     files;
+  6. the weather baselines on the bench scan: kernel L1 against its plain
+     version on the positions LISA's Qback lookup hands it at the JAX
+     bench's (48, 16) droplets (65,536 x 64), exact, CUDA-event times;
+     LISA (rain 10 mm/h), fog (alpha 0.06), STF fog (beta 0.046) and the
+     windowed DROR (block 128, window 2048, margin 1024, no overflow)
+     end to end, scans/s on the host clock, each held against the CPU on
+     the same draws; then the inspect CLI (python -m
+     lidar_snow_sim_tpu_torch.tools.inspect ... --device cuda) with lisa
+     (after --dror --fov), fog, stf_fog and snow+wet, the launch counters
+     zeroed before each run.
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before it; so
 does a machine without a CUDA device, or a directory without the port.
@@ -43,6 +54,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -112,6 +124,249 @@ def bank_sets(cache_dir: Path, rate_mm_h=2.5, velocity=1.6, seed=42):
     return sets, rr, occ
 
 
+def parity(name: str, got, want, label_col: int, atol: float) -> int:
+    """Hold a result on the card against the same function on the CPU with
+    the same draws: labels and keep equal on >= 99.8% of points (exp, log
+    and pow round differently on the two devices, so a decision on a
+    boundary may flip; tests/test_snowfall_parity.py's contract), the rest
+    within rtol 1e-5; returns the number of flipped points."""
+    gp, cp = got.points.cpu().numpy(), want.points.numpy()
+    flip = (gp[:, label_col] != cp[:, label_col]) | (
+        got.keep.cpu().numpy() != want.keep.numpy())
+    if flip.mean() >= 0.002 or not np.allclose(
+            gp[~flip], cp[~flip], rtol=1e-5, atol=atol):
+        fail(f"{name}: card and CPU disagree ({int(flip.sum())} flipped, "
+             f"max err {np.abs(gp[~flip] - cp[~flip]).max()})")
+    return int(flip.sum())
+
+
+def per_scan(fn, n_scans: int):
+    """(last result, scans/s) of n_scans calls of fn() on the host clock,
+    ending in a synchronize, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_scans):
+        out = fn()
+    torch.cuda.synchronize()
+    return out, n_scans / (time.perf_counter() - t0)
+
+
+def weather_phase(pc, sets, rr, occ, dev) -> dict:
+    """Phase 6: kernel L1 against its plain version at LISA's bench shape,
+    the weather baselines end to end on the bench scan (each held against
+    the CPU on the same draws), then the inspect CLI on the card. Returns
+    L1's record for the kernels line."""
+    import contextlib
+    import io
+    import math
+
+    import torch
+
+    from lidar_snow_sim_tpu_torch import pad_cloud
+    from lidar_snow_sim_tpu_torch.models import dror
+    from lidar_snow_sim_tpu_torch.models import lisa as tlisa
+    from lidar_snow_sim_tpu_torch.models.fog import (
+        FogAugmenter,
+        FogParameterSet,
+        fog_augment,
+        fog_draws,
+    )
+    from lidar_snow_sim_tpu_torch.models.stf_fog import (
+        StfFogAugmenter,
+        haze_point_cloud_padded,
+        stf_draws,
+    )
+    from lidar_snow_sim_tpu_torch.ops.lut_lookup import (
+        lut_lookup_pairs,
+        lut_lookup_plain,
+    )
+    from lidar_snow_sim_tpu_torch.ops.occluders import find_occluders
+    from lidar_snow_sim_tpu_torch.ops.pulse import pulse_peaks
+    from lidar_snow_sim_tpu_torch.tools import inspect as tinspect
+
+    n_scans = 10
+    cap = 65536
+    cpu_gen = torch.Generator().manual_seed(0)
+
+    # LISA at the JAX bench's capacities. L1 is held against its plain
+    # version on the positions the Qback lookup hands it: the candidates'
+    # diameters on the log grid, sampled from one set of draws (made on the
+    # CPU, so the card and the CPU runs below share them)
+    lisa = tlisa.LISA(max_droplets=48, tail_droplets=16, device=dev)
+    lcfg = lisa.core_config()
+    pc_n = pc.copy()
+    pc_n[:, 3] /= 255.0
+    padded = pad_cloud(pc_n, cap)
+    draws = tlisa.lisa_draws(cap, 48, 16, cpu_gen)
+    tables = lisa._dsd_tables(10.0)
+
+    def core_args(d):
+        return (torch.as_tensor(padded.points, device=d),
+                torch.as_tensor(padded.mask, device=d),
+                [x.to(d) for x in draws],
+                torch.tensor(lisa.alpha(10.0), dtype=torch.float32, device=d),
+                torch.tensor(lisa.droplet_density(10.0), dtype=torch.float32,
+                             device=d),
+                tlisa.lisa_tables_to_torch(tables, d))
+
+    points_c, _, draws_c, _, density_c, tables_c = args_c = core_args(dev)
+    drops = tlisa.lisa_droplets(points_c, draws_c, density_c, tables_c, lcfg)
+    p, pairs = tlisa.log_pos(drops.d_mm, lcfg), tables_c.qb_pairs
+    if tuple(p.shape) != (cap, 64):
+        fail(f"L1 positions {tuple(p.shape)}, not ({cap}, 64)")
+    t0 = time.time()
+    got = lut_lookup_pairs(p, pairs)
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    want = lut_lookup_plain(p, pairs)
+    l1_err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        fail(f"L1 differs from its plain version at "
+             f"{int((got != want).sum())} positions, max {l1_err}")
+    l1_ms = time_ms(lambda: lut_lookup_pairs(p, pairs))
+    l1_plain_ms = time_ms(lambda: lut_lookup_plain(p, pairs))
+    print(f"L1: positions {tuple(p.shape)} cells {pairs.shape[0]} "
+          f"max_abs_err {l1_err} ms {l1_ms:.4f} plain_ms {l1_plain_ms:.4f} "
+          f"first_call_s {first_s:.3f}", flush=True)
+
+    # LISA end to end: the launch counter zeroed just before, read after
+    lut_lookup_pairs.launches = 0
+    (kept, stats), lisa_rate = per_scan(
+        lambda: lisa.augment_compact(pc, 10.0, fixed_seed=True, seed=0),
+        n_scans)
+    l1_launches = lut_lookup_pairs.launches
+    if l1_launches < 1:
+        fail("LISA on the card never launched L1")
+    if stats["droplet_overflow"] or lisa.max_droplets != 48:
+        fail(f"LISA overflowed at (48, 16): {stats}, grown to "
+             f"{lisa.max_droplets}")
+    if kept.shape[1] != 5 or not np.isfinite(kept).all() or \
+            not set(np.unique(kept[:, 4])) <= {0.0, 1.0, 2.0}:
+        fail(f"LISA output malformed: {kept.shape}")
+    res = {"cuda": tlisa.lisa_augment_core(*args_c, lcfg),
+           "cpu": tlisa.lisa_augment_core(*core_args("cpu"), lcfg)}
+    lisa_flips = parity("LISA", res["cuda"], res["cpu"], 4, 1e-6)
+    if int(res["cuda"].droplet_overflow) != int(res["cpu"].droplet_overflow):
+        fail("LISA droplet_overflow differs between the card and the CPU")
+    print(f"lisa: rain 10 mm/h (48, 16) stats {stats} kept {kept.shape} "
+          f"launches {{'L1': {l1_launches}}} scans {n_scans} scans_per_s "
+          f"{lisa_rate:.3f} vs_cpu_flipped {lisa_flips}", flush=True)
+
+    # fog alpha 0.06 and STF fog beta 0.046, end to end and against the CPU
+    fog_params = FogParameterSet(alpha=0.06)
+    fog_aug = FogAugmenter(fog_params, seed=0, device=dev)
+    (fog_pc, fog_stats), fog_rate = per_scan(lambda: fog_aug(pc), n_scans)
+    stf_aug = StfFogAugmenter(beta=0.046, seed=0, device=dev)
+    (stf_pc, stf_stats), stf_rate = per_scan(lambda: stf_aug(pc), n_scans)
+    padded = pad_cloud(pc, cap)
+    fdraws = fog_draws(cap, cpu_gen)
+    sdraws = stf_draws(cap, cpu_gen)
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        pts = torch.as_tensor(padded.points, device=d)
+        msk = torch.as_tensor(padded.mask, device=d)
+        res[d.type] = (
+            fog_augment(fog_params, pts, msk, [x.to(d) for x in fdraws]),
+            haze_point_cloud_padded(
+                pts, msk, stf_aug.randomization.coefficients(d),
+                [x.to(d) for x in sdraws]),
+        )
+    fog_flips = parity("fog", res["cuda"][0], res["cpu"][0], 4, 1e-4)
+    stf_flips = parity("STF fog", res["cuda"][1], res["cpu"][1], 4, 1e-4)
+    for name, out, st in (("fog", fog_pc, fog_stats),
+                          ("STF fog", stf_pc, stf_stats)):
+        if out.shape[1] != 5 or not np.isfinite(out).all() or \
+                not set(np.unique(out[:, 4])) <= {0.0, 2.0} or \
+                len(out) != len(pc) - st["num_removed"]:
+            fail(f"{name} output malformed: {out.shape} {st}")
+    if fog_stats["num_removed"]:
+        fail(f"fog removed points: {fog_stats}")
+    print(f"fog: alpha 0.06 stats {fog_stats} scans {n_scans} scans_per_s "
+          f"{fog_rate:.3f} vs_cpu_flipped {fog_flips}", flush=True)
+    print(f"stf_fog: beta 0.046 stats {stf_stats} scans {n_scans} "
+          f"scans_per_s {stf_rate:.3f} vs_cpu_flipped {stf_flips}",
+          flush=True)
+
+    # DROR: the windowed search at the bench's block 128, window 2048,
+    # margin 1024 must not overflow; it equals the full search and the CPU
+    # up to pairs on the radius boundary
+    n = len(pc)
+    wcap = -(-n // 128) * 128
+    xyz = np.full((wcap, 3), 1e6, np.float32)
+    xyz[:n] = pc[:, :3]
+    coef = float(np.float32(3.0) * np.float32(math.radians(0.45)))
+    sr_min = float(np.float32(0.04))
+    keep = {}
+    for d in (dev, torch.device("cpu")):
+        keep[d.type], ovf = dror.dror_windowed(
+            torch.as_tensor(xyz, device=d),
+            torch.arange(wcap, device=d) < n, coef, 3, sr_min,
+            block=128, window=2048, margin=1024)
+        if int(ovf):
+            fail(f"DROR window overflow {int(ovf)} on {d.type}")
+    keep_full = dror.dror_full(torch.as_tensor(xyz, device=dev),
+                               torch.arange(wcap, device=dev) < n,
+                               coef, 3, sr_min)
+    off_full = int((keep["cuda"] != keep_full).sum())
+    off_cpu = int((keep["cuda"].cpu() != keep["cpu"]).sum())
+    if max(off_full, off_cpu) >= 0.002 * n:
+        fail(f"DROR: windowed differs from full at {off_full}, from the CPU "
+             f"at {off_cpu} of {n} points")
+    dror_keep, dror_rate = per_scan(
+        lambda: dror.dynamic_radius_outlier_filter(pc, device=dev), n_scans)
+    if dror_keep.shape != (n,):
+        fail(f"DROR keep mask malformed: {dror_keep.shape}")
+    print(f"dror: window_overflow 0 removed {int((~dror_keep).sum())} of {n} "
+          f"windowed_vs_full_differ {off_full} vs_cpu_differ {off_cpu} "
+          f"scans {n_scans} scans_per_s {dror_rate:.3f}", flush=True)
+
+    # the inspect CLI on the card, the counters zeroed before each run
+    counted = {"A1": find_occluders, "C1": pulse_peaks, "L1": lut_lookup_pairs}
+    runs = {
+        "lisa": (["--augment", "lisa", "--dror", "--fov"], ("L1",)),
+        "fog": (["--augment", "fog"], ()),
+        "stf_fog": (["--augment", "stf_fog"], ()),
+        # --fov: wet ground takes at most 32,768 points, in both packages
+        "snow+wet": (["--augment", "snow+wet", "--fov", "--rate", "2.5",
+                      "--velocity", "1.6"], ("A1", "C1")),
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        scan = tmp / "scan.bin"
+        pc.tofile(scan)
+        banks = tmp / "banks"
+        banks.mkdir()
+        for i, part in enumerate(sets):
+            np.save(banks / f"gunn_{rr}_{occ}_{i + 1}.npy", part)
+        for name, (argv, path) in runs.items():
+            for fn in counted.values():
+                fn.launches = 0
+            out = io.StringIO()
+            t0 = time.time()
+            with contextlib.redirect_stdout(out):
+                rc = tinspect.main([str(scan), *argv, "--bank-dir",
+                                    str(banks), "--device", "cuda"])
+            wall_s = time.time() - t0
+            launches = {k: fn.launches for k, fn in counted.items()}
+            report = json.loads(out.getvalue())
+            labels = report.get("labels", {})
+            if rc != 0 or sum(labels.values()) != report["after_masks"]:
+                fail(f"inspect {name}: rc {rc}, labels {labels}")
+            if min((launches[k] for k in path), default=1) < 1:
+                fail(f"inspect {name}: a kernel never launched: {launches}")
+            if name == "lisa" and (report["lisa"]["droplet_overflow"]
+                                   or "dror" not in report):
+                fail(f"inspect lisa report: {report}")
+            print(f"inspect {name}: launches {launches} wall_s {wall_s:.2f} "
+                  f"after_masks {report['after_masks']} labels {labels} "
+                  f"stats {report.get(name.split('+')[0])}", flush=True)
+    return {"launches": l1_launches, "max_abs_err": l1_err, "ms": l1_ms,
+            "plain_ms": l1_plain_ms}
+
+
 def main() -> int:
     import torch
 
@@ -161,6 +416,12 @@ def main() -> int:
           f"device {kind!r} count {torch.cuda.device_count()} "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
+
+    t0 = time.time()
+    with ThreadPoolExecutor(len(_kernels.SIGNATURES)) as pool:
+        list(pool.map(_kernels.build, _kernels.SIGNATURES))
+    print(f"build: {sorted(_kernels.SIGNATURES)} built in parallel in "
+          f"{time.time() - t0:.1f} s", flush=True)
 
     # --- 2. bench-scale inputs ---
     t0 = time.time()
@@ -471,6 +732,8 @@ def main() -> int:
           f"{api_r[0]} out {api_r[1].shape} "
           f"ground_water_augmentation out {wet_pc.shape}", flush=True)
 
+    l1 = weather_phase(pc, sets, rr, occ, dev)
+
     kernels = [
         {"name": "A1 nearest-K occluders (phase A)", "route": "cuda",
          "source": "lidar_snow_sim_tpu_torch/csrc/occluders.cu",
@@ -494,6 +757,9 @@ def main() -> int:
          "replaces": "lidar_snow_sim_tpu/ops/pallas_occluders.py:423",
          "launches": launches_b["A3"], "max_abs_err": a3_err,
          "ms": a3_ms, "plain_ms": a3_plain_ms},
+        {"name": "L1 knot-pair lookup (LISA's Qback)", "route": "cuda",
+         "source": "lidar_snow_sim_tpu_torch/csrc/lut_lookup.cu",
+         "replaces": "lidar_snow_sim_tpu/ops/lut_lookup.py:68", **l1},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

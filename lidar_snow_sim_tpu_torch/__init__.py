@@ -6,10 +6,12 @@ reference each module is held against. Host-side code that never imports
 jax (configs, calibration, particle banks, scan IO, synthetic scenes) is
 imported from the JAX package rather than copied, and re-exported here.
 
-Kernels: phase A (`ops/occluders.py`, kernels A1, A2 and A3) and phase C
-(`ops/pulse.py`, kernel C1) are hand-written CUDA in `csrc/`, built by
-`nvcc` at first use. CUDA tensors go to the kernels, CPU tensors to their
-plain torch versions.
+Kernels: phase A (`ops/occluders.py`, kernels A1, A2 and A3), phase C
+(`ops/pulse.py`, kernel C1) and LISA's Qback lookup (`ops/lut_lookup.py`,
+kernel L1) are hand-written CUDA in `csrc/`, built by `nvcc` at first use.
+CUDA tensors go to the kernels, CPU tensors to their plain torch versions.
+Beside snowfall and wet ground, `models/` holds the viewer's weather
+baselines (LISA, fog, STF fog, DROR), which `tools/inspect.py` drives.
 
 This package imports torch and never jax.
 """

@@ -62,6 +62,13 @@ SIGNATURES = {
             _P,                                        # stream
         ],
     },
+    "lut_lookup": {
+        "lut_lookup_l1": [
+            _P, _P, _P,                                # p, table, out
+            ctypes.c_longlong, _I,                     # n, g1
+            _P,                                        # stream
+        ],
+    },
 }
 
 

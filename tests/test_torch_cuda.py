@@ -1,4 +1,4 @@
-"""Kernels A1, A2, A3 and C1 on the card against their plain torch
+"""Kernels A1, A2, A3, C1 and L1 on the card against their plain torch
 versions.
 
 These tests need an NVIDIA GPU and nvcc and skip elsewhere. They import no
@@ -22,6 +22,11 @@ from lidar_snow_sim_tpu_torch import (
     synthetic_scan,
 )
 from lidar_snow_sim_tpu_torch.models import snowfall as ts
+from lidar_snow_sim_tpu_torch.ops.lut_lookup import (
+    MAX_CELLS,
+    lut_lookup_pairs,
+    lut_lookup_plain,
+)
 from lidar_snow_sim_tpu_torch.ops.occluders import (
     find_occluders,
     find_occluders_banded,
@@ -178,3 +183,42 @@ def test_cuda_banded_matches_plain(cuda, case):
     want = occluders_banded_plain(*lay.occluder_args, **lay.occluder_kw)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cells", [((65536, 64), 127), ((8193,), 127),
+                                         ((3, 5), 127),
+                                         ((8193,), MAX_CELLS)])
+def test_cuda_l1_matches_plain(cuda, shape, cells):
+    """On the card: L1 equals its plain version exactly on LISA's bench
+    shape and on ragged ones, at knots and at p == g1, through both the
+    float4 path and the scalar path (an offset view of the positions), on
+    LISA's 127-cell table and on the widest one the kernel stages."""
+    rng = np.random.default_rng(0)
+    qb = rng.uniform(0.2, 36.7, cells + 1).astype(np.float32)
+    pairs = torch.as_tensor(np.stack([qb[:-1], qb[1:]], axis=1), device=cuda)
+    g1 = cells
+    p = rng.uniform(0, g1, shape).astype(np.float32)
+    flat = p.reshape(-1)
+    flat[: min(g1 + 1, flat.size)] = np.arange(min(g1 + 1, flat.size))
+    flat[-1] = g1
+    p = torch.as_tensor(p, device=cuda)
+    n0 = lut_lookup_pairs.launches
+    got = lut_lookup_pairs(p, pairs)
+    torch.cuda.synchronize()
+    assert lut_lookup_pairs.launches == n0 + 1
+    assert got.shape == p.shape and torch.equal(got, lut_lookup_plain(p, pairs))
+    tail = p.reshape(-1)[1:]
+    assert torch.equal(lut_lookup_pairs(tail, pairs),
+                       lut_lookup_plain(tail, pairs))
+    assert float(got.reshape(-1)[-1]) == float(qb[-1])
+
+
+@pytest.mark.cuda
+def test_cuda_l1_rejects_wide_tables(cuda):
+    """A table over MAX_CELLS cells raises before any launch."""
+    n0 = lut_lookup_pairs.launches
+    with pytest.raises(ValueError, match="cells"):
+        lut_lookup_pairs(torch.zeros(8, device=cuda),
+                         torch.zeros((MAX_CELLS + 1, 2), device=cuda))
+    assert lut_lookup_pairs.launches == n0

@@ -15,17 +15,24 @@ MODULES = [
     "lidar_snow_sim_tpu_torch._kernels",
     "lidar_snow_sim_tpu_torch.api",
     "lidar_snow_sim_tpu_torch.camera",
+    "lidar_snow_sim_tpu_torch.models.dror",
+    "lidar_snow_sim_tpu_torch.models.fog",
+    "lidar_snow_sim_tpu_torch.models.lisa",
     "lidar_snow_sim_tpu_torch.models.snowfall",
+    "lidar_snow_sim_tpu_torch.models.stf_fog",
     "lidar_snow_sim_tpu_torch.models.wet_ground",
     "lidar_snow_sim_tpu_torch.ops.fitting",
     "lidar_snow_sim_tpu_torch.ops.fresnel",
     "lidar_snow_sim_tpu_torch.ops.geometry",
     "lidar_snow_sim_tpu_torch.ops.laser",
+    "lidar_snow_sim_tpu_torch.ops.lut_lookup",
     "lidar_snow_sim_tpu_torch.ops.occluders",
     "lidar_snow_sim_tpu_torch.ops.pulse",
     "lidar_snow_sim_tpu_torch.parallel.batched",
     "lidar_snow_sim_tpu_torch.parallel.datagen",
+    "lidar_snow_sim_tpu_torch.tools.inspect",
     "lidar_snow_sim_tpu_torch.tools.precompute",
+    "lidar_snow_sim_tpu_torch.tools.profile_weather",
 ]
 
 
