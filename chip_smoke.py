@@ -40,10 +40,26 @@ Phases, each printing one line of numbers:
      the same draws; then the inspect CLI (python -m
      lidar_snow_sim_tpu_torch.tools.inspect ... --device cuda) with lisa
      (after --dror --fov), fog, stf_fog and snow+wet, the launch counters
-     zeroed before each run.
-The line before the last is the kernels' JSON record, the last line
-{"ok": true, "device": {...}}. Any failure exits non-zero before it; so
-does a machine without a CUDA device, or a directory without the port.
+     zeroed before each run;
+  7. the batched snowfall path at the JAX bench's batch of 16 frames (the
+     bench scan with 16 channel orders and RANSAC seeds drawn as the
+     datagen draws them): kernels A4a (pallas_transposed) and A4b
+     (pallas_pair) against their plain version (A1's, every chunk live)
+     and against A1 on the in-channel beams, C2 (pulse_pair) against its
+     plain version and C1, exact, and A1 folded over the 16 frames
+     (batch_fold) against 16 single launches; then batched_step with the
+     default config and with each knob, output byte-identical to the
+     default, launches counted around one batch (A1 once with batch_fold,
+     A4a / A4b / C2 16 times with their knobs), scans/s over 3 batches;
+     then run_snowfall_datagen on 16 synthetic scans with batch_fold,
+     the same files as the default config.
+The line before the last is the kernels' JSON record (each kernel's
+launches on its path, max_abs_err, ms and plain_ms, and bound_ms, the
+least time for the same work from this run's inputs: bytes over the card's
+memory rate or float32 operations over its peak, whichever is larger), the
+last line {"ok": true, "device": {...}}. Any failure exits non-zero before
+it; so does a machine without a CUDA device, or a directory without the
+port.
 """
 
 from __future__ import annotations
@@ -54,6 +70,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -101,6 +118,131 @@ def max_err(a12d, ovf, a12d_p, ovf_p, k: int, name: str) -> float:
     if err != 0.0:
         fail(f"{name} a1/a2 differ from the plain version: max {err}")
     return err
+
+
+# NVIDIA H100 SXM peaks at the 700 W limit (NVIDIA's data sheet): float32
+# outside the tensor cores, and HBM3 bandwidth
+FP32_FLOPS = 67e12
+HBM_BYTES = 3.35e12
+HIT_TEST_OPS = 20   # one (beam, candidate) hit test, csrc/occluders.cu
+WAVE_OPS = 9        # one (beam, bin, bump) waveform term, csrc/pulse.cu
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by): the least time for the work, the larger of the
+    bytes over the card's memory rate and the operations over its float32
+    rate."""
+    t_bytes = n_bytes / HBM_BYTES * 1e3
+    t_ops = n_ops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _runs(starts, lens, rows, k_ext: int) -> int:
+    """Distinct (bank row, column) pairs covered by the column runs
+    [starts, starts + lens) of bank rows `rows` (flat tensors)."""
+    import torch
+
+    n_rows = int(rows.max()) + 1
+    diff = torch.zeros(n_rows * (k_ext + 1), dtype=torch.int32,
+                       device=rows.device)
+    base = rows.long() * (k_ext + 1)
+    lens = lens.clamp_min(0)
+    diff.index_add_(0, base + starts.long(), (lens > 0).to(torch.int32))
+    diff.index_add_(0, base + (starts + lens).long(),
+                    -(lens > 0).to(torch.int32))
+    return int((diff.view(n_rows, -1).cumsum(1) > 0).sum())
+
+
+def phase_a_bound(kernel: str, args, kw, int_planes: int = 1):
+    """bound() of a phase-A call from this run's inputs: the hit tests its
+    candidate lists need (A1 its live chunks; A2 its routed lists; A3 its
+    two bands; A4a and A4b every chunk), and the bytes of the point
+    features, the chunk metadata, the distinct bank columns those lists
+    read (6 property rows each), the wide rows of the rows read, and the
+    outputs written once: a12d and `int_planes` int32 planes (ovf; A3
+    also unc)."""
+    import torch
+
+    feats, rows = args[0], args[2]
+    counts, data_t, wide_t = args[-3:]
+    k_ext, wc = data_t.shape[2], wide_t.shape[2]
+    blk, k = kw["blk"], kw["k_occ"]
+    n_chunks = rows.shape[0]
+    cnt = counts[rows.long()].long()
+    if kernel in ("A1", "A4a", "A4b"):
+        los = args[3].long()
+        live = args[4] > 0 if kernel == "A1" else torch.ones_like(
+            rows, dtype=torch.bool)
+        n_s = (torch.minimum(torch.clamp(los + kw["w_sl"], max=k_ext),
+                             los + cnt) - los).clamp_min(0) * live
+        tests = int((n_s + wc * live).sum()) * blk
+        cols = _runs(los, n_s, rows, k_ext)
+        wide = int(torch.unique(rows[live]).numel()) * wc
+    else:
+        g_dim = blk // kw["group"]
+        row_g = rows.repeat_interleave(g_dim)
+        cnt_g = cnt.repeat_interleave(g_dim)
+        band, wide_sl = kw["band"], kw["wide_sl"]
+        if kernel == "A2":
+            los, gloa, mode = args[3].long(), args[4].long(), args[5]
+            full = mode == 1
+            fast_g = (mode == 2).repeat_interleave(g_dim)
+            n_full = (torch.minimum(torch.clamp(los + kw["w_sl"], max=k_ext),
+                                    los + cnt) - los).clamp_min(0) * full
+            n_band = (torch.clamp(gloa + torch.clamp(cnt_g, max=band),
+                                  max=k_ext) - gloa).clamp_min(0) * fast_g
+            tests = (int((n_full + wc * full).sum()) * blk
+                     + int((n_band + wide_sl * fast_g).sum()) * kw["group"])
+            cols = _runs(torch.cat([los, gloa]), torch.cat([n_full, n_band]),
+                         torch.cat([rows, row_g]), k_ext)
+            wide = (int(torch.unique(rows[full]).numel()) * wc
+                    + int(torch.unique(row_g[fast_g]).numel()) * wide_sl)
+        else:   # A3: band A, then the columns of band B past band A
+            la, lb = args[3].long(), args[4].long()
+            end = torch.clamp(la + cnt_g, max=k_ext)
+            n_a = (torch.minimum(la + band, end) - la).clamp_min(0)
+            b0 = torch.maximum(lb, la + band)
+            n_b = (torch.minimum(lb + band, end) - b0).clamp_min(0)
+            tests = int((n_a + n_b + wide_sl).sum()) * kw["group"]
+            cols = _runs(torch.cat([la, b0]), torch.cat([n_a, n_b]),
+                         torch.cat([row_g, row_g]), k_ext)
+            wide = int(torch.unique(rows).numel()) * wide_sl
+    n_bytes = (feats.numel() * 4 + sum(a.numel() * 4 for a in args[1:-3])
+               + (cols + wide) * 6 * 4
+               + n_chunks * blk * (3 * k + int_planes) * 4)
+    return bound(n_bytes, tests * HIT_TEST_OPS)
+
+
+def pulse_bound(args):
+    """bound() of a phase-C call from this run's inputs: the sweep trips
+    each beam needs (7K + 4 operations a trip: the minimum and the retiring
+    over the 2K + 2 endpoints, the K cover tests) and its waveform over the
+    target and each occluder up to its last active one (WAVE_OPS a bin);
+    the bytes of the inputs read once and the four (cap,) outputs."""
+    import torch
+
+    from lidar_snow_sim_tpu_torch.ops.pulse import claimed_widths
+
+    feats, a1, a2, rr, valid, cos_b, sin_b, cos_g, sin_g = args
+    k, cap = a1.shape
+    m = cos_g.shape[0]
+    claimed, _ = claimed_widths(feats, a1, a2, valid)
+    trips = torch.clamp(2 * (valid > 0.5).sum(0) + 3, max=2 * k + 2)
+    rank = torch.arange(1, k + 1, device=a1.device)[:, None]
+    last = torch.where(claimed > 0, rank, 0).amax(0)
+    n_ops = (int(trips.sum()) * (7 * k + 4)
+             + int((1 + last).sum()) * m * WAVE_OPS)
+    n_bytes = sum(a.numel() * 4 for a in args) + 4 * cap * 4
+    return bound(n_bytes, n_ops)
+
+
+def record(name, source, replaces, launches, err, ms, plain_ms, bnd,
+           **extra):
+    """One kernel's entry of the kernels line."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": None, **extra}
 
 
 def bank_sets(cache_dir: Path, rate_mm_h=2.5, velocity=1.6, seed=42):
@@ -158,7 +300,7 @@ def weather_phase(pc, sets, rr, occ, dev) -> dict:
     """Phase 6: kernel L1 against its plain version at LISA's bench shape,
     the weather baselines end to end on the bench scan (each held against
     the CPU on the same draws), then the inspect CLI on the card. Returns
-    L1's record for the kernels line."""
+    L1's entry of the kernels line."""
     import contextlib
     import io
     import math
@@ -363,8 +505,262 @@ def weather_phase(pc, sets, rr, occ, dev) -> dict:
             print(f"inspect {name}: launches {launches} wall_s {wall_s:.2f} "
                   f"after_masks {report['after_masks']} labels {labels} "
                   f"stats {report.get(name.split('+')[0])}", flush=True)
-    return {"launches": l1_launches, "max_abs_err": l1_err, "ms": l1_ms,
-            "plain_ms": l1_plain_ms}
+    # L1 reads each position and the table once and writes each output once;
+    # about 6 operations an element (floor, clamp, the lerp)
+    l1_bound = bound((2 * p.numel() + pairs.numel()) * 4, 6 * p.numel())
+    return record("L1 knot-pair lookup (LISA's Qback)",
+                  "lidar_snow_sim_tpu_torch/csrc/lut_lookup.cu",
+                  "lidar_snow_sim_tpu/ops/lut_lookup.py:68", l1_launches,
+                  l1_err, l1_ms, l1_plain_ms, l1_bound)
+
+
+def batched_phase(pc, padded, bank, bank_t, calib, calib_t, cfg, lay, a12d,
+                  ovf, comp, out_p, dev) -> dict:
+    """Phase 7: the batched snowfall path at the JAX bench's batch of 16
+    frames (the bench scan, 16 channel orders and RANSAC seeds drawn as the
+    datagen draws them). (a) kernels A4a, A4b and C2 at the bench shapes
+    against their plain versions and against A1 / C1, and A1 folded over
+    the 16 frames against 16 single launches; (b) batched_step with the
+    default config and with each knob, byte-identical to the default, its
+    launches counted around one batch; (c) run_snowfall_datagen on 16
+    synthetic scans with batch_fold against the default. Returns the
+    entries of the kernels line, A1's folded numbers included."""
+    import torch
+
+    from lidar_snow_sim_tpu_torch import synthetic_scan
+    from lidar_snow_sim_tpu_torch.models.snowfall import (
+        OVERFLOW_COUNTERS,
+        SnowfallResult,
+        dense_layout,
+    )
+    from lidar_snow_sim_tpu_torch.ops.occluders import (
+        find_occluders,
+        find_occluders_folded,
+        find_occluders_pair,
+        find_occluders_t,
+        occluders_plain,
+        occluders_ungated_plain,
+    )
+    from lidar_snow_sim_tpu_torch.ops.pulse import (
+        pulse_peaks,
+        pulse_peaks_pair,
+        pulse_plain,
+    )
+    from lidar_snow_sim_tpu_torch.parallel.batched import (
+        batched_step,
+        frame_draws,
+    )
+    from lidar_snow_sim_tpu_torch.parallel.datagen import run_snowfall_datagen
+
+    batch, k = 16, cfg.max_occluders
+    kw = lay.occluder_kw
+    feats, w0b, rows, los, has, counts, data_t, wide_t = lay.occluder_args
+    args_u = (feats, w0b, rows, los, counts, data_t, wide_t)
+
+    def ungated_plain():
+        return occluders_ungated_plain(*args_u, **kw)
+
+    # (a) A4a and A4b against their plain version and against A1
+    a1_ms = time_ms(lambda: find_occluders(*lay.occluder_args, **kw))
+    want = ungated_plain()
+    valid = lay.valid_blk.reshape(-1)
+    recs = {}
+    for name, run, tpu in (("A4a", find_occluders_t, 312),
+                           ("A4b", find_occluders_pair, 747)):
+        got = run(*args_u, **kw)
+        torch.cuda.synchronize()
+        err = max_err(*got, *want, k, name)
+        if not torch.equal(got[1].reshape(-1)[valid], ovf.reshape(-1)[valid]) \
+                or not torch.equal(got[0][2 * k:, valid], a12d[2 * k:, valid]):
+            fail(f"{name} and A1 differ on the in-channel beams")
+        dead = ~lay.valid_blk.any(dim=1)
+        ms = time_ms(lambda: run(*args_u, **kw))
+        plain_ms = time_ms(ungated_plain)
+        bnd = phase_a_bound(name, args_u, kw)
+        recs[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound=bnd,
+                          tpu=tpu)
+        print(f"{name}: chunks {lay.n_chunks} (dead {int(dead.sum())}, "
+              f"computed) max_abs_err {err} ms {ms:.4f} plain_ms "
+              f"{plain_ms:.4f} bound_ms {bnd[0]:.4f} ({bnd[1]}) "
+              f"equal_to_A1_on_valid_beams True", flush=True)
+
+    # C2 against its plain version (C1's) and C1, at pulse_block 512
+    pblk = 512
+    if (comp.cap // pblk) % 2:
+        fail(f"compact capacity {comp.cap} has an odd count of {pblk} blocks")
+    out_c2 = pulse_peaks_pair(*comp.pulse_args, blk=pblk, **comp.pulse_kw)
+    out_c1 = pulse_peaks(*comp.pulse_args, **comp.pulse_kw)
+    for name, a, b, c in zip(("peak", "idx", "touched", "remainder"),
+                             out_c2, out_p, out_c1):
+        if not torch.equal(a, b) or not torch.equal(a, c):
+            fail(f"C2 {name} differs from its plain version or C1 at "
+                 f"{int((a != b).sum())} beams")
+    c2_err = max(float((out_c2[0] - out_p[0]).abs().max()),
+                 float((out_c2[3] - out_p[3]).abs().max()))
+    c2_ms = time_ms(lambda: pulse_peaks_pair(*comp.pulse_args, blk=pblk,
+                                             **comp.pulse_kw))
+    c1_ms = time_ms(lambda: pulse_peaks(*comp.pulse_args, **comp.pulse_kw))
+    c2_plain_ms = time_ms(lambda: pulse_plain(*comp.pulse_args,
+                                              **comp.pulse_kw))
+    c2_bound = pulse_bound(comp.pulse_args)
+    print(f"C2: cap {comp.cap} blocks {comp.cap // pblk} max_abs_err "
+          f"{c2_err} ms {c2_ms:.4f} c1_ms {c1_ms:.4f} plain_ms "
+          f"{c2_plain_ms:.4f} bound_ms {c2_bound[0]:.4f} ({c2_bound[1]})",
+          flush=True)
+
+    # the batch: the bench scan 16 times, orders and seeds as datagen draws
+    orders, seeds = [], []
+    for j in range(batch):
+        r = np.random.default_rng([0, zlib.crc32(f"bench_{j:02d}".encode())])
+        orders.append(r.permutation(64))
+        seeds.append(int(r.integers(2**31)))
+    points = torch.as_tensor(padded.points, device=dev).expand(
+        batch, -1, -1).contiguous()
+    mask = torch.as_tensor(padded.mask, device=dev).expand(
+        batch, -1).contiguous()
+    orders_t = torch.as_tensor(np.stack(orders), device=dev)
+    draws = torch.stack([frame_draws(s_, cfg, None)[0]
+                         for s_ in seeds]).to(dev)
+
+    # A1 folded over the 16 frames against 16 single launches
+    lays = [dense_layout(points[j], mask[j], bank_t, orders_t[j], draws[j],
+                         cfg) for j in range(batch)]
+    fold_args = [lay_j.occluder_args for lay_j in lays]
+    n0 = find_occluders.launches
+    folded = find_occluders_folded(fold_args, **kw)
+    torch.cuda.synchronize()
+    if find_occluders.launches != n0 + 1:
+        fail("the folded A1 did not make exactly one launch")
+    fold_err = 0.0
+    for j, (fa, fo) in enumerate(folded):
+        sa, so = find_occluders(*fold_args[j], **kw)
+        fold_err = max(fold_err, max_err(fa, fo, sa, so, k, f"folded A1 "
+                                                         f"frame {j}"))
+    fold_ms = time_ms(lambda: find_occluders_folded(fold_args, **kw))
+    singles_ms = time_ms(lambda: [find_occluders(*a, **kw)
+                                  for a in fold_args])
+    fold_plain_ms = time_ms(lambda: [occluders_plain(*a, **kw)
+                                     for a in fold_args], reps=3, warmup=1)
+    cat = [torch.cat([a[i] for a in fold_args]) for i in range(5)]
+    fold_bound = phase_a_bound("A1", (*cat, counts, data_t, wide_t), kw)
+    print(f"A1 folded: frames {batch} chunks {batch * lay.n_chunks} "
+          f"max_abs_err {fold_err} ms {fold_ms:.4f} "
+          f"16_single_launches_ms {singles_ms:.4f} plain_ms "
+          f"{fold_plain_ms:.4f} bound_ms {fold_bound[0]:.4f} "
+          f"({fold_bound[1]})", flush=True)
+
+    # (b) batched_step, default and each knob; launches counted around one
+    # batch, then scans/s over 3 batches
+    counted = {"A1": find_occluders, "A4a": find_occluders_t,
+               "A4b": find_occluders_pair, "C1": pulse_peaks,
+               "C2": pulse_peaks_pair}
+    expect = {
+        "default": dict(A1=batch, C1=batch),
+        "batch_fold": dict(A1=1, C1=batch),
+        "pallas_pair": dict(A4b=batch, C1=batch),
+        "pallas_transposed": dict(A4a=batch, C1=batch),
+        "pulse_pair": dict(A1=batch, C2=batch),
+    }
+    launches, ref = {}, None
+    for knob, want_n in expect.items():
+        run_cfg = cfg if knob == "default" else dataclasses.replace(
+            cfg, **{knob: True})
+
+        def step():
+            return batched_step(points, mask, bank_t, calib_t, orders_t,
+                                (draws, None), run_cfg)[0]
+
+        step()
+        torch.cuda.synchronize()
+        for fn in counted.values():
+            fn.launches = 0
+        res = step()
+        torch.cuda.synchronize()
+        counts_ = {n: fn.launches for n, fn in counted.items()}
+        if counts_ != {n: want_n.get(n, 0) for n in counted}:
+            fail(f"batched {knob}: launches {counts_}, want {want_n}")
+        launches[knob] = counts_
+        counters = {n: getattr(res, n).tolist() for n in OVERFLOW_COUNTERS}
+        if any(any(v) for v in counters.values()):
+            fail(f"batched {knob}: overflow counters {counters}")
+        if not set(torch.unique(res.planes[:, 4]).tolist()) <= {0.0, 1.0,
+                                                                2.0}:
+            fail(f"batched {knob}: labels outside {{0, 1, 2}}")
+        if ref is None:
+            ref = res
+        for name, a, b in zip(SnowfallResult._fields, res, ref):
+            if not torch.equal(a, b):
+                fail(f"batched {knob}: {name} differs from the default")
+        n_batches = 3
+        t0 = time.perf_counter()
+        for _ in range(n_batches):
+            step()
+        torch.cuda.synchronize()
+        rate = n_batches * batch / (time.perf_counter() - t0)
+        print(f"batched {knob}: frames {batch} launches {counts_} "
+              f"stats_frame0 {(int(res.num_attenuated[0]), int(res.num_removed[0]), int(res.avg_intensity_diff[0]))} "
+              f"counters 0 equal_to_default True batches {n_batches} "
+              f"scans_per_s {rate:.3f}", flush=True)
+
+    # (c) datagen on 16 synthetic scans, batch_fold against the default
+    scans = {f"s{j:02d}": synthetic_scan(n_azimuth=870, seed=j, calib=calib)
+             for j in range(batch)}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        walls = {}
+        for name, run_cfg in (("default", cfg),
+                              ("batch_fold",
+                               dataclasses.replace(cfg, batch_fold=True))):
+            n0 = find_occluders.launches
+            t0 = time.time()
+            stats = run_snowfall_datagen(
+                list(scans), scans.__getitem__, tmp / name, bank, calib,
+                run_cfg, batch=batch, device="cuda",
+            )
+            walls[name] = time.time() - t0
+            if stats.frames_done != batch:
+                fail(f"datagen {name} wrote {stats.frames_done} scans")
+            if name == "batch_fold" and \
+                    find_occluders.launches - n0 != 1 + stats.capacity_growths:
+                fail(f"datagen batch_fold launched A1 "
+                     f"{find_occluders.launches - n0} times")
+        for sid in scans:
+            if (tmp / "default" / f"{sid}.bin").read_bytes() != \
+                    (tmp / "batch_fold" / f"{sid}.bin").read_bytes():
+                fail(f"datagen batch_fold output differs: {sid}")
+    print(f"datagen batch 16: frames {batch} growths "
+          f"{stats.capacity_growths} wall_s default {walls['default']:.2f} "
+          f"batch_fold {walls['batch_fold']:.2f} equal_files True",
+          flush=True)
+
+    src = "lidar_snow_sim_tpu_torch/csrc/occluders.cu"
+    out = {
+        name: record(
+            f"{name} " + ("transposed occluders (phase A, pallas_transposed)"
+                          if name == "A4a" else
+                          "paired occluders (phase A, pallas_pair)"),
+            src, f"lidar_snow_sim_tpu/ops/pallas_occluders.py:{r['tpu']}",
+            launches[{"A4a": "pallas_transposed",
+                      "A4b": "pallas_pair"}[name]][name],
+            r["err"], r["ms"], r["plain_ms"], r["bound"],
+            a1_ms_same_call=a1_ms,
+        )
+        for name, r in recs.items()
+    }
+    out["C2"] = record(
+        "C2 paired sweep and pulse peak (phase C, pulse_pair)",
+        "lidar_snow_sim_tpu_torch/csrc/pulse.cu",
+        "lidar_snow_sim_tpu/ops/pallas_pulse.py:244",
+        launches["pulse_pair"]["C2"], c2_err, c2_ms, c2_plain_ms, c2_bound,
+        c1_ms_same_call=c1_ms,
+    )
+    out["A1_folded"] = dict(
+        folded_launches=launches["batch_fold"]["A1"], folded_frames=batch,
+        folded_max_abs_err=fold_err, folded_ms=fold_ms,
+        folded_16_single_ms=singles_ms, folded_plain_ms=fold_plain_ms,
+        folded_bound_ms=fold_bound[0], folded_bound_by=fold_bound[1],
+    )
+    return out
 
 
 def main() -> int:
@@ -733,33 +1129,30 @@ def main() -> int:
           f"ground_water_augmentation out {wet_pc.shape}", flush=True)
 
     l1 = weather_phase(pc, sets, rr, occ, dev)
+    batched = batched_phase(pc, padded, bank, bank_t, calib, calib_t, cfg,
+                            lay, a12d, ovf, comp, out_p, dev)
 
+    occ_src = "lidar_snow_sim_tpu_torch/csrc/occluders.cu"
+    tpu_occ = "lidar_snow_sim_tpu/ops/pallas_occluders.py"
     kernels = [
-        {"name": "A1 nearest-K occluders (phase A)", "route": "cuda",
-         "source": "lidar_snow_sim_tpu_torch/csrc/occluders.cu",
-         "replaces": "lidar_snow_sim_tpu/ops/pallas_occluders.py:150",
-         "launches": launches["A1"], "max_abs_err": a1_err,
-         "ms": a1_ms, "plain_ms": a1_plain_ms},
-        {"name": "C1 sweep and pulse peak (phase C)", "route": "cuda",
-         "source": "lidar_snow_sim_tpu_torch/csrc/pulse.cu",
-         "replaces": "lidar_snow_sim_tpu/ops/pallas_pulse.py:173",
-         "launches": launches["C1"], "max_abs_err": c1_err,
-         "ms": c1_ms, "plain_ms": c1_plain_ms},
-        {"name": "A2 span-routed occluders (phase A, route_band)",
-         "route": "cuda",
-         "source": "lidar_snow_sim_tpu_torch/csrc/occluders.cu",
-         "replaces": "lidar_snow_sim_tpu/ops/pallas_occluders.py:584",
-         "launches": launches_r["A2"], "max_abs_err": a2_err,
-         "ms": a2_ms, "plain_ms": a2_plain_ms},
-        {"name": "A3 dual-banded occluders (phase A, band_width)",
-         "route": "cuda",
-         "source": "lidar_snow_sim_tpu_torch/csrc/occluders.cu",
-         "replaces": "lidar_snow_sim_tpu/ops/pallas_occluders.py:423",
-         "launches": launches_b["A3"], "max_abs_err": a3_err,
-         "ms": a3_ms, "plain_ms": a3_plain_ms},
-        {"name": "L1 knot-pair lookup (LISA's Qback)", "route": "cuda",
-         "source": "lidar_snow_sim_tpu_torch/csrc/lut_lookup.cu",
-         "replaces": "lidar_snow_sim_tpu/ops/lut_lookup.py:68", **l1},
+        record("A1 nearest-K occluders (phase A)", occ_src, f"{tpu_occ}:150",
+               launches["A1"], a1_err, a1_ms, a1_plain_ms,
+               phase_a_bound("A1", lay.occluder_args, lay.occluder_kw),
+               **batched["A1_folded"]),
+        record("C1 sweep and pulse peak (phase C)",
+               "lidar_snow_sim_tpu_torch/csrc/pulse.cu",
+               "lidar_snow_sim_tpu/ops/pallas_pulse.py:173", launches["C1"],
+               c1_err, c1_ms, c1_plain_ms, pulse_bound(comp.pulse_args)),
+        record("A2 span-routed occluders (phase A, route_band)", occ_src,
+               f"{tpu_occ}:584", launches_r["A2"], a2_err, a2_ms,
+               a2_plain_ms, phase_a_bound("A2", args_r, kw_r)),
+        record("A3 dual-banded occluders (phase A, band_width)", occ_src,
+               f"{tpu_occ}:423", launches_b["A3"], a3_err, a3_ms,
+               a3_plain_ms, phase_a_bound("A3", args_b, kw_b, int_planes=2)),
+        batched["A4a"],
+        batched["A4b"],
+        batched["C2"],
+        l1,
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -52,6 +52,16 @@ SIGNATURES = {
             _F,                                        # delta
             _P,
         ],
+        "occluders_a4a": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P,       # arrays, no has
+            _I, _I, _I, _I, _I, _I,
+            _P,
+        ],
+        "occluders_a4b": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P,
+            _I, _I, _I, _I, _I, _I,
+            _P,
+        ],
     },
     "pulse": {
         "pulse_c1": [
@@ -60,6 +70,13 @@ SIGNATURES = {
             _I, _I, _I,                                # cap, K, M
             _F, _F, _F, _F, _F,                        # scalars
             _P,                                        # stream
+        ],
+        "pulse_c2": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P,
+            _P, _P, _P, _P,
+            _I, _I, _I, _I,                            # cap, K, M, blk
+            _F, _F, _F, _F, _F,
+            _P,
         ],
     },
     "lut_lookup": {

@@ -4,7 +4,8 @@
 names, defaults and return contracts (`tools/snowfall/simulation.py:427-446`,
 `tools/wet_ground/augmentation.py:25-41`); the particle files are the
 reference's `{prefix}_{line}.npy`. Both take one extra keyword, `device`
-(default: the GPU when there is one); `augment` also takes `config`, a dict
+(default "cuda"; without a card it raises, and the CPU must be asked
+for with device="cpu"); `augment` also takes `config`, a dict
 of SnowfallConfig fields set over its defaults (for example route_band=384,
 band_group=16 for the span-routed phase A). Loaded banks and augmenters are
 cached per (prefix, config, device).
@@ -16,24 +17,24 @@ import os
 from pathlib import Path
 
 import numpy as np
-import torch
 
-from lidar_snow_sim_tpu.api import _next_pow2
-from lidar_snow_sim_tpu.calib import load_hdl64_calib
-from lidar_snow_sim_tpu.config import SnowfallConfig, WetGroundConfig
-from lidar_snow_sim_tpu.sampling.banks import load_bank_files
+from lidar_snow_sim_tpu_torch.calib import load_hdl64_calib
 from lidar_snow_sim_tpu_torch.camera import camera_fov_mask
+from lidar_snow_sim_tpu_torch.config import SnowfallConfig, WetGroundConfig
+from lidar_snow_sim_tpu_torch.device import resolve_device
 from lidar_snow_sim_tpu_torch.models.snowfall import SnowfallAugmenter
 from lidar_snow_sim_tpu_torch.models.wet_ground import WetGroundAugmenter
+from lidar_snow_sim_tpu_torch.sampling.banks import load_bank_files
 
 _AUGMENTER_CACHE: dict = {}
 _WET_CACHE: dict = {}
 
 
-def _device(device) -> torch.device:
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    return torch.device(device)
+def _next_pow2(n: int, floor: int = 2048) -> int:
+    p = floor
+    while p < n:
+        p <<= 1
+    return p
 
 
 def augment(
@@ -45,7 +46,7 @@ def augment(
     only_camera_fov: bool = True,
     noise_floor: float = 0.7,
     root_path: str | None = None,
-    device=None,
+    device="cuda",
     config: dict | None = None,
 ):
     """Snowfall augmentation with the reference's signature and semantics.
@@ -55,7 +56,7 @@ def augment(
     column. beam_divergence is in degrees; show_progressbar is ignored.
     """
     del show_progressbar
-    dev = _device(device)
+    dev = resolve_device(device)
     pc = np.asarray(pc)
     directory = Path(root_path) if root_path else Path(
         os.environ.get("SNOWFLAKES_DIR", "snowflakes")
@@ -110,12 +111,12 @@ def ground_water_augmentation(
     debug: bool = False,
     delta: float = 0.5,
     replace: bool = True,
-    device=None,
+    device="cuda",
 ):
     """Wet-ground augmentation with the reference's signature; returns the
     augmented N-by-5 cloud (augmentation.py:25-161). debug is ignored."""
     del debug
-    dev = _device(device)
+    dev = resolve_device(device)
     pointcloud = np.asarray(pointcloud)
     cap = _next_pow2(len(pointcloud))
     cfg = WetGroundConfig(

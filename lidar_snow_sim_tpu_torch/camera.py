@@ -14,13 +14,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-import lidar_snow_sim_tpu
-
-# the DENSE HDL-64 rig shipped as a data file of the JAX package (whose
-# camera module imports jax, so only its data is shared)
-DEFAULT_CALIB_FILE = (
-    Path(lidar_snow_sim_tpu.__file__).parent / "data" / "calib_hdl64.txt"
-)
+# the DENSE HDL-64 rig, a byte-for-byte copy of the JAX package's data file
+DEFAULT_CALIB_FILE = Path(__file__).parent / "data" / "calib_hdl64.txt"
 DEFAULT_IMG_SHAPE = (1024, 1920)  # (H, W), simulation.py:536
 
 

@@ -1,5 +1,5 @@
-// Kernels A1, A2 and A3: nearest-K occluders for each (channel, azimuth)-
-// sorted beam, phase A of the dense snowfall assembly.
+// Kernels A1, A2, A3, A4a and A4b: nearest-K occluders for each (channel,
+// azimuth)-sorted beam, phase A of the dense snowfall assembly.
 //
 // Replaces, in lidar_snow_sim_tpu/ops/pallas_occluders.py:
 //   A1 `_kernel` (with `_prep_side`, `_extract_step`): every beam of a chunk
@@ -10,8 +10,10 @@
 //      data_t[row, :, gloa:gloa+band] plus wide[:wide_sl]);
 //   A3 `_kernel_banded` (with `_prep_banded`): each band_group against two
 //      bands, head-anchored A and tail-anchored B (B's columns already in A
-//      dropped), plus wide[:wide_sl], and a per-beam coverage flag.
-// All three keep the K nearest hits in the order of lax.top_k over the
+//      dropped), plus wide[:wide_sl], and a per-beam coverage flag;
+//   A4a `_kernel_t` (`pallas_transposed`) and A4b `_kernel_pair`
+//      (`pallas_pair`): A1's function, every chunk computed (no has gate).
+// All of them keep the K nearest hits in the order of lax.top_k over the
 // candidate list as the TPU kernel concatenates it: ascending range, ties to
 // the lowest candidate column.
 //
@@ -30,7 +32,20 @@
 // The hit test and the insertion are one function (TopK::consider) that
 // all three kernels share, so their arithmetic is identical.
 //
-// What bounds it on this card: the hit test, ~20 flops per (beam, column)
+// A4a. The TPU kernel puts candidates on sublanes and beams on lanes, so
+// each extraction trip is a reduction along the candidate axis. Here a warp
+// takes one beam and splits its candidate list over the lanes (A1 gives a
+// thread a beam and loops over all of the list): lane l tests candidates l,
+// l + 32, ... and keeps its own top-K, then K trips take the warp minimum of
+// (range, candidate index). The list is staged once per CTA when it fits
+// the tile (kTileT candidates), else once per round of kWarpsT beams.
+//
+// A4b. The TPU kernel interleaves two chunks' extraction loops for
+// instruction-level parallelism. Here one CTA stages both chunks' lists in
+// two tiles and each thread carries one beam of each chunk through the same
+// column loop: two independent hit-test and insertion chains.
+//
+// What bounds them on this card: the hit test, ~20 flops per (beam, column)
 // pair. At the bench shapes (576 chunks x 128 beams) A1 tests 1408 columns
 // per beam, A2's fast chunks 384 + 32 and A3 at most 2 x band + 32; each
 // staged column is 24 bytes, read once per chunk. It is compute- and
@@ -66,6 +81,36 @@ struct Beam {
         sin_l(f[5]), cos_l(f[6]), wrapped(f[7] > 0.5f) {}
 };
 
+// The exact hit test of candidate (px, py, pr, pdist, pang) against beam b;
+// on a hit, also whether it is a right or left edge hit.
+__device__ __forceinline__ bool hit_test(const Beam& b, float px, float py,
+                                         float pr, float pdist, float pang,
+                                         bool& right_hit, bool& left_hit) {
+  bool center_in = (b.right <= pang) && (pang <= b.left);
+  center_in = center_in ||
+              (b.wrapped && (b.right - kTwoPi <= pang) && (pang <= b.left));
+  center_in = center_in ||
+              (b.wrapped && (b.right <= pang) && (pang <= b.left + kTwoPi));
+  const float dist_r = fabsf(px * b.sin_r - py * b.cos_r);
+  const float dist_l = fabsf(px * b.sin_l - py * b.cos_l);
+  right_hit = (dist_r < pr) && (b.cos_r * px + b.sin_r * py > 0.f);
+  left_hit = (dist_l < pr) && (b.cos_l * px + b.sin_l * py > 0.f);
+  return (center_in || right_hit || left_hit) && (pdist < b.d_orig);
+}
+
+// The occluded interval [v1, v2] of a hit.
+__device__ __forceinline__ void interval(const Beam& b, float pang,
+                                         float halfw, bool right_hit,
+                                         bool left_hit, float& v1,
+                                         float& v2) {
+  v1 = pang - halfw;
+  if (v1 < 0.f) v1 = v1 + kTwoPi;
+  v2 = pang + halfw;
+  if (v2 > kTwoPi) v2 = v2 - kTwoPi;
+  if (right_hit) v1 = b.right;
+  if (left_hit) v2 = b.left;
+}
+
 template <int KMAX>
 struct TopK {
   float d[KMAX], a1[KMAX], a2[KMAX];
@@ -75,30 +120,15 @@ struct TopK {
   // of a hit among the K nearest so far.
   __device__ __forceinline__ void consider(const Beam& b, const Tile& tile,
                                            int j, int k_occ) {
-    const float px = tile[0][j], py = tile[1][j], pr = tile[2][j];
-    const float pdist = tile[3][j], pang = tile[4][j], halfw = tile[5][j];
-    bool center_in = (b.right <= pang) && (pang <= b.left);
-    center_in = center_in ||
-                (b.wrapped && (b.right - kTwoPi <= pang) && (pang <= b.left));
-    center_in = center_in ||
-                (b.wrapped && (b.right <= pang) && (pang <= b.left + kTwoPi));
-    const float dist_r = fabsf(px * b.sin_r - py * b.cos_r);
-    const float dist_l = fabsf(px * b.sin_l - py * b.cos_l);
-    const bool right_hit =
-        (dist_r < pr) && (b.cos_r * px + b.sin_r * py > 0.f);
-    const bool left_hit =
-        (dist_l < pr) && (b.cos_l * px + b.sin_l * py > 0.f);
-    const bool hit =
-        (center_in || right_hit || left_hit) && (pdist < b.d_orig);
-    if (!hit) return;
+    const float pdist = tile[3][j], pang = tile[4][j];
+    bool right_hit, left_hit;
+    if (!hit_test(b, tile[0][j], tile[1][j], tile[2][j], pdist, pang,
+                  right_hit, left_hit))
+      return;
     ++n_hit;
     if (n_kept == k_occ && !(pdist < d[k_occ - 1])) return;
-    float v1 = pang - halfw;
-    if (v1 < 0.f) v1 = v1 + kTwoPi;
-    float v2 = pang + halfw;
-    if (v2 > kTwoPi) v2 = v2 - kTwoPi;
-    if (right_hit) v1 = b.right;
-    if (left_hit) v2 = b.left;
+    float v1, v2;
+    interval(b, pang, tile[5][j], right_hit, left_hit, v1, v2);
     int pos = n_kept < k_occ ? n_kept : k_occ - 1;
     while (pos > 0 && d[pos - 1] > pdist) {
       d[pos] = d[pos - 1];
@@ -297,6 +327,191 @@ __global__ void a3_kernel(
   unc[col_out] = covered ? 0 : 1;
 }
 
+
+// ---- A4a: each beam's candidate columns split across the lanes of a warp
+
+constexpr int kTileT = 4096;   // A4a's staged candidates (dynamic, <= 96 KB)
+constexpr int kWarpsT = 8;     // warps per A4a CTA
+
+// One lane's sorted list of its K nearest hits (ascending range; a tie keeps
+// the lower candidate index, which is also the lane's earlier test).
+template <int KMAX>
+struct LaneTopK {
+  float d[KMAX], a1[KMAX], a2[KMAX];
+  int col[KMAX];
+  int n_kept = 0, n_hit = 0, head = 0;
+
+  // candidate c of the list, staged at column j of `tile` (6 rows, stride ld)
+  __device__ __forceinline__ void consider(const Beam& b, const float* tile,
+                                           int ld, int j, int c, int k_occ) {
+    const float pdist = tile[3 * ld + j], pang = tile[4 * ld + j];
+    bool right_hit, left_hit;
+    if (!hit_test(b, tile[j], tile[ld + j], tile[2 * ld + j], pdist, pang,
+                  right_hit, left_hit))
+      return;
+    ++n_hit;
+    if (n_kept == k_occ && !(pdist < d[k_occ - 1])) return;
+    float v1, v2;
+    interval(b, pang, tile[5 * ld + j], right_hit, left_hit, v1, v2);
+    int pos = n_kept < k_occ ? n_kept : k_occ - 1;
+    while (pos > 0 && d[pos - 1] > pdist) {
+      d[pos] = d[pos - 1];
+      a1[pos] = a1[pos - 1];
+      a2[pos] = a2[pos - 1];
+      col[pos] = col[pos - 1];
+      --pos;
+    }
+    d[pos] = pdist;
+    a1[pos] = v1;
+    a2[pos] = v2;
+    col[pos] = c;
+    if (n_kept < k_occ) ++n_kept;
+  }
+};
+
+// A1's function with the candidate list across the lanes. The list is the
+// slice [lo, lo + n_s) (n_s: the slice up to one wrap period and the row's
+// end) then the wc wide columns; candidate c is staged at column c % cap of
+// the CTA's tile. Each warp takes one beam at a time: lane l tests
+// candidates l, l + 32, ... and keeps its own top-K; then K trips take the
+// warp minimum of (range, candidate), lax.top_k's "value, then lowest
+// index", and the winning lane pops its head. Every chunk is computed (no
+// has gate), as in the TPU kernel.
+template <int KMAX>
+__global__ void a4a_kernel(
+    const float* __restrict__ feats, const int* __restrict__ w0b,
+    const int* __restrict__ rows, const int* __restrict__ los,
+    const int* __restrict__ counts, const float* __restrict__ data_t,
+    const float* __restrict__ wide_t, float* __restrict__ a12d,
+    int* __restrict__ ovf, int n_chunks, int blk, int w_sl, int k_ext,
+    int wc, int k_occ, int cap) {
+  extern __shared__ float tile[];   // 6 rows x cap candidates
+  const int chunk = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t n2 = (size_t)n_chunks * blk;
+  const int row = rows[chunk];
+  const int lo = los[chunk];
+  const int n_s = max(min(min(lo + w_sl, k_ext), lo + counts[row]) - lo, 0);
+  const int n_tot = n_s + wc;
+  const int n_tiles = (n_tot + cap - 1) / cap;
+  const float* bank = data_t + (size_t)row * kProp * k_ext + lo;
+  const float* wide = wide_t + (size_t)row * kProp * wc;
+  for (int r0 = 0; r0 < blk; r0 += kWarpsT) {
+    const int beam = r0 + warp;
+    const bool active = beam < blk;   // uniform per warp
+    const Beam b(feats + ((size_t)w0b[chunk] * blk + min(beam, blk - 1)) *
+                             kFeat);
+    LaneTopK<KMAX> top;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int c0 = t * cap;
+      const int n_t = min(cap, n_tot - c0);
+      if (n_tiles > 1 || r0 == 0) {   // one tile holds the list: stage once
+        __syncthreads();
+        for (int j = threadIdx.x; j < n_t; j += blockDim.x) {
+          const int c = c0 + j;
+          for (int r = 0; r < 6; ++r)
+            tile[r * cap + j] = c < n_s ? bank[(size_t)r * k_ext + c]
+                                        : wide[(size_t)r * wc + c - n_s];
+        }
+        __syncthreads();
+      }
+      if (active)
+        for (int j = lane; j < n_t; j += 32)
+          top.consider(b, tile, cap, j, c0 + j, k_occ);
+    }
+    if (!active) continue;
+    int total = top.n_hit;
+    for (int o = 16; o > 0; o >>= 1)
+      total += __shfl_xor_sync(0xffffffffu, total, o);
+    const int trips = min(k_occ, total);
+    const size_t col_out = (size_t)chunk * blk + beam;
+    for (int k = 0; k < trips; ++k) {
+      const bool has = top.head < top.n_kept;
+      float bd = has ? top.d[top.head] : kBig;
+      int bc = has ? top.col[top.head] : 0x7fffffff;
+      for (int o = 16; o > 0; o >>= 1) {
+        const float od = __shfl_xor_sync(0xffffffffu, bd, o);
+        const int oc = __shfl_xor_sync(0xffffffffu, bc, o);
+        if (od < bd || (od == bd && oc < bc)) { bd = od; bc = oc; }
+      }
+      if (has && top.col[top.head] == bc) {   // the winner: one lane
+        a12d[(size_t)k * n2 + col_out] = top.a1[top.head];
+        a12d[(size_t)(k_occ + k) * n2 + col_out] = top.a2[top.head];
+        a12d[(size_t)(2 * k_occ + k) * n2 + col_out] = bd;
+        ++top.head;
+      }
+    }
+    for (int k = trips + lane; k < k_occ; k += 32) {
+      a12d[(size_t)k * n2 + col_out] = 0.f;
+      a12d[(size_t)(k_occ + k) * n2 + col_out] = 0.f;
+      a12d[(size_t)(2 * k_occ + k) * n2 + col_out] = kBig;
+    }
+    if (lane == 0) ovf[col_out] = total > k_occ ? total - k_occ : 0;
+  }
+}
+
+// ---- A4b: two chunks per CTA, two independent chains per thread
+
+// Thread t carries beam t of chunks 2i and 2i + 1 through one column loop:
+// each step tests column c of both chunks' lists (each staged in its own
+// tile), so the two hit tests and insertions are independent chains. The
+// lists are A1's (slice up to one wrap period, then the wide columns), and
+// each keeps A1's order. Every chunk is computed (no has gate), as in the
+// TPU kernel.
+template <int KMAX>
+__global__ void a4b_kernel(
+    const float* __restrict__ feats, const int* __restrict__ w0b,
+    const int* __restrict__ rows, const int* __restrict__ los,
+    const int* __restrict__ counts, const float* __restrict__ data_t,
+    const float* __restrict__ wide_t, float* __restrict__ a12d,
+    int* __restrict__ ovf, int n_chunks, int blk, int w_sl, int k_ext,
+    int wc, int k_occ) {
+  extern __shared__ float smem[];   // two Tiles
+  Tile* tiles = reinterpret_cast<Tile*>(smem);
+  const size_t n2 = (size_t)n_chunks * blk;
+  const float* src[2];
+  const float* wsrc[2];
+  int n_s[2];
+  const Beam ba(feats + ((size_t)w0b[2 * blockIdx.x] * blk + threadIdx.x) *
+                            kFeat);
+  const Beam bb(feats +
+                ((size_t)w0b[2 * blockIdx.x + 1] * blk + threadIdx.x) *
+                    kFeat);
+  for (int s = 0; s < 2; ++s) {
+    const int chunk = 2 * blockIdx.x + s;
+    const int row = rows[chunk];
+    const int lo = los[chunk];
+    n_s[s] = max(min(min(lo + w_sl, k_ext), lo + counts[row]) - lo, 0);
+    src[s] = data_t + (size_t)row * kProp * k_ext + lo;
+    wsrc[s] = wide_t + (size_t)row * kProp * wc;
+  }
+  TopK<KMAX> ta, tb;
+  // the slices, then the wide lists, kTile columns of both per pass
+  for (int phase = 0; phase < 2; ++phase) {
+    const int na = phase ? wc : n_s[0], nb = phase ? wc : n_s[1];
+    const size_t lda = phase ? wc : k_ext;
+    const float* pa = phase ? wsrc[0] : src[0];
+    const float* pb = phase ? wsrc[1] : src[1];
+    for (int t0 = 0; t0 < max(na, nb); t0 += kTile) {
+      const int ea = min(kTile, na - t0), eb = min(kTile, nb - t0);
+      __syncthreads();
+      for (int j = threadIdx.x; j < kTile; j += blockDim.x)
+        for (int r = 0; r < 6; ++r) {
+          if (j < ea) tiles[0][r][j] = pa[(size_t)r * lda + t0 + j];
+          if (j < eb) tiles[1][r][j] = pb[(size_t)r * lda + t0 + j];
+        }
+      __syncthreads();
+      for (int j = 0; j < max(ea, eb); ++j) {
+        if (j < ea) ta.consider(ba, tiles[0], j, k_occ);
+        if (j < eb) tb.consider(bb, tiles[1], j, k_occ);
+      }
+    }
+  }
+  ta.write(a12d, ovf, n2, (size_t)2 * blockIdx.x * blk + threadIdx.x, k_occ);
+  tb.write(a12d, ovf, n2, ((size_t)2 * blockIdx.x + 1) * blk + threadIdx.x,
+           k_occ);
+}
+
 }  // namespace
 
 // The per-thread top-K list is sized at compile time: K <= 32 ... 512.
@@ -359,5 +574,51 @@ extern "C" int occluders_a3(
   DISPATCH_K(k_occ, a3_kernel<KMAX><<<n_chunks, blk, 0, s>>>(
       feats, w0b, rows, gloa, glob, counts, data_t, wide_t, a12d, ovf, unc,
       n_chunks, blk, k_ext, wc, wide_sl, k_occ, band, group, delta))
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A1's function with the candidates of a beam across a warp's lanes (kernel
+// A4a). Arguments as occluders_a1 without has: every chunk is computed.
+extern "C" int occluders_a4a(
+    const float* feats, const int* w0b, const int* rows, const int* los,
+    const int* counts, const float* data_t, const float* wide_t, float* a12d,
+    int* ovf, int n_chunks, int blk, int w_sl, int k_ext, int wc, int k_occ,
+    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_chunks == 0) return static_cast<int>(cudaGetLastError());
+  const int cap = min(w_sl + wc, kTileT);
+  const int smem = cap * 6 * static_cast<int>(sizeof(float));
+  DISPATCH_K(k_occ, {
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          a4a_kernel<KMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    a4a_kernel<KMAX><<<n_chunks, kWarpsT * 32, smem, s>>>(
+        feats, w0b, rows, los, counts, data_t, wide_t, a12d, ovf, n_chunks,
+        blk, w_sl, k_ext, wc, k_occ, cap);
+  })
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A1's function on two chunks per CTA (kernel A4b). Arguments as
+// occluders_a4a; n_chunks must be even.
+extern "C" int occluders_a4b(
+    const float* feats, const int* w0b, const int* rows, const int* los,
+    const int* counts, const float* data_t, const float* wide_t, float* a12d,
+    int* ovf, int n_chunks, int blk, int w_sl, int k_ext, int wc, int k_occ,
+    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_chunks == 0) return static_cast<int>(cudaGetLastError());
+  if (n_chunks % 2) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = 2 * static_cast<int>(sizeof(Tile));
+  DISPATCH_K(k_occ, {
+    const cudaError_t e = cudaFuncSetAttribute(
+        a4b_kernel<KMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    a4b_kernel<KMAX><<<n_chunks / 2, blk, smem, s>>>(
+        feats, w0b, rows, los, counts, data_t, wide_t, a12d, ovf, n_chunks,
+        blk, w_sl, k_ext, wc, k_occ);
+  })
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,6 +34,7 @@ import math
 import numpy as np
 import torch
 
+from lidar_snow_sim_tpu_torch.device import resolve_device
 from lidar_snow_sim_tpu_torch.ops.geometry import norm3
 
 # Snow-severity bands by the number of DROR-flagged points inside the
@@ -197,14 +198,15 @@ def dynamic_radius_outlier_filter(
     block: int = 1024,
     window: int = 2048,
     margin: int = 1024,
-    device="cpu",
+    device="cuda",
 ) -> np.ndarray:
     """Keep-mask over an (N, >=3) cloud; True = inlier (not snow). alpha in
     degrees, sr_min in meters (the reference's live-PCL signature), plus
-    `device`. The windowed search runs first (blocks of min(block, 128));
+    `device` (the card unless the CPU is asked for). The windowed search runs first (blocks of min(block, 128));
     a counted overflow grows the window once, and a second one runs the
     full search, so every in-radius pair is compared. ``window=0`` forces
     the full search."""
+    device = resolve_device(device)
     pc = np.asarray(pc)
     n = pc.shape[0]
     if n == 0:

@@ -22,8 +22,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from lidar_snow_sim_tpu.config import SPEED_OF_LIGHT
-from lidar_snow_sim_tpu.utils.pointcloud import pad_cloud
+from lidar_snow_sim_tpu_torch.config import SPEED_OF_LIGHT
+from lidar_snow_sim_tpu_torch.device import resolve_device
+from lidar_snow_sim_tpu_torch.utils.pointcloud import pad_cloud
 from lidar_snow_sim_tpu_torch.ops.f32 import div
 from lidar_snow_sim_tpu_torch.ops.geometry import norm3
 
@@ -247,10 +248,10 @@ class FogAugmenter:
     from a generator on `device` seeded `seed`."""
 
     def __init__(self, params: FogParameterSet | None = None, seed: int = 0,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         self.params = params or FogParameterSet()
         self.seed = seed
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     def run(self, pc: np.ndarray) -> FogResult:
         n = pc.shape[0]
@@ -276,7 +277,7 @@ class FogAugmenter:
 
 
 def simulate_fog(p, pc: np.ndarray, noise: float, gain: bool = False,
-                 noise_variant: str = "v1", seed: int = 0, device="cpu"):
+                 noise_variant: str = "v1", seed: int = 0, device="cuda"):
     """The reference call contract ``pc, simulated_fog_pc, info_dict =
     simulate_fog(p, pc, noise, gain, noise_variant)``; p is a ParameterSet
     or FogParameterSet. info_dict keys: min_fog_response, max_fog_response,
@@ -302,7 +303,7 @@ def simulate_fog(p, pc: np.ndarray, noise: float, gain: bool = False,
 
 
 def simulate_fog_pc(p: FogParameterSet, pc: np.ndarray, noise: float = 10.0,
-                    seed: int = 0, device="cpu"):
+                    seed: int = 0, device="cuda"):
     """`simulate_fog` returning stats-dict style info."""
     fp = dataclasses.replace(p, noise=noise)
     res = FogAugmenter(fp, seed=seed, device=device).run(np.asarray(pc))

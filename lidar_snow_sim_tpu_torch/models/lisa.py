@@ -28,8 +28,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from lidar_snow_sim_tpu.ops.mie import WATER_M_905NM, bake_mie_lut
-from lidar_snow_sim_tpu.utils.pointcloud import pad_cloud
+from lidar_snow_sim_tpu_torch.device import resolve_device
+from lidar_snow_sim_tpu_torch.ops.mie import WATER_M_905NM, bake_mie_lut
+from lidar_snow_sim_tpu_torch.utils.pointcloud import pad_cloud
 from lidar_snow_sim_tpu_torch.ops.geometry import norm3
 from lidar_snow_sim_tpu_torch.ops.lut_lookup import lut_lookup_pairs
 
@@ -300,7 +301,7 @@ class LISA:
         fog_preset: str = "strong_advection",
         show_progressbar: bool = False,
         mxu_lookup: str | bool = "auto",   # accepted for API parity
-        device: str | torch.device = "cpu",
+        device: str | torch.device = "cuda",
     ):
         self.wavelength = wavelength
         self.mode = mode
@@ -314,7 +315,7 @@ class LISA:
         self.tail_droplets = tail_droplets
         self.fog_preset = fog_preset
         self.show_progressbar = show_progressbar  # accepted for API parity
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
         # ice refractive index for the snow modes (Warren & Brandt 2008,
         # 905 nm); water otherwise

@@ -12,7 +12,7 @@ Per scan:
    no in-channel point. Each chunk reads one bank slice of slice_width +
    128 columns, its start aligned down to 128, from the bank's azimuth LUT;
 3. phase A (`ops/occluders.py`), the nearest K occluders of every beam, by
-   one of three kernels:
+   one of five kernels:
    - A1, the full slice per chunk (the default);
    - A2 with `route_band > 0`: chunks whose every `band_group` of beams
      provably fits one `route_band`-wide window (conservative LUT bounds
@@ -20,13 +20,22 @@ Per scan:
    - A3 with `band_width > 0` (supersedes `route_band`): two bands per
      group, head- and tail-anchored, and a per-beam coverage plane that
      counts into window_overflow where the group's hull is uncovered.
+   - A4b with `pallas_pair` and an even chunk count: A1's function, two
+     chunks per CTA;
+   - A4a with `pallas_transposed` (and not `pallas_pair`): A1's function,
+     each beam's candidates across a warp.
    A2 and A3 run where the JAX package takes them
    (models/snowfall.py:504-514): `block_points % band_group == 0` and a
-   widened slice at least `route_band` (A2) or `2 * band_width` (A3) wide;
-   elsewhere A1 runs;
+   widened slice at least `route_band` (A2) or `2 * band_width` (A3) wide.
+   The precedence is the JAX package's (models/snowfall.py:702-716): A3 >
+   A2 > A4b > A4a > A1. Only A1 skips chunks with no in-channel beam (its
+   `has` gate); A3, A4a and A4b compute them, and every consumer masks
+   them out;
 4. phase B: the occluded beams compacted, keyed (occluder count, slot);
-5. phase C: kernel C1 (`ops/pulse.py`), sweep and pulse peak, then the
-   label/intensity decision tail in torch;
+5. phase C: kernel C1 (`ops/pulse.py`), sweep and pulse peak, or kernel C2
+   with `pulse_pair` where the pulse blocks come in pairs (the JAX rule,
+   models/snowfall.py:1107-1145), then the label/intensity decision tail in
+   torch;
 6. phase D: the touched beams scattered back to the original order.
 
 The slice geometry, and so every overflow counter, is the JAX Pallas
@@ -35,9 +44,12 @@ bank row is shorter than the widened slice (the JAX package then takes its
 XLA branch, which neither routes nor bands) the port keeps A1's layout and
 clips the slice to the row.
 
-Configuration knobs that only choose between bit-identical TPU layouts are
-ignored: pallas_pair, pallas_transposed, pulse_pair, batch_fold,
-pulse_block, use_pallas, pallas_interpret and chunk_group. The device
+`snowfall_augment_dense` runs one scan; `dense_layout`, `run_phase_a` and
+`finish_scan` are its seams, so a batched step (parallel/batched.py) can
+fold its frames' A1 chunks into one launch (`run_phase_a_folded`, the
+`batch_fold` knob). Every knob gives output identical to the default.
+
+Ignored knobs: use_pallas, pallas_interpret and chunk_group. The device
 decides instead: a CUDA tensor goes to the kernels, a CPU tensor to their
 plain versions. `assembly="window"` raises NotImplementedError (ROADMAP.md,
 Open items).
@@ -53,15 +65,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from lidar_snow_sim_tpu.calib import SensorCalib
-from lidar_snow_sim_tpu.config import SPEED_OF_LIGHT, SnowfallConfig
-from lidar_snow_sim_tpu.sampling.banks import (
+from lidar_snow_sim_tpu_torch.calib import SensorCalib
+from lidar_snow_sim_tpu_torch.config import SPEED_OF_LIGHT, SnowfallConfig
+from lidar_snow_sim_tpu_torch.device import resolve_device
+from lidar_snow_sim_tpu_torch.sampling.banks import (
     LUT_BINS,
     LUT_HI,
     LUT_LO,
     ParticleBank,
 )
-from lidar_snow_sim_tpu.utils.pointcloud import pad_cloud
+from lidar_snow_sim_tpu_torch.utils.pointcloud import pad_cloud
 from lidar_snow_sim_tpu_torch.ops.f32 import div
 from lidar_snow_sim_tpu_torch.ops.fitting import (
     masked_polyfit2,
@@ -74,10 +87,13 @@ from lidar_snow_sim_tpu_torch.ops.laser import estimate_laser_parameters
 from lidar_snow_sim_tpu_torch.ops.occluders import (
     find_occluders,
     find_occluders_banded,
+    find_occluders_folded,
+    find_occluders_pair,
     find_occluders_routed,
+    find_occluders_t,
     point_features,
 )
-from lidar_snow_sim_tpu_torch.ops.pulse import pulse_peaks
+from lidar_snow_sim_tpu_torch.ops.pulse import pulse_peaks, pulse_peaks_pair
 
 logger = logging.getLogger(__name__)
 
@@ -206,7 +222,7 @@ class DenseLayout:
     rank_flat: torch.Tensor  # (n_chunks * blk,) sorted rank of each slot
     channel_overflow: torch.Tensor
     window_overflow: torch.Tensor  # the layout's share (see run_phase_a)
-    kernel: str              # phase-A kernel: "A1", "A2" or "A3"
+    kernel: str              # phase-A kernel: "A1", "A2", "A3", "A4a", "A4b"
     occluder_args: tuple     # positional arguments of its wrapper
     occluder_kw: dict        # its keyword arguments
     # (n_chunks,) each chunk's bank-slice start; A3's bands lie inside the
@@ -437,9 +453,17 @@ def dense_layout(points, mask, bank: BankTensors, order, draws,
         window_overflow = torch.where(
             has & uncovered, (hi_req - (lo + w_pallas)).clamp_min(0), 0
         ).sum()
-        kernel = "A1"
-        args = (*head, lo.to(i32), has.to(i32), *tail)
         kw = dict(blk=blk, w_sl=w_pallas, k_occ=k_occ)
+        # A4b, then A4a, then A1 (models/snowfall.py:702-716); A4a and A4b
+        # take no has gate
+        if cfg.pallas_pair and n_chunks % 2 == 0:
+            kernel = "A4b"
+        elif cfg.pallas_transposed and not cfg.pallas_pair:
+            kernel = "A4a"
+        else:
+            kernel = "A1"
+        args = (*head, lo.to(i32), *tail) if kernel != "A1" else (
+            *head, lo.to(i32), has.to(i32), *tail)
 
     return DenseLayout(
         n=n, n_pad=n_pad, n_chunks=n_chunks, blk=blk, bpc1=bpc1,
@@ -462,9 +486,21 @@ def run_phase_a(lay: DenseLayout):
         return a12d, ovf, lay.window_overflow + torch.where(
             lay.cover_mask, unc, 0
         ).sum()
-    run = find_occluders_routed if lay.kernel == "A2" else find_occluders
+    run = dict(A1=find_occluders, A2=find_occluders_routed,
+               A4a=find_occluders_t, A4b=find_occluders_pair)[lay.kernel]
     a12d, ovf = run(*lay.occluder_args, **lay.occluder_kw)
     return a12d, ovf, lay.window_overflow
+
+
+def run_phase_a_folded(lays):
+    """Phase A of B frames whose layouts all take kernel A1, in one A1
+    launch (`find_occluders_folded`). Returns B triples as `run_phase_a`."""
+    if any(lay.kernel != "A1" for lay in lays):
+        raise ValueError("only A1 layouts fold")
+    out = find_occluders_folded([lay.occluder_args for lay in lays],
+                                **lays[0].occluder_kw)
+    return [(a12d, ovf, lay.window_overflow)
+            for (a12d, ovf), lay in zip(out, lays)]
 
 
 @dataclasses.dataclass
@@ -483,8 +519,9 @@ class Compacted:
     c_lut: tuple            # per-beam min_int, focal_slope, focal_offset, max_int
     occluder_overflow: torch.Tensor
     compact_overflow: torch.Tensor
+    pulse_kernel: str       # phase-C kernel: "C1" or "C2"
     pulse_args: tuple
-    pulse_kw: dict
+    pulse_kw: dict          # C2's also holds blk, the pulse-block width
 
 
 def compact_occluded(lay: DenseLayout, a12d, ovf, calib: CalibTensors,
@@ -548,10 +585,15 @@ def compact_occluded(lay: DenseLayout, a12d, ovf, calib: CalibTensors,
     all_r = torch.cat([c_rr, c_d[None]], dim=0)          # (K+1, cap)
     range_grid = torch.as_tensor(cfg.range_grid(), device=dev)
     gph = phase * range_grid
+    # C2 where the pulse blocks pair up (models/snowfall.py:1107-1145)
+    pblk = next((b for b in (cfg.pulse_block, 512, 256, 64) if cap % b == 0),
+                64)
+    pair = cfg.pulse_pair and (cap // pblk) % 2 == 0
     return Compacted(
         cap=cap, count_bucketed=count_bucketed, cidx=cidx, c_ok=c_ok,
         c_xyz=c_xyz, c_int=c_int, c_orig=c_orig, c_d=c_d, c_lut=c_lut,
         occluder_overflow=occ_of, compact_overflow=compact_overflow,
+        pulse_kernel="C2" if pair else "C1",
         pulse_args=(
             feats, c_a1, c_a2, c_rr.contiguous(), c_valid,
             torch.cos(phase * all_r), torch.sin(phase * all_r),
@@ -561,8 +603,15 @@ def compact_occluded(lay: DenseLayout, a12d, ovf, calib: CalibTensors,
             beam_rad=cfg.beam_divergence_rad,
             ipm=float(cfg.intervals_per_meter), c_tau=c_tau,
             xsi_r1=cfg.xsi_r1, xsi_r2=cfg.xsi_r2,
+            **(dict(blk=pblk) if pair else {}),
         ),
     )
+
+
+def run_phase_c(comp: Compacted):
+    """Phase C on the compaction's kernel."""
+    run = pulse_peaks_pair if comp.pulse_kernel == "C2" else pulse_peaks
+    return run(*comp.pulse_args, **comp.pulse_kw)
 
 
 def scatter_back(lay: DenseLayout, comp: Compacted, pulse_out,
@@ -677,10 +726,14 @@ def snowfall_augment_dense(points, mask, bank: BankTensors,
     host with `keep`.
     """
     lay = dense_layout(points, mask, bank, order, draws, cfg, plane)
-    a12d, ovf, window_overflow = run_phase_a(lay)
+    return finish_scan(lay, *run_phase_a(lay), calib, cfg)
+
+
+def finish_scan(lay: DenseLayout, a12d, ovf, window_overflow,
+                calib: CalibTensors, cfg: SnowfallConfig) -> SnowfallResult:
+    """Phases B, C and D of one scan after its phase A (`run_phase_a`)."""
     comp = compact_occluded(lay, a12d, ovf, calib, cfg)
-    out = pulse_peaks(*comp.pulse_args, **comp.pulse_kw)
-    return scatter_back(lay, comp, out, cfg, window_overflow)
+    return scatter_back(lay, comp, run_phase_c(comp), cfg, window_overflow)
 
 
 def grown_config(cfg: SnowfallConfig, name: str, k_ext: int,
@@ -738,11 +791,11 @@ class SnowfallAugmenter:
     calib: SensorCalib
     cfg: SnowfallConfig = SnowfallConfig(assembly="dense")
     seed: int = 0
-    device: str | torch.device = "cpu"
+    device: str | torch.device = "cuda"
 
     def __post_init__(self):
         check_supported(self.cfg)
-        self.device = torch.device(self.device)
+        self.device = resolve_device(self.device)
         self._bank = bank_to_torch(self.bank, self.device)
         self._calib = calib_to_torch(self.calib, self.device)
         self.last_result: SnowfallResult | None = None

@@ -18,7 +18,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from lidar_snow_sim_tpu.utils.pointcloud import pad_cloud
+from lidar_snow_sim_tpu_torch.device import resolve_device
+from lidar_snow_sim_tpu_torch.utils.pointcloud import pad_cloud
 from lidar_snow_sim_tpu_torch.ops.geometry import norm3
 
 
@@ -132,7 +133,7 @@ def haze_point_cloud_padded(points, mask, beta_coeffs, draws, *,
 
 
 def haze_point_cloud(pc, randomized_beta, arguments=None, seed: int = 0,
-                     device="cpu"):
+                     device="cuda"):
     """The reference call contract (``pc = haze_point_cloud(pc, B,
     arguments)`` after ``B = BetaRadomization(beta, seed=0)``): an (M, >=5)
     array whose columns start [x, y, z, intensity, label]. Of the devkit
@@ -156,14 +157,14 @@ class StfFogAugmenter:
     generator on `device` seeded `seed`."""
 
     def __init__(self, beta: float = 0.05, seed: int = 0,
-                 _randomization=None, device: str | torch.device = "cpu",
+                 _randomization=None, device: str | torch.device = "cuda",
                  **kwargs):
         self.randomization = _randomization or BetaRandomization(
             beta, seed=seed
         )
         self.kwargs = kwargs
         self.seed = seed
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     def run(self, pc: np.ndarray) -> StfFogResult:
         n = pc.shape[0]

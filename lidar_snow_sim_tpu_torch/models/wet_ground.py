@@ -18,8 +18,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from lidar_snow_sim_tpu.config import WetGroundConfig
-from lidar_snow_sim_tpu.utils.pointcloud import pad_cloud
+from lidar_snow_sim_tpu_torch.config import WetGroundConfig
+from lidar_snow_sim_tpu_torch.device import resolve_device
+from lidar_snow_sim_tpu_torch.utils.pointcloud import pad_cloud
 from lidar_snow_sim_tpu_torch.ops.fitting import ransac_draws, ransac_plane
 from lidar_snow_sim_tpu_torch.ops.fresnel import (
     total_transmittance_from_ground,
@@ -125,10 +126,10 @@ class WetGroundAugmenter:
     cfg: WetGroundConfig = WetGroundConfig()
     max_points: int = 32768
     seed: int = 0
-    device: str | torch.device = "cpu"
+    device: str | torch.device = "cuda"
 
     def __call__(self, pc, plane=None):
-        dev = torch.device(self.device)
+        dev = resolve_device(self.device)
         padded = pad_cloud(np.asarray(pc), self.max_points)
         if plane is not None:
             plane = (torch.as_tensor(plane[0], dtype=torch.float32,

@@ -1,7 +1,7 @@
 """Phase A of the dense snowfall assembly: the nearest K occluders of each
 beam (counterpart of `lidar_snow_sim_tpu/ops/pallas_occluders.py`).
 
-Three kernels, all in `csrc/occluders.cu`, each with a wrapper that
+Five kernels, all in `csrc/occluders.cu`, each with a wrapper that
 launches it on CUDA tensors and runs its plain torch version on CPU
 tensors. All follow the arithmetic of the TPU kernels: an exact hit test
 of every beam of a chunk against a candidate list, then the K nearest hits
@@ -20,6 +20,17 @@ candidate column).
   `_kernel_banded`, :423): each group against two bands, head- and
   tail-anchored, plus `wide_sl` wide columns, and a per-beam coverage
   plane. Chosen by `band_width > 0`, which supersedes `route_band`.
+- A4a (`find_occluders_t`; TPU `_kernel_t`, :312): A1's function with each
+  beam's candidates split across a warp's lanes. Chosen by
+  `pallas_transposed`.
+- A4b (`find_occluders_pair`; TPU `_kernel_pair`, :747): A1's function on
+  two chunks per CTA, two independent chains per thread; needs an even
+  chunk count. Chosen by `pallas_pair`.
+  A4a and A4b compute every chunk (the TPU kernels have no `has` gate), so
+  their plain version, `occluders_ungated_plain`, is A1's with every chunk
+  live.
+- The folded A1 (`find_occluders_folded`, the TPU `batch_fold` rule,
+  :1080-1128): B frames' A1 chunks in one A1 launch.
 
 Wrap-pad dedup: a bank row repeats its narrow particles with period
 `count`, so a candidate is kept only as the first copy counted from where
@@ -37,7 +48,7 @@ a1 = a2 = 0 and dist = 3e38 in empty slots (the TPU kernels leave a
 retired column's a1/a2 there, so compare a1/a2 only where dist < 1e37), and
 the per-beam overflow max(n_hit - K, 0) as (n_chunks, blk) int32. Dead
 chunks (A1 `has == 0`, A2 mode 0) hold the empty-slot sentinels and zero
-overflow; A3 computes every chunk, as the TPU kernel does.
+overflow; A3, A4a and A4b compute every chunk, as the TPU kernels do.
 """
 
 from __future__ import annotations
@@ -408,6 +419,95 @@ def find_occluders_banded(feats, w0b, rows, gloa, glob, counts, data_t,
     return a12d, ovf, unc
 
 
+def _ungated_kernel(entry: str, what: str, feats, w0b, rows, los, counts,
+                    data_t, wide_t, *, blk: int, w_sl: int, k_occ: int):
+    """Launch `entry` (A4a or A4b) of csrc/occluders.cu on CUDA tensors."""
+    _check_args(feats, w0b, rows, counts, data_t, wide_t, dict(los=los), {},
+                blk=blk, k_occ=k_occ)
+    n_chunks = rows.shape[0]
+    a12d = torch.empty((3 * k_occ, n_chunks * blk), dtype=torch.float32,
+                       device=feats.device)
+    ovf = torch.empty((n_chunks, blk), dtype=torch.int32, device=feats.device)
+    err = getattr(_kernels.load("occluders"), entry)(
+        feats.data_ptr(), w0b.data_ptr(), rows.data_ptr(), los.data_ptr(),
+        counts.data_ptr(), data_t.data_ptr(), wide_t.data_ptr(),
+        a12d.data_ptr(), ovf.data_ptr(), n_chunks, blk, w_sl,
+        data_t.shape[2], wide_t.shape[2], k_occ, _stream(feats),
+    )
+    _kernels.check(err, f"{what} ({entry})")
+    return a12d, ovf
+
+
+def occluders_ungated_plain(feats, w0b, rows, los, counts, data_t, wide_t,
+                            *, blk: int, w_sl: int, k_occ: int):
+    """Plain torch version of kernels A4a and A4b: A1's, `occluders_plain`,
+    with every chunk live (the TPU kernels have no has gate)."""
+    return occluders_plain(feats, w0b, rows, los,
+                           torch.ones_like(rows, dtype=torch.int32), counts,
+                           data_t, wide_t, blk=blk, w_sl=w_sl, k_occ=k_occ)
+
+
+def find_occluders_t(feats, w0b, rows, los, counts, data_t, wide_t, *,
+                     blk: int, w_sl: int, k_occ: int):
+    """Phase A on kernel A4a (CUDA tensors) or on its plain version,
+    `occluders_ungated_plain` (CPU tensors). Arguments and outputs as
+    `find_occluders` without `has`."""
+    if feats.device.type == "cpu":
+        return occluders_ungated_plain(feats, w0b, rows, los, counts, data_t,
+                                       wide_t, blk=blk, w_sl=w_sl,
+                                       k_occ=k_occ)
+    out = _ungated_kernel("occluders_a4a", "kernel A4a", feats, w0b, rows,
+                          los, counts, data_t, wide_t, blk=blk, w_sl=w_sl,
+                          k_occ=k_occ)
+    find_occluders_t.launches += 1
+    return out
+
+
+def find_occluders_pair(feats, w0b, rows, los, counts, data_t, wide_t, *,
+                        blk: int, w_sl: int, k_occ: int):
+    """Phase A on kernel A4b (CUDA tensors) or on its plain version,
+    `occluders_ungated_plain` (CPU tensors). As `find_occluders_t`; the
+    chunk count must be even."""
+    if rows.shape[0] % 2:
+        raise ValueError(f"kernel A4b needs an even chunk count, got "
+                         f"{rows.shape[0]}")
+    if feats.device.type == "cpu":
+        return occluders_ungated_plain(feats, w0b, rows, los, counts, data_t,
+                                       wide_t, blk=blk, w_sl=w_sl,
+                                       k_occ=k_occ)
+    out = _ungated_kernel("occluders_a4b", "kernel A4b", feats, w0b, rows,
+                          los, counts, data_t, wide_t, blk=blk, w_sl=w_sl,
+                          k_occ=k_occ)
+    find_occluders_pair.launches += 1
+    return out
+
+
+def find_occluders_folded(frame_args, *, blk: int, w_sl: int, k_occ: int):
+    """A1 over B frames in one `find_occluders` call (the JAX package's
+    `batch_fold` rule, pallas_occluders.py:1100-1119). `frame_args` holds B
+    tuples of `find_occluders`' positional arguments of frames that share
+    one bank (the first frame's counts, data_t and wide_t are read). The
+    feature blocks are concatenated, each frame's
+    w0b shifted by its block offset, rows/los/has flattened; the output
+    splits back along the chunk axis. Returns B (a12d, ovf) pairs, each
+    what `find_occluders` returns for that frame alone."""
+    counts, data_t, wide_t = frame_args[0][5:]
+    offsets, w0b, off = [], [], 0
+    for args in frame_args:
+        w0b.append(args[1] + off)
+        offsets.append(args[2].shape[0])
+        off += args[0].shape[0] // blk
+    a12d, ovf = find_occluders(
+        torch.cat([a[0] for a in frame_args]), torch.cat(w0b),
+        *(torch.cat([a[i] for a in frame_args]) for i in (2, 3, 4)),
+        counts, data_t, wide_t, blk=blk, w_sl=w_sl, k_occ=k_occ,
+    )
+    return list(zip(torch.split(a12d, [n * blk for n in offsets], dim=1),
+                    torch.split(ovf, offsets, dim=0)))
+
+
 find_occluders.launches = 0
 find_occluders_routed.launches = 0
 find_occluders_banded.launches = 0
+find_occluders_t.launches = 0
+find_occluders_pair.launches = 0

@@ -3,8 +3,11 @@ pulse peak per occluded beam (counterpart of
 `lidar_snow_sim_tpu/ops/pallas_pulse.py`).
 
 `pulse_peaks` launches kernel C1 (`csrc/pulse.cu`) on CUDA tensors and
-runs `pulse_plain`, the same function in plain torch, on CPU tensors. Both
-follow the arithmetic of the TPU kernel `_kernel` (pallas_pulse.py:173):
+runs `pulse_plain`, the same function in plain torch, on CPU tensors;
+`pulse_peaks_pair` (the `pulse_pair` knob) does the same with kernel C2,
+which carries two pulse blocks' beams per warp (TPU `_kernel_pair`,
+pallas_pulse.py:244) and computes the same values. All follow the
+arithmetic of the TPU kernel `_kernel` (pallas_pulse.py:173):
 
 1. the sweep: extract-min over the 2K+2 interval endpoints, each trip
    retiring every copy of the minimum, the lowest-index covering occluder
@@ -34,17 +37,14 @@ BIG = 3.0e38
 _CHUNK = 512    # beams per waveform step of the plain version (bounds memory)
 
 
-def pulse_plain(feats, a1, a2, rr, valid, cos_b, sin_b, cos_g, sin_g, *,
-                beam_rad: float, ipm: float, c_tau: float, xsi_r1: float,
-                xsi_r2: float):
-    """Plain torch version of kernel C1, the waveform _CHUNK beams at a
-    time. Trip counts are maxima over all beams (the sweep) or over the
-    chunk (the bumps); the extra trips add exact zeros."""
+def claimed_widths(feats, a1, a2, valid):
+    """The first-claim sweep of the plain version: (claimed (K, cap), the
+    width each occluder claims; unclaimed (cap,), the hard target's). Its
+    trip count is the maximum over all beams; the extra trips add exact
+    zeros."""
     k_occ, cap = a1.shape
-    m_bins = cos_g.shape[0]
     dev = feats.device
-    d_orig, right, left, amp_scale = feats[0], feats[1], feats[2], feats[3]
-
+    right, left = feats[1], feats[2]
     wrapped = right > left
     right_u = torch.where(wrapped, right - TWO_PI, right)
     vb = valid > 0.5
@@ -70,7 +70,21 @@ def pulse_plain(feats, a1, a2, rr, valid, cos_b, sin_b, cos_g, sin_g, *,
         unclaimed = unclaimed + torch.where(widx >= k_occ, width, 0.0)
         score = torch.where(score == cur, BIG, score)
         prev = torch.where(live, cur, prev)
+    return claimed, unclaimed
 
+
+def pulse_plain(feats, a1, a2, rr, valid, cos_b, sin_b, cos_g, sin_g, *,
+                beam_rad: float, ipm: float, c_tau: float, xsi_r1: float,
+                xsi_r2: float):
+    """Plain torch version of kernel C1, the waveform _CHUNK beams at a
+    time. Trip counts are maxima over all beams (the sweep) or over the
+    chunk (the bumps); the extra trips add exact zeros."""
+    k_occ, cap = a1.shape
+    m_bins = cos_g.shape[0]
+    dev = feats.device
+    d_orig, amp_scale = feats[0], feats[3]
+    claimed, unclaimed = claimed_widths(feats, a1, a2, valid)
+    row_k = torch.arange(k_occ, device=dev)[:, None]
     ratio = torch.clamp(div(claimed, beam_rad), 0.0, 1.0)
     remainder = torch.clamp(div(unclaimed, beam_rad), 0.0, 1.0)
     touched = (claimed > 0.0).any(dim=0)
@@ -106,15 +120,11 @@ def pulse_plain(feats, a1, a2, rr, valid, cos_b, sin_b, cos_g, sin_g, *,
     return peak, first, touched, remainder
 
 
-def pulse_peaks(feats, a1, a2, rr, valid, cos_b, sin_b, cos_g, sin_g, *,
-                beam_rad: float, ipm: float, c_tau: float, xsi_r1: float,
-                xsi_r2: float):
-    """Phase C: kernel C1 on CUDA tensors, its plain version on CPU
-    tensors. Returns (peak, idx, touched, remainder), each (cap,)."""
-    if feats.device.type == "cpu":
-        return pulse_plain(feats, a1, a2, rr, valid, cos_b, sin_b, cos_g,
-                           sin_g, beam_rad=beam_rad, ipm=ipm, c_tau=c_tau,
-                           xsi_r1=xsi_r1, xsi_r2=xsi_r2)
+def _launch(entry: str, what: str, extra: tuple, feats, a1, a2, rr, valid,
+            cos_b, sin_b, cos_g, sin_g, *, beam_rad: float, ipm: float,
+            c_tau: float, xsi_r1: float, xsi_r2: float):
+    """Check the inputs and launch `entry` of csrc/pulse.cu; `extra` are
+    its int arguments after cap, K and M."""
     k_occ, cap = a1.shape
     m_bins = cos_g.shape[0]
     for name, t, shape in (
@@ -130,18 +140,44 @@ def pulse_peaks(feats, a1, a2, rr, valid, cos_b, sin_b, cos_g, sin_g, *,
     idx = torch.empty(cap, dtype=torch.int32, device=dev)
     touched = torch.empty(cap, dtype=torch.int32, device=dev)
     remainder = torch.empty(cap, dtype=torch.float32, device=dev)
-    lib = _kernels.load("pulse")
-    err = lib.pulse_c1(
+    err = getattr(_kernels.load("pulse"), entry)(
         feats.data_ptr(), a1.data_ptr(), a2.data_ptr(), rr.data_ptr(),
         valid.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(),
         cos_g.data_ptr(), sin_g.data_ptr(), peak.data_ptr(), idx.data_ptr(),
-        touched.data_ptr(), remainder.data_ptr(), cap, k_occ, m_bins,
+        touched.data_ptr(), remainder.data_ptr(), cap, k_occ, m_bins, *extra,
         beam_rad, ipm, c_tau, xsi_r1, xsi_r2 - xsi_r1,
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _kernels.check(err, "kernel C1 (pulse_c1)")
-    pulse_peaks.launches += 1
+    _kernels.check(err, f"{what} ({entry})")
     return peak, idx, touched.bool(), remainder
 
 
+def pulse_peaks(*args, **kw):
+    """Phase C: kernel C1 on CUDA tensors, its plain version on CPU
+    tensors. Arguments as `pulse_plain`; returns (peak, idx, touched,
+    remainder), each (cap,)."""
+    if args[0].device.type == "cpu":
+        return pulse_plain(*args, **kw)
+    out = _launch("pulse_c1", "kernel C1", (), *args, **kw)
+    pulse_peaks.launches += 1
+    return out
+
+
+def pulse_peaks_pair(*args, blk: int, **kw):
+    """Phase C on kernel C2 (CUDA tensors): one warp carries beam j of
+    pulse blocks 2i and 2i + 1 of `blk` beams, so cap must be a multiple of
+    2 * blk. Its plain version is C1's, `pulse_plain` (CPU tensors). As
+    `pulse_peaks` otherwise."""
+    cap = args[1].shape[1]
+    if blk <= 0 or cap % (2 * blk):
+        raise ValueError(f"kernel C2 needs cap ({cap}) to be a multiple of "
+                         f"2 * blk ({blk})")
+    if args[0].device.type == "cpu":
+        return pulse_plain(*args, **kw)
+    out = _launch("pulse_c2", "kernel C2", (blk,), *args, **kw)
+    pulse_peaks_pair.launches += 1
+    return out
+
+
 pulse_peaks.launches = 0
+pulse_peaks_pair.launches = 0

@@ -3,17 +3,30 @@
 
 A step is the offline-datagen unit: snowfall, optionally chained with wet
 ground (the viewer's snow+wet mode, `pointcloud_viewer.py:2804-2840`), over
-a frame batch. The frames run one after another through the single-scan
-path; the packed in/out surface is the JAX package's.
+a frame batch. `batched_step` and `datagen_packed_step` run one batched
+core: each frame's preamble and phase-A layout; phase A folded into one A1
+launch over the batch when `batch_fold` is set and every frame's kernel is
+A1 (the JAX package's fold rule, pallas_occluders.py:1080-1128), else one
+launch per frame; then each frame's phases B, C and D, and wet ground. The
+packed in/out surface is the JAX package's.
 """
 
 from __future__ import annotations
 
 import torch
 
-from lidar_snow_sim_tpu.config import SnowfallConfig, WetGroundConfig
-from lidar_snow_sim_tpu_torch.models.snowfall import snowfall_augment_dense
-from lidar_snow_sim_tpu_torch.models.wet_ground import wet_ground_augment
+from lidar_snow_sim_tpu_torch.config import SnowfallConfig, WetGroundConfig
+from lidar_snow_sim_tpu_torch.models.snowfall import (
+    SnowfallResult,
+    dense_layout,
+    finish_scan,
+    run_phase_a,
+    run_phase_a_folded,
+)
+from lidar_snow_sim_tpu_torch.models.wet_ground import (
+    WetGroundResult,
+    wet_ground_augment,
+)
 from lidar_snow_sim_tpu_torch.ops.fitting import ransac_draws
 
 IN_META_WIDTH = 3 + 64   # [n_points, seed_hi, seed_lo, order(64)]
@@ -34,18 +47,49 @@ def frame_draws(seed: int, snow_cfg: SnowfallConfig,
     return snow, wet
 
 
-def snow_wet_step(points, mask, bank, calib, order, snow_draws, wet_draws,
+def _batched_core(points, mask, bank, calib, orders, snow_draws, wet_draws,
                   snow_cfg: SnowfallConfig, wet_cfg: WetGroundConfig | None):
-    """One scan through snowfall and, with a `wet_cfg`, wet ground on the
-    snowfall output (replace=False keeps the snow labels). Returns
-    (SnowfallResult, WetGroundResult or None)."""
-    snow = snowfall_augment_dense(
-        points, mask, bank, calib, order, snow_draws, snow_cfg
-    )
+    """B frames through snowfall and, with a `wet_cfg`, wet ground on the
+    snowfall output (replace=False keeps the snow labels). points (B, N, 5),
+    mask (B, N), orders (B, C) and the draws are indexed by frame. Returns
+    (B SnowfallResults, B WetGroundResults or None)."""
+    frames = range(points.shape[0])
+    lays = [dense_layout(points[b], mask[b], bank, orders[b], snow_draws[b],
+                         snow_cfg) for b in frames]
+    if snow_cfg.batch_fold and all(lay.kernel == "A1" for lay in lays):
+        phase_a = run_phase_a_folded(lays)
+    else:
+        phase_a = [run_phase_a(lay) for lay in lays]
+    snows = [finish_scan(lay, *pa, calib, snow_cfg)
+             for lay, pa in zip(lays, phase_a)]
     if wet_cfg is None:
-        return snow, None
-    return snow, wet_ground_augment(snow.planes, snow.keep, wet_draws,
-                                    wet_cfg)
+        return snows, None
+    return snows, [wet_ground_augment(s.planes, s.keep, wet_draws[b], wet_cfg)
+                   for b, s in zip(frames, snows)]
+
+
+def _stack(results, cls):
+    return cls(*(torch.stack(f) for f in zip(*results)))
+
+
+def batched_step(points, mask, bank, calib, orders, draws,
+                 snow_cfg: SnowfallConfig,
+                 wet_cfg: WetGroundConfig | None = None):
+    """The JAX package's `batched_step` on the port: B frames in, a
+    batched SnowfallResult (every field with a leading frame axis) and,
+    with a `wet_cfg`, a batched WetGroundResult (else None) out.
+
+    points (B, N, 5) f32 and mask (B, N) bool padded scans; bank and calib
+    from `bank_to_torch` / `calib_to_torch`; orders (B, C) int64 channel ->
+    bank-row permutations; draws a pair (snow, wet) of RANSAC draws, each
+    (B, ransac_trials, 3) f32, wet None without a `wet_cfg` (where the JAX
+    package takes one PRNG key per frame).
+    """
+    snow_draws, wet_draws = draws
+    snows, wets = _batched_core(points, mask, bank, calib, orders,
+                                snow_draws, wet_draws, snow_cfg, wet_cfg)
+    return (_stack(snows, SnowfallResult),
+            None if wets is None else _stack(wets, WetGroundResult))
 
 
 def datagen_packed_step(points, chan, in_meta, bank, calib,
@@ -71,20 +115,22 @@ def datagen_packed_step(points, chan, in_meta, bank, calib,
     p_out = out_points or n
     dev = points.device
     meta = torch.as_tensor(in_meta).cpu()
+    pts = torch.cat([points, chan.to(torch.float32)[..., None]], dim=2)
+    mask = torch.arange(n, device=dev)[None, :] < meta[:, :1].to(dev)
+    draws = [frame_draws(
+        ((int(m[1]) & 0xFFFFFFFF) << 32) | (int(m[2]) & 0xFFFFFFFF),
+        snow_cfg, wet_cfg,
+    ) for m in meta]
+    snows, wets = _batched_core(
+        pts, mask, bank, calib, meta[:, 3:].to(torch.int64).to(dev),
+        [d[0].to(dev) for d in draws],
+        None if wet_cfg is None else [d[1].to(dev) for d in draws],
+        snow_cfg, wet_cfg,
+    )
     planes_out, metas = [], []
-    for b in range(points.shape[0]):
-        n_pts, seed_hi, seed_lo = (int(v) & 0xFFFFFFFF for v in meta[b, :3])
-        pts = torch.cat([points[b], chan[b].to(torch.float32)[:, None]], 1)
-        mask = torch.arange(n, device=dev) < n_pts
-        snow_draws, wet_draws = frame_draws(
-            (seed_hi << 32) | seed_lo, snow_cfg, wet_cfg
-        )
-        snow, wet = snow_wet_step(
-            pts, mask, bank, calib, meta[b, 3:].to(torch.int64).to(dev),
-            snow_draws.to(dev),
-            None if wet_draws is None else wet_draws.to(dev),
-            snow_cfg, wet_cfg,
-        )
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    for b, snow in enumerate(snows):
+        wet = None if wets is None else wets[b]
         res = wet if wet is not None else snow
         perm = torch.argsort((~res.keep).to(torch.int8), stable=True)[:p_out]
         planes_c = res.planes[:, perm]
@@ -95,7 +141,6 @@ def datagen_packed_step(points, chan, in_meta, bank, calib,
                 | planes_c[4].to(torch.int32)
             ).view(torch.float32)
             planes_c = torch.cat([planes_c[:3], packed[None]], dim=0)
-        zero = torch.zeros((), dtype=torch.int32, device=dev)
         metas.append(torch.stack([
             n_keep,
             snow.num_attenuated,

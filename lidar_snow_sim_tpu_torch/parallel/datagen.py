@@ -22,7 +22,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from lidar_snow_sim_tpu.parallel.datagen import DatagenStats
+from lidar_snow_sim_tpu_torch.device import resolve_device
 from lidar_snow_sim_tpu_torch.models.snowfall import (
     OVERFLOW_COUNTERS,
     bank_to_torch,
@@ -35,6 +35,31 @@ from lidar_snow_sim_tpu_torch.parallel.batched import datagen_packed_step
 logger = logging.getLogger(__name__)
 
 _OVF = OVERFLOW_COUNTERS + ("out_overflow",)   # out_meta columns 4..9
+
+
+@dataclasses.dataclass
+class DatagenStats:
+    """Counts and wall clocks of one `run_snowfall_datagen` call (the JAX
+    package's record, `lidar_snow_sim_tpu/parallel/datagen.py`)."""
+
+    frames_done: int = 0
+    frames_skipped: int = 0
+    frames_failed: int = 0
+    points_in: int = 0
+    points_out: int = 0
+    points_dropped: int = 0   # residual input points dropped (always 0:
+    # max_points grows instead)
+    capacity_growths: int = 0
+    attenuated: int = 0
+    removed: int = 0
+    wall_s: float = 0.0
+    # per-batch wall clocks {frames, s, compiles}; "compiles" counts the
+    # batch's set-up events (the first batch builds the kernels, a growth
+    # reruns the batch), so steady-state batches can be told apart
+    batches: list = dataclasses.field(default_factory=list)
+
+    def as_dict(self):
+        return dataclasses.asdict(self)
 
 
 def _unpack_rows(planes: np.ndarray, wet: bool) -> np.ndarray:
@@ -64,7 +89,7 @@ def run_snowfall_datagen(
     overwrite: bool = False,
     wet_cfg=None,
     out_frac: float = 0.8,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> DatagenStats:
     """Augment every sample id on `device` and write `{out_dir}/{id}.bin`.
 
@@ -79,7 +104,7 @@ def run_snowfall_datagen(
     stats is written next to the outputs.
     """
     check_supported(snow_cfg)
-    dev = torch.device(device)
+    dev = resolve_device(device)
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     stats = DatagenStats()

@@ -5,7 +5,8 @@ The reference Qt viewer's `show_pointcloud` order without the GUI: DROR
 mask -> camera-FOV filter -> min/max distance and height masks -> one
 augmentation (snow | wet | snow+wet | lisa | fog | stf_fog) -> stat labels;
 prints the stats as JSON (the JAX CLI's keys) and optionally writes a BEV
-PNG. Same flags as the JAX CLI, plus --device. Example:
+PNG. Same flags as the JAX CLI, plus --device (default cuda; without a
+card it raises, and the CPU must be asked for with --device cpu). Example:
 
   python -m lidar_snow_sim_tpu_torch.tools.inspect scan.bin --augment lisa \
       --dror --fov --device cuda
@@ -21,10 +22,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from lidar_snow_sim_tpu.tools.inspect import MIN_DIST
-from lidar_snow_sim_tpu.tools.inspect import (
-    add_pipeline_args as _jax_pipeline_args,
-)
+from lidar_snow_sim_tpu_torch.device import resolve_device
+
+MIN_DIST = 3.0  # the viewer's hard minimum distance (pointcloud_viewer.py)
 
 # augmenters cached per parameter key, so a repeated in-process call reuses
 # loaded banks and baked tables (the viewer keeps them in its window)
@@ -38,10 +38,37 @@ def _cached(key, factory):
 
 
 def add_pipeline_args(ap):
-    """The JAX CLI's scan, mask and augmentation arguments, plus --device."""
-    _jax_pipeline_args(ap)
-    ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda when available)")
+    """The JAX CLI's scan, mask and augmentation arguments
+    (`lidar_snow_sim_tpu/tools/inspect.py`), plus --device."""
+    ap.add_argument("scan", help=".bin scan (N x 5 float32)")
+    ap.add_argument(
+        "--augment",
+        choices=("none", "snow", "wet", "snow+wet", "lisa", "fog", "stf_fog"),
+        default="none",
+    )
+    ap.add_argument("--bank-dir", default=None)
+    ap.add_argument("--rate", type=float, default=0.5, help="snowfall mm/h")
+    ap.add_argument("--velocity", type=float, default=2.0, help="terminal m/s")
+    ap.add_argument("--mode", default="gunn", choices=("gunn", "sekhon"))
+    ap.add_argument("--rain-rate", type=float, default=10.0, help="LISA mm/h")
+    ap.add_argument("--fog-alpha", type=float, default=0.02,
+                    help="attenuation coefficient for --augment fog "
+                         "(the viewer's 'our fog' alpha slider, "
+                         "pointcloud_viewer.py:2939-2956)")
+    ap.add_argument("--beta", type=float, default=0.046,
+                    help="STF-fog scattering coefficient for --augment "
+                         "stf_fog (a PHYSICALLY DIFFERENT knob from "
+                         "--fog-alpha: the viewer drives BetaRadomization "
+                         "with its own beta, pointcloud_viewer.py:2958-2975)")
+    ap.add_argument("--dror", action="store_true", help="apply DROR de-snowing")
+    ap.add_argument("--fov", action="store_true", help="camera-FOV filter")
+    ap.add_argument("--max-dist", type=float, default=None)
+    ap.add_argument("--min-height", type=float, default=None)
+    ap.add_argument("--labels", default=None,
+                    help="KITTI-format GT/prediction label file to overlay")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu must be asked for)")
     return ap
 
 
@@ -66,9 +93,9 @@ def main(argv=None):
         import matplotlib.pyplot as plt
         from PIL import Image
 
-        from lidar_snow_sim_tpu.utils.boxes import draw_boxes_bev
-        from lidar_snow_sim_tpu.utils.datasets import find_camera_image
-        from lidar_snow_sim_tpu.utils.render import bev_image
+        from lidar_snow_sim_tpu_torch.utils.boxes import draw_boxes_bev
+        from lidar_snow_sim_tpu_torch.utils.datasets import find_camera_image
+        from lidar_snow_sim_tpu_torch.utils.render import bev_image
 
         img = bev_image(pc, color=args.bev_color)
         if boxes:
@@ -91,13 +118,13 @@ def main(argv=None):
 def run_pipeline(args, ap):
     """DROR -> FOV -> masks -> augmentation -> stats on `args.device`.
     Returns (pc (N, 5), report dict, boxes list)."""
-    from lidar_snow_sim_tpu.utils.pointcloud import load_velodyne_bin
-    from lidar_snow_sim_tpu.utils.render import (
+    from lidar_snow_sim_tpu_torch.utils.pointcloud import load_velodyne_bin
+    from lidar_snow_sim_tpu_torch.utils.render import (
         augmentation_stat_labels,
         cloud_log_string,
     )
 
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    device = resolve_device(args.device)
     pc = load_velodyne_bin(args.scan)
     report = {"file": str(args.scan), "loaded": len(pc)}
 
@@ -136,10 +163,10 @@ def run_pipeline(args, ap):
     # ---- augmentation (mutually exclusive, viewer ordering) ----
     aug = args.augment
     if aug in ("snow", "snow+wet"):
-        from lidar_snow_sim_tpu.calib import load_hdl64_calib
-        from lidar_snow_sim_tpu.config import SnowfallConfig
-        from lidar_snow_sim_tpu.sampling.banks import load_bank_files
-        from lidar_snow_sim_tpu.sampling.distributions import (
+        from lidar_snow_sim_tpu_torch.calib import load_hdl64_calib
+        from lidar_snow_sim_tpu_torch.config import SnowfallConfig
+        from lidar_snow_sim_tpu_torch.sampling.banks import load_bank_files
+        from lidar_snow_sim_tpu_torch.sampling.distributions import (
             compute_occupancy,
             snowfall_rate_to_rainfall_rate,
         )
@@ -227,7 +254,7 @@ def run_pipeline(args, ap):
 
     boxes = []
     if args.labels:
-        from lidar_snow_sim_tpu.utils.boxes import (
+        from lidar_snow_sim_tpu_torch.utils.boxes import (
             points_in_boxes,
             read_label_file,
         )

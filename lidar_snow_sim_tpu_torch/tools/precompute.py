@@ -10,7 +10,8 @@ to
     {out_root}/snowfall_simulation/{mode}/{lidar_name}_rainrate_{int(rr)}/{id}.bin
 
 with skip-if-exists resume. Same flags as the JAX CLI without --mesh, plus
---device and the phase-A layout (--route-band, --band-width, --band-group;
+--device (default cuda; without a card it raises, and the CPU must be
+asked for with --device cpu) and the phase-A layout (--route-band, --band-width, --band-group;
 SnowfallConfig's fields of those names). Run:
 python -m lidar_snow_sim_tpu_torch.tools.precompute --help
 """
@@ -22,14 +23,24 @@ import json
 import sys
 from pathlib import Path
 
-import torch
+from lidar_snow_sim_tpu_torch.config import SnowfallConfig, WetGroundConfig
+from lidar_snow_sim_tpu_torch.device import resolve_device
 
-from lidar_snow_sim_tpu.config import SnowfallConfig, WetGroundConfig
-from lidar_snow_sim_tpu.tools.precompute import (
-    SNOWFALL_RATES,
-    TERMINAL_VELOCITIES,
-    reference_sample_order,
-)
+SNOWFALL_RATES = (0.5, 1.0, 2.0, 2.5, 1.5)       # mm/h (precompute.py:20)
+TERMINAL_VELOCITIES = (2.0, 1.6, 2.0, 1.6, 0.6)  # m/s  (precompute.py:21)
+
+
+def reference_sample_order(split_path: str | Path) -> list[str]:
+    """Split lines -> sorted `date_frame` stems, second half first, first
+    half reversed (`precompute.py:62-68`)."""
+    ids = sorted(
+        "_".join(line.strip().split(","))
+        for line in Path(split_path).read_text().splitlines()
+        if line.strip()
+    )
+    k, m = divmod(len(ids), 2)
+    first, second = ids[: k + min(1, m)], ids[k + min(1, m):]
+    return second + first[::-1]
 
 
 def main(argv=None):
@@ -63,8 +74,8 @@ def main(argv=None):
                          "(the viewer's snow+wet mode)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--overwrite", action="store_true")
-    ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda when available)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu must be asked for)")
     ap.add_argument("--route-band", type=int, default=0,
                     help="span-routed phase A (kernel A2) band width; 0: off")
     ap.add_argument("--band-width", type=int, default=0,
@@ -73,13 +84,13 @@ def main(argv=None):
                     help="beams per band of --route-band/--band-width")
     args = ap.parse_args(argv)
 
-    from lidar_snow_sim_tpu.calib import load_hdl64_calib
-    from lidar_snow_sim_tpu.sampling.banks import load_bank_files
-    from lidar_snow_sim_tpu.sampling.distributions import (
+    from lidar_snow_sim_tpu_torch.calib import load_hdl64_calib
+    from lidar_snow_sim_tpu_torch.sampling.banks import load_bank_files
+    from lidar_snow_sim_tpu_torch.sampling.distributions import (
         compute_occupancy,
         snowfall_rate_to_rainfall_rate,
     )
-    from lidar_snow_sim_tpu.utils.pointcloud import load_velodyne_bin
+    from lidar_snow_sim_tpu_torch.utils.pointcloud import load_velodyne_bin
     from lidar_snow_sim_tpu_torch.camera import (
         CameraCalibration,
         camera_fov_mask,
@@ -88,7 +99,7 @@ def main(argv=None):
         run_snowfall_datagen,
     )
 
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    device = resolve_device(args.device)
     lidar_dir = Path(args.lidar_dir)
     out_root = Path(args.out_root) if args.out_root else lidar_dir.parent
     shard_i, shard_n = (int(x) for x in args.shard.split("/"))

@@ -1,5 +1,5 @@
-"""Kernels A1, A2, A3, C1 and L1 on the card against their plain torch
-versions.
+"""Kernels A1 (also folded over frames), A2, A3, A4a, A4b, C1, C2 and L1
+on the card against their plain torch versions.
 
 These tests need an NVIDIA GPU and nvcc and skip elsewhere. They import no
 jax, so they also run where jax is not installed:
@@ -30,12 +30,20 @@ from lidar_snow_sim_tpu_torch.ops.lut_lookup import (
 from lidar_snow_sim_tpu_torch.ops.occluders import (
     find_occluders,
     find_occluders_banded,
+    find_occluders_folded,
+    find_occluders_pair,
     find_occluders_routed,
+    find_occluders_t,
     occluders_banded_plain,
     occluders_plain,
     occluders_routed_plain,
+    occluders_ungated_plain,
 )
-from lidar_snow_sim_tpu_torch.ops.pulse import pulse_peaks, pulse_plain
+from lidar_snow_sim_tpu_torch.ops.pulse import (
+    pulse_peaks,
+    pulse_peaks_pair,
+    pulse_plain,
+)
 
 _W = np.array([0.005, -0.003, -1.0])
 PLANE = (_W / np.linalg.norm(_W), -1.55)
@@ -60,13 +68,17 @@ CASES = {
 }
 
 
-def layout(case, device="cpu", slice_width=256, **cfg_kw):
+def layout(case, device="cpu", slice_width=256, order=None, sets=None,
+           **cfg_kw):
     """The port's phase-A layout of the small scene for one case; `cfg_kw`
-    (route_band, band_width, band_group) selects kernel A2 or A3."""
+    (route_band, band_width, band_group, pallas_transposed, pallas_pair)
+    selects kernel A2, A3, A4a or A4b; `order` is the channel order and
+    `sets` replaces the case's particle-set arguments."""
     spec = CASES[case]
     calib = load_hdl64_calib()
     pc = synthetic_scan(n_azimuth=100, seed=2, calib=calib)
-    bank = build_bank(_particle_sets(*spec["sets"]), window_size=256,
+    bank = build_bank(_particle_sets(*(sets or spec["sets"])),
+                      window_size=256,
                       wide_capacity=spec["wide"])
     cfg = SnowfallConfig(
         max_points=8192, window_size=256, wide_capacity=spec["wide"],
@@ -81,8 +93,8 @@ def layout(case, device="cpu", slice_width=256, **cfg_kw):
         torch.as_tensor(padded.points, device=device),
         torch.as_tensor(padded.mask, device=device),
         ts.bank_to_torch(bank, device),
-        torch.as_tensor(np.random.default_rng(3).permutation(64),
-                        device=device),
+        torch.as_tensor(np.random.default_rng(3).permutation(64)
+                        if order is None else order, device=device),
         None, cfg, plane=plane,
     )
     return lay, calib, cfg
@@ -222,3 +234,80 @@ def test_cuda_l1_rejects_wide_tables(cuda):
         lut_lookup_pairs(torch.zeros(8, device=cuda),
                          torch.zeros((MAX_CELLS + 1, 2), device=cuda))
     assert lut_lookup_pairs.launches == n0
+
+
+def _assert_phase_a_equal(a12d, ovf, a12d_p, ovf_p, k):
+    assert torch.equal(ovf, ovf_p)
+    assert torch.equal(a12d[2 * k:], a12d_p[2 * k:])
+    live = torch.cat([a12d_p[2 * k:] < 1e37] * 2)
+    assert torch.equal(a12d[:2 * k][live], a12d_p[:2 * k][live])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["A4a", "A4b"])
+@pytest.mark.parametrize("case,slice_width,sets", [
+    ("dense", 256, None), ("scene", 256, None), ("scene", 2048, None),
+    # 6000 flakes a channel and the whole row as the slice: candidate lists
+    # longer than A4a's 4096-candidate tile, staged once per beam round
+    ("dense", 8192, (9, 6000, 0.9, 0.15, 2.0)),
+])
+def test_cuda_ungated_kernels_match_plain(cuda, kernel, case, slice_width,
+                                          sets):
+    """On the card: A4a and A4b equal their plain version (A1's with every
+    chunk live) exactly, dead chunks included, and A1 on the in-channel
+    beams."""
+    knob = "pallas_transposed" if kernel == "A4a" else "pallas_pair"
+    lay, _, cfg = layout(case, device=cuda, slice_width=slice_width,
+                         sets=sets, **{knob: True})
+    assert lay.kernel == kernel
+    run = find_occluders_t if kernel == "A4a" else find_occluders_pair
+    n0 = run.launches
+    a12d, ovf = run(*lay.occluder_args, **lay.occluder_kw)
+    torch.cuda.synchronize()
+    assert run.launches == n0 + 1
+    a12d_p, ovf_p = occluders_ungated_plain(*lay.occluder_args,
+                                            **lay.occluder_kw)
+    k = cfg.max_occluders
+    _assert_phase_a_equal(a12d, ovf, a12d_p, ovf_p, k)
+    lay1, _, _ = layout(case, device=cuda, slice_width=slice_width,
+                        sets=sets)
+    a12d_1, ovf_1 = find_occluders(*lay1.occluder_args, **lay1.occluder_kw)
+    valid = lay.valid_blk.reshape(-1)
+    assert torch.equal(ovf.reshape(-1)[valid], ovf_1.reshape(-1)[valid])
+    assert torch.equal(a12d[2 * k:, valid], a12d_1[2 * k:, valid])
+
+
+@pytest.mark.cuda
+def test_cuda_folded_a1_matches_single_launches(cuda):
+    """On the card: A1 folded over 2 frames (one launch) equals one A1
+    launch per frame."""
+    order = np.random.default_rng(3).permutation(64)
+    lays = [layout("scene", device=cuda)[0],
+            layout("scene", device=cuda, order=order[::-1].copy())[0]]
+    n0 = find_occluders.launches
+    got = find_occluders_folded([lay.occluder_args for lay in lays],
+                                **lays[0].occluder_kw)
+    torch.cuda.synchronize()
+    assert find_occluders.launches == n0 + 1
+    for (a12d, ovf), lay in zip(got, lays):
+        want = find_occluders(*lay.occluder_args, **lay.occluder_kw)
+        assert torch.equal(a12d, want[0]) and torch.equal(ovf, want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("blk", [64, 512])
+def test_cuda_c2_matches_plain(cuda, case, blk):
+    """On the card: C2 equals its plain version (C1's) and C1 exactly."""
+    lay, calib, cfg = layout(case, device=cuda)
+    a12d, ovf = find_occluders(*lay.occluder_args, **lay.occluder_kw)
+    comp = ts.compact_occluded(lay, a12d, ovf, ts.calib_to_torch(calib, cuda),
+                               cfg)
+    assert (comp.cap // blk) % 2 == 0
+    n0 = pulse_peaks_pair.launches
+    got = pulse_peaks_pair(*comp.pulse_args, blk=blk, **comp.pulse_kw)
+    torch.cuda.synchronize()
+    assert pulse_peaks_pair.launches == n0 + 1
+    for a, b, c in zip(got, pulse_plain(*comp.pulse_args, **comp.pulse_kw),
+                       pulse_peaks(*comp.pulse_args, **comp.pulse_kw)):
+        assert torch.equal(a, b) and torch.equal(a, c)

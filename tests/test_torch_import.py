@@ -1,8 +1,8 @@
-"""The port never imports jax.
+"""The port never imports jax, nor any module of the JAX package.
 
-A subprocess is needed: tests/conftest.py imports jax into this process.
-The port's own modules, the ones it reuses from the JAX package, and
-chip_smoke.py must all load without it.
+A subprocess is needed: tests/conftest.py imports jax and the JAX package
+into this process. The port's modules, its own copies of the JAX package's
+host modules, and chip_smoke.py must all load without either.
 """
 
 import subprocess
@@ -14,7 +14,10 @@ MODULES = [
     "lidar_snow_sim_tpu_torch",
     "lidar_snow_sim_tpu_torch._kernels",
     "lidar_snow_sim_tpu_torch.api",
+    "lidar_snow_sim_tpu_torch.calib",
     "lidar_snow_sim_tpu_torch.camera",
+    "lidar_snow_sim_tpu_torch.config",
+    "lidar_snow_sim_tpu_torch.device",
     "lidar_snow_sim_tpu_torch.models.dror",
     "lidar_snow_sim_tpu_torch.models.fog",
     "lidar_snow_sim_tpu_torch.models.lisa",
@@ -26,22 +29,39 @@ MODULES = [
     "lidar_snow_sim_tpu_torch.ops.geometry",
     "lidar_snow_sim_tpu_torch.ops.laser",
     "lidar_snow_sim_tpu_torch.ops.lut_lookup",
+    "lidar_snow_sim_tpu_torch.ops.mie",
     "lidar_snow_sim_tpu_torch.ops.occluders",
     "lidar_snow_sim_tpu_torch.ops.pulse",
     "lidar_snow_sim_tpu_torch.parallel.batched",
     "lidar_snow_sim_tpu_torch.parallel.datagen",
+    "lidar_snow_sim_tpu_torch.sampling",
+    "lidar_snow_sim_tpu_torch.sampling.banks",
+    "lidar_snow_sim_tpu_torch.sampling.dart",
+    "lidar_snow_sim_tpu_torch.sampling.distributions",
     "lidar_snow_sim_tpu_torch.tools.inspect",
     "lidar_snow_sim_tpu_torch.tools.precompute",
     "lidar_snow_sim_tpu_torch.tools.profile_weather",
+    "lidar_snow_sim_tpu_torch.utils",
+    "lidar_snow_sim_tpu_torch.utils.boxes",
+    "lidar_snow_sim_tpu_torch.utils.datasets",
+    "lidar_snow_sim_tpu_torch.utils.pointcloud",
+    "lidar_snow_sim_tpu_torch.utils.render",
+    "lidar_snow_sim_tpu_torch.utils.synthetic",
 ]
 
 
 def _jax_free(code: str):
+    """Run `code` in a fresh interpreter; then no jax module and no module
+    of the JAX package (`lidar_snow_sim_tpu`, `lidar_snow_sim_tpu.*`; the
+    port's `lidar_snow_sim_tpu_torch*` differ) may be loaded."""
     probe = (
         f"{code}\nimport sys\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')))\n"
         "assert not bad, bad\n"
+        "ref = sorted(m for m in sys.modules if m == 'lidar_snow_sim_tpu' "
+        "or m.startswith('lidar_snow_sim_tpu.'))\n"
+        "assert not ref, ref\n"
     )
     proc = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)

@@ -19,12 +19,12 @@ import numpy as np
 import pytest
 import torch
 
-from lidar_snow_sim_tpu.sampling.distributions import (
+from lidar_snow_sim_tpu.tools.inspect import main as jax_inspect
+from lidar_snow_sim_tpu_torch import (
     compute_occupancy,
     snowfall_rate_to_rainfall_rate,
+    synthetic_scan,
 )
-from lidar_snow_sim_tpu.tools.inspect import main as jax_inspect
-from lidar_snow_sim_tpu.utils.synthetic import synthetic_scan
 from lidar_snow_sim_tpu_torch.models.snowfall import OVERFLOW_COUNTERS
 from lidar_snow_sim_tpu_torch.ops.lut_lookup import lut_lookup_pairs
 from lidar_snow_sim_tpu_torch.tools import inspect as tinspect

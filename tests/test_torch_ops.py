@@ -18,7 +18,7 @@ from lidar_snow_sim_tpu.ops import fitting as jfit
 from lidar_snow_sim_tpu.ops import fresnel as jfres
 from lidar_snow_sim_tpu.ops import geometry as jgeo
 from lidar_snow_sim_tpu.ops import laser as jlaser
-from lidar_snow_sim_tpu.utils.synthetic import synthetic_scan
+from lidar_snow_sim_tpu_torch import synthetic_scan
 from lidar_snow_sim_tpu_torch import camera as tcam
 from lidar_snow_sim_tpu_torch.ops import fitting as tfit
 from lidar_snow_sim_tpu_torch.ops import fresnel as tfres

@@ -28,8 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from lidar_snow_sim_tpu.calib import load_hdl64_calib
-from lidar_snow_sim_tpu.config import SnowfallConfig
+from lidar_snow_sim_tpu.config import SnowfallConfig as JaxSnowfallConfig
 from lidar_snow_sim_tpu.models.snowfall import (
     calib_device_arrays,
     snowfall_augment,
@@ -40,9 +39,14 @@ from lidar_snow_sim_tpu.oracle.snowfall import (
     occlusion_dicts,
     pulse_decision_margins,
 )
-from lidar_snow_sim_tpu.sampling.banks import build_bank
-from lidar_snow_sim_tpu.utils.pointcloud import pad_cloud
-from lidar_snow_sim_tpu.utils.synthetic import synthetic_scan
+from lidar_snow_sim_tpu.sampling.banks import ParticleBank as JaxParticleBank
+from lidar_snow_sim_tpu_torch import (
+    SnowfallConfig,
+    build_bank,
+    load_hdl64_calib,
+    pad_cloud,
+    synthetic_scan,
+)
 from lidar_snow_sim_tpu_torch.models import snowfall as ts
 
 _W = np.array([0.005, -0.003, -1.0])
@@ -95,14 +99,22 @@ def _scene(name):
         BASE, max_occluders=16, max_bumps=16)
 
 
+def _jax_cfg(cfg):
+    """The JAX package's config of the port's `cfg`, on its interpreted
+    Pallas branch."""
+    return dataclasses.replace(
+        JaxSnowfallConfig(**dataclasses.asdict(cfg)), use_pallas=True,
+        pallas_interpret=True,
+    )
+
+
 def _run_jax(pc, bank, order, cfg):
     calib = load_hdl64_calib()
     padded = pad_cloud(pc, cfg.max_points)
-    cfg = dataclasses.replace(cfg, use_pallas=True, pallas_interpret=True)
     return jax.device_get(jax.jit(snowfall_augment, static_argnames=("cfg",))(
         jnp.asarray(padded.points), jnp.asarray(padded.mask),
-        jax.device_put(bank), calib_device_arrays(calib),
-        jnp.asarray(order, jnp.int32), jax.random.PRNGKey(0), cfg,
+        jax.device_put(JaxParticleBank(*bank)), calib_device_arrays(calib),
+        jnp.asarray(order, jnp.int32), jax.random.PRNGKey(0), _jax_cfg(cfg),
         plane=(jnp.asarray(PLANE[0], jnp.float32), jnp.float32(PLANE[1])),
     ))
 
@@ -249,11 +261,12 @@ def test_capacities_grow_to_the_comfortable_result():
     calib = load_hdl64_calib()
     bank = build_bank(sets, window_size=256, wide_capacity=64)
     order = np.random.default_rng(3).permutation(64)
-    ok = ts.SnowfallAugmenter(bank, calib, SnowfallConfig(**base))
+    ok = ts.SnowfallAugmenter(bank, calib, SnowfallConfig(**base),
+                              device="cpu")
     tight = ts.SnowfallAugmenter(bank, calib, SnowfallConfig(**dict(
         base, channel_capacity=32, slice_width=64, max_occluders=1,
         max_bumps=1, compact_capacity=256, pulse_chunk=256,
-    )))
+    )), device="cpu")
     stats_ok, out_ok = ok(pc, order=order)
     stats_t, out_t = tight(pc, order=order)
     assert tight.cfg.channel_capacity > 32
@@ -270,7 +283,8 @@ def test_unported_paths_raise(change):
     bank = build_bank(sets, window_size=256, wide_capacity=64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ts.SnowfallAugmenter(bank, load_hdl64_calib(),
-                             SnowfallConfig(**dict(base, **change)))
+                             SnowfallConfig(**dict(base, **change)),
+                             device="cpu")
 
 
 # (scene, config change, kernel): A2 at three band widths, one not a
@@ -387,10 +401,11 @@ def test_band_width_grows_to_the_comfortable_result():
     calib = load_hdl64_calib()
     bank = build_bank(sets, window_size=256, wide_capacity=64)
     order = np.random.default_rng(3).permutation(64)
-    ok = ts.SnowfallAugmenter(bank, calib, SnowfallConfig(**base))
+    ok = ts.SnowfallAugmenter(bank, calib, SnowfallConfig(**base),
+                              device="cpu")
     cfg = SnowfallConfig(**dict(base, band_width=32, band_group=8))
     assert _kernel_of(pc, bank, order, cfg) == "A3"
-    tight = ts.SnowfallAugmenter(bank, calib, cfg)
+    tight = ts.SnowfallAugmenter(bank, calib, cfg, device="cpu")
     stats_ok, out_ok = ok(pc, order=order)
     stats_t, out_t = tight(pc, order=order)
     assert tight.cfg.band_width > 32
@@ -418,3 +433,169 @@ def test_grown_config_band_width(cfg, name, want):
         assert got is None
     else:
         assert {k: getattr(got, k) for k in want} == want
+
+
+# ---- the batched step and the knobs that pick A4a, A4b, C2 and the fold
+
+KNOBS = ["batch_fold", "pallas_pair", "pallas_transposed", "pulse_pair"]
+
+
+def _batch(scene):
+    """2 frames of one scene, the second with the reversed channel order
+    (tests/test_dense_assembly.py:310): points, mask, orders, the JAX
+    package's PRNG keys and the port's RANSAC draws made from them (the
+    JAX batched step's own split, parallel/batched.py:36, and uniforms,
+    ops/fitting.py:217)."""
+    pc, sets, base = _scene(scene)
+    padded = pad_cloud(pc, base["max_points"])
+    order = np.random.default_rng(3).permutation(64)
+    orders = np.stack([order, order[::-1]])
+    keys = jax.random.split(jax.random.PRNGKey(0), 2)
+    trials = SnowfallConfig().ransac_trials
+    draws = np.stack([
+        np.asarray(jax.random.uniform(jax.random.split(k)[0], (trials, 3)))
+        for k in keys
+    ])
+    return (pc, sets, base, np.stack([padded.points] * 2),
+            np.stack([padded.mask] * 2), orders, keys, draws)
+
+
+def _port_batched(batch, cfg):
+    from lidar_snow_sim_tpu_torch.parallel.batched import batched_step
+
+    pc, sets, _, points, mask, orders, _, draws = batch
+    bank = build_bank(sets, window_size=256, wide_capacity=64)
+    snow, wet = batched_step(
+        torch.as_tensor(points), torch.as_tensor(mask),
+        ts.bank_to_torch(bank, "cpu"),
+        ts.calib_to_torch(load_hdl64_calib(), "cpu"),
+        torch.as_tensor(orders), (torch.as_tensor(draws), None), cfg,
+    )
+    assert wet is None
+    return snow
+
+
+@pytest.fixture(scope="module")
+def fov_batch():
+    return _batch("fov")
+
+
+@pytest.fixture(scope="module")
+def fov_batched_default(fov_batch):
+    return _port_batched(fov_batch, SnowfallConfig(**fov_batch[2]))
+
+
+@pytest.mark.parametrize("knob", KNOBS)
+def test_batched_step_matches_jax(fov_batch, knob):
+    """The port's batched_step with each knob against the JAX package's
+    batched_step (vmapped snowfall, Pallas interpreted) with the same knob,
+    on the JAX draws: labels, keep flags and all five counters equal frame
+    by frame."""
+    from lidar_snow_sim_tpu.parallel.batched import (
+        batched_step as jax_batched_step,
+    )
+
+    pc, sets, base, points, mask, orders, keys, _ = fov_batch
+    cfg = SnowfallConfig(**dict(base, **{knob: True}))
+    got = _port_batched(fov_batch, cfg)
+    bank = build_bank(sets, window_size=256, wide_capacity=64)
+    want = jax.device_get(jax.jit(
+        jax_batched_step, static_argnames=("snow_cfg", "wet_cfg"),
+    )(
+        jnp.asarray(points), jnp.asarray(mask),
+        jax.device_put(JaxParticleBank(*bank)),
+        calib_device_arrays(load_hdl64_calib()),
+        jnp.asarray(orders, jnp.int32), keys, _jax_cfg(cfg), None,
+    )[0])
+    n = len(pc)
+    for f in range(2):
+        for name in COUNTERS:
+            assert int(getattr(got, name)[f]) == \
+                int(getattr(want, name)[f]) == 0, (f, name)
+        np.testing.assert_array_equal(got.planes[f, 4, :n].numpy(),
+                                      np.asarray(want.planes)[f, 4, :n])
+        np.testing.assert_array_equal(got.keep[f, :n].numpy(),
+                                      np.asarray(want.keep)[f, :n])
+        assert (got.planes[f, 4, :n].numpy() > 0).sum() > 10
+    assert not torch.equal(got.planes[0], got.planes[1])
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(batch_fold=True), dict(pallas_pair=True),
+    dict(pallas_transposed=True), dict(pulse_pair=True),
+    dict(batch_fold=True, pallas_transposed=True, pulse_pair=True),
+])
+def test_batched_knobs_equal_the_default(fov_batch, fov_batched_default,
+                                         knobs):
+    """Inside the port every knob gives the default's output byte for
+    byte."""
+    got = _port_batched(fov_batch, SnowfallConfig(**dict(fov_batch[2],
+                                                         **knobs)))
+    for name, a, b in zip(ts.SnowfallResult._fields, got,
+                          fov_batched_default):
+        assert torch.equal(a, b), name
+
+
+# (config change, phase-A kernel): the JAX precedence A3 > A2 > A4b > A4a
+# > A1 (models/snowfall.py:702-716)
+PRECEDENCE = [
+    (dict(), "A1"),
+    (dict(pallas_transposed=True), "A4a"),
+    (dict(pallas_pair=True), "A4b"),
+    (dict(pallas_pair=True, pallas_transposed=True), "A4b"),
+    (dict(route_band=128, pallas_pair=True, pallas_transposed=True), "A2"),
+    (dict(band_width=128, route_band=128, pallas_pair=True), "A3"),
+]
+
+
+@pytest.mark.parametrize("change,kernel", PRECEDENCE)
+def test_dense_layout_kernel_precedence(change, kernel):
+    pc, sets, base = _scene("fov")
+    bank = build_bank(sets, window_size=256, wide_capacity=64)
+    order = np.random.default_rng(3).permutation(64)
+    cfg = SnowfallConfig(**dict(base, slice_width=384, band_group=8,
+                                **change))
+    assert _kernel_of(pc, bank, order, cfg) == kernel
+
+
+def test_odd_counts_take_a1_and_c1():
+    """An odd chunk count (a 63-channel order) takes A1 under pallas_pair,
+    even with pallas_transposed set; an odd pulse-block count takes C1 under
+    pulse_pair; the outputs equal the default's."""
+    pc, sets, base = _scene("fov")
+    pc = pc[pc[:, 4] < 63]
+    bank = build_bank(sets, window_size=256, wide_capacity=64)
+    order = np.random.default_rng(3).permutation(63)
+    base = dict(base, compact_capacity=1536, pulse_chunk=512)
+    out = {}
+    for name, change in (("default", {}),
+                         ("pair", dict(pallas_pair=True,
+                                       pallas_transposed=True)),
+                         ("pulse_pair", dict(pulse_pair=True))):
+        cfg = SnowfallConfig(**dict(base, **change))
+        padded = pad_cloud(pc, cfg.max_points)
+        plane = (torch.tensor(PLANE[0], dtype=torch.float32),
+                 torch.tensor(PLANE[1], dtype=torch.float32))
+        lay = ts.dense_layout(
+            torch.as_tensor(padded.points), torch.as_tensor(padded.mask),
+            ts.bank_to_torch(bank, "cpu"), torch.as_tensor(order), None, cfg,
+            plane=plane)
+        assert lay.n_chunks % 2 == 1 and lay.kernel == "A1"
+        comp = ts.compact_occluded(lay, *ts.run_phase_a(lay)[:2],
+                                   ts.calib_to_torch(load_hdl64_calib(),
+                                                     "cpu"), cfg)
+        assert comp.cap // 512 == 3 and comp.pulse_kernel == "C1"
+        out[name], _ = _run_port(pc, bank, order, cfg)
+    even = dataclasses.replace(cfg, compact_capacity=2048)
+    lay = ts.dense_layout(
+        torch.as_tensor(padded.points), torch.as_tensor(padded.mask),
+        ts.bank_to_torch(bank, "cpu"), torch.as_tensor(order), None, even,
+        plane=plane)
+    assert ts.compact_occluded(
+        lay, *ts.run_phase_a(lay)[:2],
+        ts.calib_to_torch(load_hdl64_calib(), "cpu"), even,
+    ).pulse_kernel == "C2"
+    for name in ("pair", "pulse_pair"):
+        for field, a, b in zip(ts.SnowfallResult._fields, out["default"],
+                               out[name]):
+            assert torch.equal(a, b), (name, field)

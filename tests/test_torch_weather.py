@@ -32,7 +32,7 @@ from lidar_snow_sim_tpu.models import dror as jdror
 from lidar_snow_sim_tpu.models import fog as jfog
 from lidar_snow_sim_tpu.models import stf_fog as jstf
 from lidar_snow_sim_tpu.models.lisa import LISA as JaxLISA
-from lidar_snow_sim_tpu.utils.pointcloud import pad_cloud
+from lidar_snow_sim_tpu_torch import pad_cloud
 from lidar_snow_sim_tpu_torch.models import dror, fog, stf_fog
 from lidar_snow_sim_tpu_torch.models.lisa import (
     LISA,
@@ -102,7 +102,7 @@ def test_lisa_tables_equal_jax_bitwise(mode):
     want = lisa_tables_to_torch(
         [np.asarray(t) for t in JaxLISA(mode=mode, dsd_points=64)
          ._dsd_tables(rr)], "cpu")
-    got = lisa_tables_to_torch(LISA(mode=mode, dsd_points=64)
+    got = lisa_tables_to_torch(LISA(mode=mode, dsd_points=64, device="cpu")
                                ._dsd_tables(rr), "cpu")
     for a, b in zip(got, want):
         assert a.dtype == torch.float32 and torch.equal(a, b)
@@ -118,7 +118,7 @@ def test_lisa_core_matches_jax(cloud, mode, dsd_points, mxu_lookup):
     wider than the JAX kernel takes."""
     rr = 1.0 if mode == "fog" else 10.0
     jl = JaxLISA(mode=mode, dsd_points=dsd_points, mxu_lookup=mxu_lookup)
-    tl = LISA(mode=mode, dsd_points=dsd_points)
+    tl = LISA(mode=mode, dsd_points=dsd_points, device="cpu")
     pc = cloud.copy()
     pc[:, 3] /= 255.0
     pad = pad_cloud(pc, 4096)
@@ -148,7 +148,7 @@ def test_lisa_reference_contract(cloud):
     contract test, on the port): (N, 6), label 0 lost at the origin / 1
     attenuated / 2 scattered, diff only on attenuated points, deterministic
     under fixed_seed, intensity scale kept; augment_compact agrees."""
-    lisa = LISA(dsd_points=64)
+    lisa = LISA(dsd_points=64, device="cpu")
     aug1 = lisa.augment(cloud, 10.0, fixed_seed=True)
     aug2 = lisa.augment(cloud, 10.0, fixed_seed=True)
     np.testing.assert_array_equal(aug1, aug2)
@@ -173,13 +173,14 @@ def test_lisa_droplet_capacity_never_silently_clamped(cloud):
     """test_weather_baselines.py:360 in the port: an undersized candidate
     set is detected by the residual bound and grown, and the healed result
     equals a run sized that way from the start."""
-    lisa = LISA(dsd_points=64, max_droplets=4, tail_droplets=2)
+    lisa = LISA(dsd_points=64, max_droplets=4, tail_droplets=2,
+                device="cpu")
     _, stats = lisa.augment_compact(cloud, 30.0, fixed_seed=True)
     assert stats["droplet_overflow"] == 0
     assert lisa.max_droplets > 4 and lisa.tail_droplets == \
         lisa.max_droplets // 2
     big = LISA(dsd_points=64, max_droplets=lisa.max_droplets,
-               tail_droplets=lisa.tail_droplets)
+               tail_droplets=lisa.tail_droplets, device="cpu")
     _, stats_b = big.augment_compact(cloud, 30.0, fixed_seed=True)
     assert stats_b == stats
 
@@ -192,7 +193,7 @@ def test_lisa_overflow_persisting_raises(cloud, monkeypatch):
     def always_overflowing(*args, **kwargs):
         return res._replace(droplet_overflow=torch.tensor(1))
 
-    lisa = LISA(dsd_points=64)
+    lisa = LISA(dsd_points=64, device="cpu")
     res, _ = lisa._run(cloud[:64], 10.0, True, 0)
     monkeypatch.setattr(tlisa, "lisa_augment_core", always_overflowing)
     with pytest.raises(RuntimeError, match="overflow persisted"):
@@ -265,7 +266,8 @@ def test_simulate_fog_exact_viewer_contract(cloud):
                          gamma_max=0.00001, gamma_scale=10000000)
     p.beta_0 = p.gamma / np.pi
     p.alpha = 0.06
-    aug, fog_pc, info = fog.simulate_fog(p, cloud, 10, True, "v4")
+    aug, fog_pc, info = fog.simulate_fog(p, cloud, 10, True, "v4",
+                                          device="cpu")
     assert set(info) == {"min_fog_response", "max_fog_response",
                          "num_fog_responses"}
     assert len(aug) == len(cloud)
@@ -273,7 +275,7 @@ def test_simulate_fog_exact_viewer_contract(cloud):
     assert info["max_fog_response"] >= info["min_fog_response"] > 0
     assert abs(float(aug[:, 3].max()) - 255.0) < 1e-3
     aug2, fog_pts, stats = fog.simulate_fog_pc(
-        fog.FogParameterSet(alpha=0.06), cloud, noise=10.0)
+        fog.FogParameterSet(alpha=0.06), cloud, noise=10.0, device="cpu")
     assert aug2.shape[1] == 5 and len(fog_pts) == stats["num_scattered"]
     assert (fog_pts[:, 4] == 2.0).all()
 
@@ -321,13 +323,14 @@ def test_stf_fog_viewer_contract_and_counts(cloud):
     b.propagate_in_time(10)
     pc = stf_fog.haze_point_cloud(
         cloud, b, Namespace(sensor_type="Velodyne HDL-64E S3D",
-                            fraction_random=0.05))
+                            fraction_random=0.05), device="cpu")
     assert pc.shape[1] == cloud.shape[1] and 0 < len(pc) <= len(cloud)
     assert set(np.unique(pc[:, 4])) <= {0.0, 2.0}
-    aug, stats = stf_fog.StfFogAugmenter(beta=0.05, seed=1)(cloud)
+    aug, stats = stf_fog.StfFogAugmenter(beta=0.05, seed=1, device="cpu")(cloud)
     assert stats["num_scattered"] + stats["num_attenuated"] == len(aug)
     assert stats["num_removed"] == len(cloud) - len(aug)
-    _, dense = stf_fog.StfFogAugmenter(beta=0.15, seed=1)(cloud)
+    _, dense = stf_fog.StfFogAugmenter(beta=0.15, seed=1,
+                                       device="cpu")(cloud)
     assert dense["num_removed"] + dense["num_scattered"] > \
         stats["num_removed"] + stats["num_scattered"]
 
@@ -398,10 +401,11 @@ def test_dror_kernels_match_jax(case):
                                       full_t[:n][free])
     # the host wrapper: windowed, grown once, then the exact full search
     np.testing.assert_array_equal(
-        dror.dynamic_radius_outlier_filter(pc)[free],
+        dror.dynamic_radius_outlier_filter(pc, device="cpu")[free],
         jdror.dynamic_radius_outlier_filter(pc)[free])
     np.testing.assert_array_equal(
-        dror.dynamic_radius_outlier_filter(pc, window=0), full_t[:n])
+        dror.dynamic_radius_outlier_filter(pc, window=0, device="cpu"),
+        full_t[:n])
 
 
 @pytest.mark.parametrize("m", [3, 57, 300, 1000])
@@ -410,9 +414,10 @@ def test_dror_tiny_and_ragged_clouds(m):
     the port, and equal to the JAX wrapper."""
     pc, _ = _boundary_safe_cloud(seed=3)
     sub = pc[:m]
-    keep = dror.dynamic_radius_outlier_filter(sub)
+    keep = dror.dynamic_radius_outlier_filter(sub, device="cpu")
     np.testing.assert_array_equal(
-        keep, dror.dynamic_radius_outlier_filter(sub, window=0))
+        keep, dror.dynamic_radius_outlier_filter(sub, window=0,
+                                                 device="cpu"))
     np.testing.assert_array_equal(
         keep, jdror.dynamic_radius_outlier_filter(sub))
 
@@ -424,15 +429,17 @@ def test_dror_keeps_dense_removes_sparse_and_scales_with_range():
     wall = np.column_stack([np.full(len(grid), 10.0), grid[:, 0], grid[:, 1]])
     floaters = rng.uniform(-40, 40, (50, 3)) + np.array([60, 0, 0])
     keep = dror.dynamic_radius_outlier_filter(
-        np.vstack([wall, floaters]).astype(np.float32))
+        np.vstack([wall, floaters]).astype(np.float32), device="cpu")
     assert keep[: len(wall)].all() and not keep[len(wall):].any()
 
     def line_at(dist):
         return np.column_stack([np.full(30, dist), np.arange(30) * 0.12,
                                 np.zeros(30)]).astype(np.float32)
 
-    assert not dror.dynamic_radius_outlier_filter(line_at(2.0)).any()
-    assert dror.dynamic_radius_outlier_filter(line_at(60.0)).all()
+    assert not dror.dynamic_radius_outlier_filter(line_at(2.0),
+                                                  device="cpu").any()
+    assert dror.dynamic_radius_outlier_filter(line_at(60.0),
+                                              device="cpu").all()
 
 
 def test_dror_snow_stats_cube_levels_and_pickles(cloud, tmp_path):
@@ -443,7 +450,8 @@ def test_dror_snow_stats_cube_levels_and_pickles(cloud, tmp_path):
     assert dror.snow_level(dror.DROR_LEVELS["medium"][0]) == "medium"
     assert dror.snow_level(10**6) == "heavy"
     assert dror.DROR_LEVELS == jdror.DROR_LEVELS
-    assert dror.dror_snow_stats(cloud) == jdror.dror_snow_stats(cloud)
+    assert dror.dror_snow_stats(cloud, device="cpu") == \
+        jdror.dror_snow_stats(cloud)
 
     base = tmp_path / "alpha_0.45" / "all" / "hdl64" / "strongest"
     (base / "full").mkdir(parents=True)

@@ -17,14 +17,19 @@ import numpy as np
 import pytest
 import torch
 
-from lidar_snow_sim_tpu.calib import load_hdl64_calib
-from lidar_snow_sim_tpu.config import SnowfallConfig, WetGroundConfig
+from lidar_snow_sim_tpu.config import WetGroundConfig as JaxWetGroundConfig
 from lidar_snow_sim_tpu.models.wet_ground import (
     wet_ground_augment as jax_wet,
 )
-from lidar_snow_sim_tpu.sampling.banks import build_bank
-from lidar_snow_sim_tpu.utils.pointcloud import load_velodyne_bin, pad_cloud
-from lidar_snow_sim_tpu.utils.synthetic import synthetic_scan
+from lidar_snow_sim_tpu_torch import (
+    SnowfallConfig,
+    WetGroundConfig,
+    build_bank,
+    load_hdl64_calib,
+    load_velodyne_bin,
+    pad_cloud,
+    synthetic_scan,
+)
 from lidar_snow_sim_tpu_torch import api
 from lidar_snow_sim_tpu_torch.models.snowfall import SnowfallAugmenter
 from lidar_snow_sim_tpu_torch.models.wet_ground import (
@@ -85,8 +90,8 @@ def test_wet_ground_matches_jax(fit, replace):
         tport = (torch.tensor(PLANE[0], dtype=torch.float32),
                  torch.tensor(PLANE[1], dtype=torch.float32))
     rj = jax.device_get(jax.jit(jax_wet, static_argnames=("cfg",))(
-        jnp.asarray(planes), jnp.asarray(padded.mask), key, cfg,
-        plane=jplane,
+        jnp.asarray(planes), jnp.asarray(padded.mask), key,
+        JaxWetGroundConfig(**dataclasses.asdict(cfg)), plane=jplane,
     ))
     rt = wet_ground_augment(torch.from_numpy(planes),
                             torch.from_numpy(padded.mask),
@@ -110,7 +115,7 @@ def test_wet_ground_matches_jax(fit, replace):
 
 def test_wet_augmenter_order_and_filter():
     pc = synthetic_scan(n_azimuth=100, seed=2)
-    out = WetGroundAugmenter(max_points=8192)(pc, plane=PLANE)
+    out = WetGroundAugmenter(max_points=8192, device="cpu")(pc, plane=PLANE)
     n_ground = int((out[:, 4] == 1).sum())
     assert 0 < n_ground < len(out) <= len(pc)
     # reference order: non-ground first, surviving ground appended
@@ -132,7 +137,7 @@ def test_datagen_resume_manifest_and_equality(tmp_path, bank):
     out = tmp_path / "out"
     stats = run_snowfall_datagen(
         list(frames), frames.__getitem__, out, bank, calib, CFG, batch=2,
-        seed=7,
+        seed=7, device="cpu",
     )
     assert stats.frames_done == 3 and stats.frames_skipped == 0
     manifest = json.loads((out / "_manifest.json").read_text())
@@ -140,12 +145,13 @@ def test_datagen_resume_manifest_and_equality(tmp_path, bank):
     assert not manifest["wet_ground"]
     for sid, pc in frames.items():
         order, s = _frame_args(7, sid)
-        _, want = SnowfallAugmenter(bank, calib, CFG, seed=s)(pc, order=order)
+        _, want = SnowfallAugmenter(bank, calib, CFG, seed=s,
+                                    device="cpu")(pc, order=order)
         np.testing.assert_array_equal(load_velodyne_bin(out / f"{sid}.bin"),
                                       want)
     again = run_snowfall_datagen(
         list(frames), frames.__getitem__, out, bank, calib, CFG, batch=2,
-        seed=7,
+        seed=7, device="cpu",
     )
     assert again.frames_skipped == 3 and again.frames_done == 0
 
@@ -160,10 +166,10 @@ def test_datagen_grows_band_width(tmp_path, bank):
     tight = dataclasses.replace(CFG, band_width=32, band_group=8)
     stats = run_snowfall_datagen(
         list(frames), frames.__getitem__, tmp_path / "t", bank, calib, tight,
-        batch=2, seed=7,
+        batch=2, seed=7, device="cpu",
     )
     run_snowfall_datagen(list(frames), frames.__getitem__, tmp_path / "ok",
-                         bank, calib, CFG, batch=2, seed=7)
+                         bank, calib, CFG, batch=2, seed=7, device="cpu")
     assert stats.capacity_growths > 0
     for sid in frames:
         np.testing.assert_array_equal(
@@ -175,7 +181,7 @@ def test_datagen_grows_band_width(tmp_path, bank):
 def _bank_files(banks):
     """The test particle sets as the 2.5 mm/h, 1.6 m/s gunn bank files;
     returns (rainfall rate, occupancy)."""
-    from lidar_snow_sim_tpu.sampling.distributions import (
+    from lidar_snow_sim_tpu_torch.sampling.distributions import (
         compute_occupancy,
         snowfall_rate_to_rainfall_rate,
     )
@@ -280,3 +286,72 @@ def test_api_takes_a_phase_a_config(tmp_path, config):
     got = api.augment(pc, prefix, config=config, **kw)
     assert got[0] == want[0]
     np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("fold", [True, False])
+def test_datagen_packed_step_folds_phase_a(bank, monkeypatch, fold):
+    """With batch_fold the packed step runs phase A once per batch (here
+    the plain version on CPU tensors, counted), else once per frame; the
+    outputs are the same."""
+    from lidar_snow_sim_tpu_torch.models.snowfall import (
+        bank_to_torch,
+        calib_to_torch,
+    )
+    from lidar_snow_sim_tpu_torch.ops import occluders
+    from lidar_snow_sim_tpu_torch.parallel.batched import datagen_packed_step
+
+    calls = []
+    plain = occluders.occluders_plain
+    monkeypatch.setattr(occluders, "occluders_plain",
+                        lambda *a, **k: calls.append(a[2].shape[0])
+                        or plain(*a, **k))
+    calib = load_hdl64_calib()
+    pts = np.zeros((3, CFG.max_points, 4), np.float32)
+    chan = np.zeros((3, CFG.max_points), np.uint8)
+    meta = np.zeros((3, 67), np.int32)
+    for f in range(3):
+        pc = synthetic_scan(n_azimuth=60, seed=f, calib=calib)
+        pts[f, :len(pc)], chan[f, :len(pc)] = pc[:, :4], pc[:, 4]
+        order, s = _frame_args(7, f"f{f}")
+        meta[f, 0], meta[f, 2], meta[f, 3:] = len(pc), s, order
+    args = (torch.from_numpy(pts), torch.from_numpy(chan),
+            torch.from_numpy(meta), bank_to_torch(bank, "cpu"),
+            calib_to_torch(calib, "cpu"))
+    got = datagen_packed_step(*args, dataclasses.replace(CFG,
+                                                         batch_fold=fold))
+    n_chunks = calls[0] // (3 if fold else 1)
+    assert calls == ([3 * n_chunks] if fold else [n_chunks] * 3)
+    calls.clear()
+    want = datagen_packed_step(*args, CFG)
+    assert len(calls) == 3
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_datagen_keeps_the_knobs_through_growth(tmp_path, bank, monkeypatch):
+    """run_snowfall_datagen hands the knobs to the batched step unchanged,
+    also after a capacity grew, and writes the default config's files."""
+    from lidar_snow_sim_tpu_torch.parallel import datagen
+
+    seen = []
+    step = datagen.datagen_packed_step
+    monkeypatch.setattr(datagen, "datagen_packed_step",
+                        lambda *a, **k: seen.append(a[5]) or step(*a, **k))
+    calib = load_hdl64_calib()
+    frames = {f"f{s}": synthetic_scan(n_azimuth=60, seed=s, calib=calib)
+              for s in range(2)}
+    knobs = dict(batch_fold=True, pallas_pair=True, pulse_pair=True)
+    tight = dataclasses.replace(CFG, max_occluders=1, max_bumps=1, **knobs)
+    stats = run_snowfall_datagen(list(frames), frames.__getitem__,
+                                 tmp_path / "k", bank, calib, tight, batch=2,
+                                 seed=7, device="cpu")
+    run_snowfall_datagen(list(frames), frames.__getitem__, tmp_path / "d",
+                         bank, calib, CFG, batch=2, seed=7, device="cpu")
+    assert stats.capacity_growths > 0 and len(seen) > 2
+    assert all(all(getattr(c, k) for k in knobs) for c in seen[:-1])
+    assert seen[-2].max_occluders > 1
+    for sid in frames:
+        np.testing.assert_array_equal(
+            load_velodyne_bin(tmp_path / "k" / f"{sid}.bin"),
+            load_velodyne_bin(tmp_path / "d" / f"{sid}.bin"),
+        )
