@@ -52,25 +52,31 @@ Phases, each printing one line of numbers:
      default, launches counted around one batch (A1 once with batch_fold,
      A4a / A4b / C2 16 times with their knobs), scans/s over 3 batches;
      then run_snowfall_datagen on 16 synthetic scans with batch_fold,
-     the same files as the default config.
-The line before the last is the kernels' JSON record (each kernel's
-launches on its path, max_abs_err, ms and plain_ms, and bound_ms, the
-least time for the same work from this run's inputs: bytes over the card's
-memory rate or float32 operations over its peak, whichever is larger), the
-last line {"ok": true, "device": {...}}. Any failure exits non-zero before
-it; so does a machine without a CUDA device, or a directory without the
-port.
+     the same files as the default config;
+  8. each kernel's device times (below), taken after every end-to-end
+     phase, one line each.
+The line before the last is the kernels' JSON record: each kernel's
+launches on its path, max_abs_err, ms (CUDA events around one wrapper call,
+host enqueue included) and plain_ms, device_ms (the kernel's own duration
+from torch.profiler's CUPTI records, median of 10 launches after warm-up,
+each with a cold L2 cache, with the records kept and the calls made),
+covered_ms (CUDA events around the call's device work, enqueued behind a
+sleep kernel: an independent check of device_ms;
+`tools/kernel_times.kernel_times`), and bound_ms, the least time for the
+same work from this run's inputs (bytes over the card's memory rate or
+float32 operations over its peak, whichever is larger; no kernel's
+device_ms may read below it). The last line is
+{"ok": true, "device": {...}}. Any failure exits non-zero before it; so
+does a machine without a CUDA device, or a directory without the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-import subprocess
 import sys
 import tempfile
 import time
-import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -213,57 +219,102 @@ def phase_a_bound(kernel: str, args, kw, int_planes: int = 1):
     return bound(n_bytes, tests * HIT_TEST_OPS)
 
 
-def pulse_bound(args):
-    """bound() of a phase-C call from this run's inputs: the sweep trips
-    each beam needs (7K + 4 operations a trip: the minimum and the retiring
-    over the 2K + 2 endpoints, the K cover tests) and its waveform over the
-    target and each occluder up to its last active one (WAVE_OPS a bin);
-    the bytes of the inputs read once and the four (cap,) outputs."""
+def _sector_bytes(mask) -> int:
+    """The bytes of the 32-byte sectors of a (rows, cap) float32 array
+    that hold a slot of `mask`: what reading those slots moves."""
     import torch
 
-    from lidar_snow_sim_tpu_torch.ops.pulse import claimed_widths
+    rows, cap = mask.shape
+    m = torch.nn.functional.pad(mask.to(torch.uint8), (0, -cap % 8))
+    return int(m.view(rows, -1, 8).amax(dim=2).sum()) * 32
+
+
+def pulse_bound(args, kw):
+    """bound() of a phase-C call from this run's inputs: the sweep trips
+    each beam needs (7K + 4 operations a trip: the minimum and the retiring
+    over the 2K + 2 endpoints, the K cover tests) and its windowed waveform
+    (ops/pulse.pulse_windows): the bins of each beam's window union, each
+    times the bumps whose windows cover it (WAVE_OPS a term). The bytes
+    are those the windowed function reads, once: feats and valid whole;
+    a1 and a2 of the valid slots, rr of the bumps that claim a share
+    (their amplitudes), cos_b and sin_b of the walked windows, the
+    target's included, each in the 32-byte sectors that hold them; cos_g
+    and sin_g; and the four (cap,) outputs written."""
+    import torch
+
+    from lidar_snow_sim_tpu_torch.ops.pulse import (
+        bump_amplitudes,
+        pulse_windows,
+    )
 
     feats, a1, a2, rr, valid, cos_b, sin_b, cos_g, sin_g = args
     k, cap = a1.shape
-    m = cos_g.shape[0]
-    claimed, _ = claimed_widths(feats, a1, a2, valid)
-    trips = torch.clamp(2 * (valid > 0.5).sum(0) + 3, max=2 * k + 2)
-    rank = torch.arange(1, k + 1, device=a1.device)[:, None]
-    last = torch.where(claimed > 0, rank, 0).amax(0)
-    n_ops = (int(trips.sum()) * (7 * k + 4)
-             + int((1 + last).sum()) * m * WAVE_OPS)
-    n_bytes = sum(a.numel() * 4 for a in args) + 4 * cap * 4
+    vb = valid > 0.5
+    trips = torch.clamp(2 * vb.sum(0) + 3, max=2 * k + 2)
+    rr_all, amp, last, _, _ = bump_amplitudes(
+        feats, a1, a2, rr, valid, beam_rad=kw["beam_rad"],
+        xsi_r1=kw["xsi_r1"], xsi_r2=kw["xsi_r2"])
+    lo, hi = pulse_windows(rr_all, amp, last, ipm=kw["ipm"],
+                           c_tau=kw["c_tau"], m_bins=cos_g.shape[0])
+    terms = int((hi - lo + 1).clamp_min(0).sum())
+    n_ops = int(trips.sum()) * (7 * k + 4) + terms * WAVE_OPS
+    n_bytes = ((feats.numel() + valid.numel() + cos_g.numel()
+                + sin_g.numel()) * 4
+               + 2 * _sector_bytes(vb) + _sector_bytes(last > 0)
+               + 2 * _sector_bytes(lo <= hi) + 4 * cap * 4)
     return bound(n_bytes, n_ops)
 
 
+# Each kernel's device times are taken at the end of the run, after every
+# end-to-end phase: a torch.profiler session leaves the process's later
+# launches slower, which would bias the scans/s the phases report.
+TIMED = []
+
+
+def timed(label: str, fn, kernel: str) -> dict:
+    """Schedule tools/kernel_times.kernel_times(fn, kernel) for the end of
+    the run (time_kernels); returns the dict it will fill."""
+    times = {}
+    TIMED.append((label, fn, kernel, times))
+    return times
+
+
+def time_kernels() -> None:
+    """Run the scheduled kernel_times, one line each."""
+    from lidar_snow_sim_tpu_torch.tools.kernel_times import kernel_times
+
+    for label, fn, kernel, times in TIMED:
+        times.update(kernel_times(fn, kernel))
+        kept, calls = times["profiler_records"]
+        print(f"{label}: device_ms {times['device_ms']:.4f} covered_ms "
+              f"{times['covered_ms']:.4f} profiler_records {kept}/{calls}",
+              flush=True)
+
+
 def record(name, source, replaces, launches, err, ms, plain_ms, bnd,
-           **extra):
-    """One kernel's entry of the kernels line."""
+           times, **extra):
+    """One kernel's entry of the kernels line; `times` is the dict `timed`
+    returned, merged in by merge_times."""
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
-            "bound_by": bnd[1], "library_ms": None, **extra}
+            "bound_by": bnd[1], "library_ms": None, "_times": times,
+            **extra}
 
 
-def bank_sets(cache_dir: Path, rate_mm_h=2.5, velocity=1.6, seed=42):
-    """The bench bank's 64 gunn particle sets, cached as an .npz."""
-    from lidar_snow_sim_tpu_torch import (
-        compute_occupancy,
-        dart_throwing_fast,
-        snowfall_rate_to_rainfall_rate,
-    )
-
-    rr = snowfall_rate_to_rainfall_rate(rate_mm_h, velocity)
-    occ = compute_occupancy(rate_mm_h, velocity)
-    path = cache_dir / f"gunn_{rr:.4f}_{occ:.3e}_{seed}.npz"
-    if path.exists():
-        with np.load(path) as z:
-            return [z[f"c{i}"] for i in range(64)], rr, occ
-    rng = np.random.default_rng(seed)
-    sets = [dart_throwing_fast(occ, rr, 80.0, rng, "gunn") for _ in range(64)]
-    cache_dir.mkdir(parents=True, exist_ok=True)
-    np.savez_compressed(path, **{f"c{i}": s for i, s in enumerate(sets)})
-    return sets, rr, occ
+def merge_times(entries) -> None:
+    """Merge each entry's device times (and its folded ones) into it, once
+    time_kernels has run; fails if a device time reads below its bound
+    (the bound would then miscount the work)."""
+    for e in entries:
+        for prefix in ("", "folded_"):
+            times = e.pop(f"_{prefix}times", None)
+            if times is None:
+                continue
+            if times["device_ms"] < e[f"{prefix}bound_ms"]:
+                fail(f"{e['name']}: {prefix}device_ms {times['device_ms']} "
+                     f"below its bound {e[prefix + 'bound_ms']}")
+            e.update({prefix + key: v for key, v in times.items()})
 
 
 def parity(name: str, got, want, label_col: int, atol: float) -> int:
@@ -328,7 +379,6 @@ def weather_phase(pc, sets, rr, occ, dev) -> dict:
     from lidar_snow_sim_tpu_torch.ops.occluders import find_occluders
     from lidar_snow_sim_tpu_torch.ops.pulse import pulse_peaks
     from lidar_snow_sim_tpu_torch.tools import inspect as tinspect
-
     n_scans = 10
     cap = 65536
     cpu_gen = torch.Generator().manual_seed(0)
@@ -369,10 +419,11 @@ def weather_phase(pc, sets, rr, occ, dev) -> dict:
         fail(f"L1 differs from its plain version at "
              f"{int((got != want).sum())} positions, max {l1_err}")
     l1_ms = time_ms(lambda: lut_lookup_pairs(p, pairs))
+    l1_t = timed("L1", lambda: lut_lookup_pairs(p, pairs), "l1_kernel")
     l1_plain_ms = time_ms(lambda: lut_lookup_plain(p, pairs))
     print(f"L1: positions {tuple(p.shape)} cells {pairs.shape[0]} "
-          f"max_abs_err {l1_err} ms {l1_ms:.4f} plain_ms {l1_plain_ms:.4f} "
-          f"first_call_s {first_s:.3f}", flush=True)
+          f"max_abs_err {l1_err} ms {l1_ms:.4f} plain_ms {l1_plain_ms:.4f} first_call_s {first_s:.3f}",
+          flush=True)
 
     # LISA end to end: the launch counter zeroed just before, read after
     lut_lookup_pairs.launches = 0
@@ -511,7 +562,7 @@ def weather_phase(pc, sets, rr, occ, dev) -> dict:
     return record("L1 knot-pair lookup (LISA's Qback)",
                   "lidar_snow_sim_tpu_torch/csrc/lut_lookup.cu",
                   "lidar_snow_sim_tpu/ops/lut_lookup.py:68", l1_launches,
-                  l1_err, l1_ms, l1_plain_ms, l1_bound)
+                  l1_err, l1_ms, l1_plain_ms, l1_bound, l1_t)
 
 
 def batched_phase(pc, padded, bank, bank_t, calib, calib_t, cfg, lay, a12d,
@@ -551,6 +602,7 @@ def batched_phase(pc, padded, bank, bank_t, calib, calib_t, cfg, lay, a12d,
         frame_draws,
     )
     from lidar_snow_sim_tpu_torch.parallel.datagen import run_snowfall_datagen
+    from lidar_snow_sim_tpu_torch.tools.kernel_times import bench_batch
 
     batch, k = 16, cfg.max_occluders
     kw = lay.occluder_kw
@@ -575,13 +627,16 @@ def batched_phase(pc, padded, bank, bank_t, calib, calib_t, cfg, lay, a12d,
             fail(f"{name} and A1 differ on the in-channel beams")
         dead = ~lay.valid_blk.any(dim=1)
         ms = time_ms(lambda: run(*args_u, **kw))
+        times = timed(name, lambda run=run: run(*args_u, **kw),
+                      name.lower() + "_kernel")
         plain_ms = time_ms(ungated_plain)
         bnd = phase_a_bound(name, args_u, kw)
-        recs[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound=bnd,
-                          tpu=tpu)
+        recs[name] = dict(err=err, ms=ms, times=times, plain_ms=plain_ms,
+                          bound=bnd, tpu=tpu)
         print(f"{name}: chunks {lay.n_chunks} (dead {int(dead.sum())}, "
-              f"computed) max_abs_err {err} ms {ms:.4f} plain_ms "
-              f"{plain_ms:.4f} bound_ms {bnd[0]:.4f} ({bnd[1]}) "
+              f"computed) max_abs_err {err} ms {ms:.4f} (A1 {a1_ms:.4f}) "
+              f"plain_ms {plain_ms:.4f} "
+              f"bound_ms {bnd[0]:.4f} ({bnd[1]}) "
               f"equal_to_A1_on_valid_beams True", flush=True)
 
     # C2 against its plain version (C1's) and C1, at pulse_block 512
@@ -600,20 +655,18 @@ def batched_phase(pc, padded, bank, bank_t, calib, calib_t, cfg, lay, a12d,
     c2_ms = time_ms(lambda: pulse_peaks_pair(*comp.pulse_args, blk=pblk,
                                              **comp.pulse_kw))
     c1_ms = time_ms(lambda: pulse_peaks(*comp.pulse_args, **comp.pulse_kw))
+    c2_t = timed("C2", lambda: pulse_peaks_pair(
+        *comp.pulse_args, blk=pblk, **comp.pulse_kw), "c2_kernel")
     c2_plain_ms = time_ms(lambda: pulse_plain(*comp.pulse_args,
                                               **comp.pulse_kw))
-    c2_bound = pulse_bound(comp.pulse_args)
+    c2_bound = pulse_bound(comp.pulse_args, comp.pulse_kw)
     print(f"C2: cap {comp.cap} blocks {comp.cap // pblk} max_abs_err "
           f"{c2_err} ms {c2_ms:.4f} c1_ms {c1_ms:.4f} plain_ms "
           f"{c2_plain_ms:.4f} bound_ms {c2_bound[0]:.4f} ({c2_bound[1]})",
           flush=True)
 
     # the batch: the bench scan 16 times, orders and seeds as datagen draws
-    orders, seeds = [], []
-    for j in range(batch):
-        r = np.random.default_rng([0, zlib.crc32(f"bench_{j:02d}".encode())])
-        orders.append(r.permutation(64))
-        seeds.append(int(r.integers(2**31)))
+    orders, seeds = bench_batch(batch)
     points = torch.as_tensor(padded.points, device=dev).expand(
         batch, -1, -1).contiguous()
     mask = torch.as_tensor(padded.mask, device=dev).expand(
@@ -637,6 +690,8 @@ def batched_phase(pc, padded, bank, bank_t, calib, calib_t, cfg, lay, a12d,
         fold_err = max(fold_err, max_err(fa, fo, sa, so, k, f"folded A1 "
                                                          f"frame {j}"))
     fold_ms = time_ms(lambda: find_occluders_folded(fold_args, **kw))
+    fold_t = timed("A1 folded (covered_ms with the fold's concatenations)",
+                   lambda: find_occluders_folded(fold_args, **kw), "a1_kernel")
     singles_ms = time_ms(lambda: [find_occluders(*a, **kw)
                                   for a in fold_args])
     fold_plain_ms = time_ms(lambda: [occluders_plain(*a, **kw)
@@ -644,8 +699,7 @@ def batched_phase(pc, padded, bank, bank_t, calib, calib_t, cfg, lay, a12d,
     cat = [torch.cat([a[i] for a in fold_args]) for i in range(5)]
     fold_bound = phase_a_bound("A1", (*cat, counts, data_t, wide_t), kw)
     print(f"A1 folded: frames {batch} chunks {batch * lay.n_chunks} "
-          f"max_abs_err {fold_err} ms {fold_ms:.4f} "
-          f"16_single_launches_ms {singles_ms:.4f} plain_ms "
+          f"max_abs_err {fold_err} ms {fold_ms:.4f} 16_single_launches_ms {singles_ms:.4f} plain_ms "
           f"{fold_plain_ms:.4f} bound_ms {fold_bound[0]:.4f} "
           f"({fold_bound[1]})", flush=True)
 
@@ -742,7 +796,7 @@ def batched_phase(pc, padded, bank, bank_t, calib, calib_t, cfg, lay, a12d,
             src, f"lidar_snow_sim_tpu/ops/pallas_occluders.py:{r['tpu']}",
             launches[{"A4a": "pallas_transposed",
                       "A4b": "pallas_pair"}[name]][name],
-            r["err"], r["ms"], r["plain_ms"], r["bound"],
+            r["err"], r["ms"], r["plain_ms"], r["bound"], r["times"],
             a1_ms_same_call=a1_ms,
         )
         for name, r in recs.items()
@@ -752,11 +806,12 @@ def batched_phase(pc, padded, bank, bank_t, calib, calib_t, cfg, lay, a12d,
         "lidar_snow_sim_tpu_torch/csrc/pulse.cu",
         "lidar_snow_sim_tpu/ops/pallas_pulse.py:244",
         launches["pulse_pair"]["C2"], c2_err, c2_ms, c2_plain_ms, c2_bound,
-        c1_ms_same_call=c1_ms,
+        c2_t, c1_ms_same_call=c1_ms,
     )
     out["A1_folded"] = dict(
         folded_launches=launches["batch_fold"]["A1"], folded_frames=batch,
         folded_max_abs_err=fold_err, folded_ms=fold_ms,
+        _folded_times=fold_t,
         folded_16_single_ms=singles_ms, folded_plain_ms=fold_plain_ms,
         folded_bound_ms=fold_bound[0], folded_bound_by=fold_bound[1],
     )
@@ -776,6 +831,11 @@ def main() -> int:
         synthetic_scan,
     )
     from lidar_snow_sim_tpu_torch import _kernels
+    from lidar_snow_sim_tpu_torch.tools.kernel_times import (
+        bank_sets,
+        bench_config,
+        card_line,
+    )
     from lidar_snow_sim_tpu_torch.models.snowfall import (
         OVERFLOW_COUNTERS,
         SnowfallAugmenter,
@@ -797,13 +857,7 @@ def main() -> int:
     from lidar_snow_sim_tpu_torch.ops.pulse import pulse_peaks, pulse_plain
 
     # --- 1. environment ---
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    card = smi.stdout.strip().splitlines()[0]
-    print(card, flush=True)
+    print(card_line(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -824,11 +878,7 @@ def main() -> int:
     calib = load_hdl64_calib()
     pc = synthetic_scan(n_azimuth=870, seed=0, calib=calib)
     sets, rr, occ = bank_sets(_kernels.BUILD_DIR / "banks")
-    cfg = SnowfallConfig(
-        max_points=65536, window_size=128, wide_capacity=16,
-        max_occluders=24, max_bumps=16, assembly="dense",
-        channel_capacity=1024, block_points=128, slice_width=1152,
-    )
+    cfg = bench_config()
     bank = build_bank(sets, window_size=cfg.window_size,
                       wide_threshold=cfg.wide_threshold,
                       wide_capacity=cfg.wide_capacity)
@@ -859,12 +909,15 @@ def main() -> int:
     a1_err = max_err(a12d, ovf, a12d_p, ovf_p, k, "A1")
     a1_ms = time_ms(lambda: find_occluders(*lay.occluder_args,
                                            **lay.occluder_kw))
+    a1_t = timed("A1", lambda: find_occluders(*lay.occluder_args,
+                                              **lay.occluder_kw), "a1_kernel")
     a1_plain_ms = time_ms(lambda: occluders_plain(*lay.occluder_args,
                                                   **lay.occluder_kw))
     print(f"A1: chunks {lay.n_chunks} blk {lay.blk} "
           f"slice {lay.occluder_kw['w_sl']} K {k} hits {int(live.sum())} "
-          f"max_abs_err {a1_err} ms {a1_ms:.4f} plain_ms {a1_plain_ms:.4f} "
-          f"first_call_incl_build_s {build_s:.1f}", flush=True)
+          f"max_abs_err {a1_err} ms {a1_ms:.4f} "
+          f"plain_ms {a1_plain_ms:.4f} first_call_incl_build_s {build_s:.1f}",
+          flush=True)
     comp = compact_occluded(lay, a12d, ovf, calib_t, cfg)
     out_k = pulse_peaks(*comp.pulse_args, **comp.pulse_kw)
     out_p = pulse_plain(*comp.pulse_args, **comp.pulse_kw)
@@ -875,11 +928,14 @@ def main() -> int:
     c1_err = max(float((out_k[0] - out_p[0]).abs().max()),
                  float((out_k[3] - out_p[3]).abs().max()))
     c1_ms = time_ms(lambda: pulse_peaks(*comp.pulse_args, **comp.pulse_kw))
+    c1_t = timed("C1", lambda: pulse_peaks(*comp.pulse_args,
+                                           **comp.pulse_kw), "c1_kernel")
     c1_plain_ms = time_ms(lambda: pulse_plain(*comp.pulse_args,
                                               **comp.pulse_kw))
     print(f"C1: cap {comp.cap} occluded {int(comp.c_ok.sum())} "
           f"touched {int(out_k[2].sum())} max_abs_err {c1_err} "
-          f"ms {c1_ms:.4f} plain_ms {c1_plain_ms:.4f}", flush=True)
+          f"ms {c1_ms:.4f} plain_ms "
+          f"{c1_plain_ms:.4f}", flush=True)
 
     # A2 at the JAX bench's config, against its plain version and A1
     cfg_r = dataclasses.replace(cfg, route_band=384, band_group=16)
@@ -897,11 +953,14 @@ def main() -> int:
         fail("A2 and A1 differ on the in-channel beams")
     modes = torch.bincount(args_r[5].long(), minlength=3).tolist()
     a2_ms = time_ms(lambda: find_occluders_routed(*args_r, **kw_r))
+    a2_t = timed("A2", lambda: find_occluders_routed(*args_r, **kw_r),
+                 "a2_kernel")
     a2_plain_ms = time_ms(lambda: occluders_routed_plain(*args_r, **kw_r))
     print(f"A2: route_band {kw_r['band']} band_group {kw_r['group']} "
           f"wide_sl {kw_r['wide_sl']} modes_0_1_2 {modes} "
           f"window_overflow {int(lay_r.window_overflow)} max_abs_err "
-          f"{a2_err} ms {a2_ms:.4f} plain_ms {a2_plain_ms:.4f} "
+          f"{a2_err} ms {a2_ms:.4f} plain_ms "
+          f"{a2_plain_ms:.4f} "
           f"a1_ms {a1_ms:.4f} equal_to_A1_on_valid_beams True", flush=True)
 
     # A3 (band_width 256), against its plain version
@@ -917,10 +976,13 @@ def main() -> int:
         fail(f"A3 coverage differs at {(unc_b != unc_bp).sum().item()} beams")
     uncovered = int(torch.where(lay_b.cover_mask, unc_b, 0).sum())
     a3_ms = time_ms(lambda: find_occluders_banded(*args_b, **kw_b))
+    a3_t = timed("A3", lambda: find_occluders_banded(*args_b, **kw_b),
+                 "a3_kernel")
     a3_plain_ms = time_ms(lambda: occluders_banded_plain(*args_b, **kw_b))
     print(f"A3: band_width {kw_b['band']} band_group {kw_b['group']} "
           f"unc_beams {int(unc_b.sum())} counted {uncovered} max_abs_err "
-          f"{a3_err} ms {a3_ms:.4f} plain_ms {a3_plain_ms:.4f} "
+          f"{a3_err} ms {a3_ms:.4f} plain_ms "
+          f"{a3_plain_ms:.4f} "
           f"a1_ms {a1_ms:.4f}", flush=True)
     for name in ("occluders", "pulse"):   # nvcc -Xptxas -v, if built here
         log = _kernels.BUILD_DIR / f"{name}.log"
@@ -1138,22 +1200,27 @@ def main() -> int:
         record("A1 nearest-K occluders (phase A)", occ_src, f"{tpu_occ}:150",
                launches["A1"], a1_err, a1_ms, a1_plain_ms,
                phase_a_bound("A1", lay.occluder_args, lay.occluder_kw),
-               **batched["A1_folded"]),
+               a1_t, **batched["A1_folded"]),
         record("C1 sweep and pulse peak (phase C)",
                "lidar_snow_sim_tpu_torch/csrc/pulse.cu",
                "lidar_snow_sim_tpu/ops/pallas_pulse.py:173", launches["C1"],
-               c1_err, c1_ms, c1_plain_ms, pulse_bound(comp.pulse_args)),
+               c1_err, c1_ms, c1_plain_ms,
+               pulse_bound(comp.pulse_args, comp.pulse_kw), c1_t),
         record("A2 span-routed occluders (phase A, route_band)", occ_src,
                f"{tpu_occ}:584", launches_r["A2"], a2_err, a2_ms,
-               a2_plain_ms, phase_a_bound("A2", args_r, kw_r)),
+               a2_plain_ms, phase_a_bound("A2", args_r, kw_r), a2_t),
         record("A3 dual-banded occluders (phase A, band_width)", occ_src,
                f"{tpu_occ}:423", launches_b["A3"], a3_err, a3_ms,
-               a3_plain_ms, phase_a_bound("A3", args_b, kw_b, int_planes=2)),
+               a3_plain_ms, phase_a_bound("A3", args_b, kw_b, int_planes=2),
+               a3_t),
         batched["A4a"],
         batched["A4b"],
         batched["C2"],
         l1,
     ]
+    # --- 8. each kernel's device times, after every end-to-end phase ---
+    time_kernels()
+    merge_times(kernels)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -17,39 +17,64 @@
 // candidate list as the TPU kernel concatenates it: ascending range, ties to
 // the lowest candidate column.
 //
-// Design. One CTA per chunk, one thread per beam. After the wrap-pad dedup
-// every candidate list is a run of ascending bank columns, at most two
-// intervals of it (A3: band A, then band B's columns past band A), then the
-// wide columns. So the CTA stages the bank columns that any of its threads
-// needs (A1: the slice; A2/A3: the union of the chunk's bands, all inside
-// its slice) through one shared-memory tile of kTile columns, in ascending
+// What bounds them on this card: instructions issued, not bytes. The hit
+// test is ~20 flops per (beam, column) pair; at the bench shapes (576
+// chunks x 128 beams) A1 tests 1408 columns per beam (~83 M tests on the
+// live chunks), A2's fast chunks 384 + 32 and A3 at most 2 x band + 32,
+// while each staged column is 24 bytes read once per chunk (~19.5 MB, most
+// of it from L2). So the count of instructions per test, and how many
+// warps each SM has in flight to hide their latency, set the time.
+//
+// A1 (redesigned for the H100). The first port gave one thread a beam and
+// one CTA of 4 warps a chunk: a single wave of 576 CTAs, ~20% of them dead,
+// ~3.5 warps per scheduler, and per test six scalar shared loads, the wrap
+// shifts of the centre test recomputed, the loop bounds re-derived and a
+// branch into the insertion. Now:
+//   - a beam's list is split over kLanesA1 lanes (lane s tests candidates
+//     s, s + kLanesA1, ...), each lane keeps its own top-K, and the lanes
+//     merge as A4a's do (merge_write), which is exact for "value, then
+//     lowest index"; a CTA holds kBeamsA1 beams, so a chunk is blk / 64
+//     CTAs and the grid is many more, smaller items (balance across the
+//     132 SMs, ~6 CTAs of 8 warps resident on each);
+//   - the CTA stages its list as structures, {x, y, r, dist} in one float4
+//     plus the angle: one LDS.128 and one LDS.32 a test; the half-width
+//     only for a kept hit;
+//   - the beam's centre-test bounds are worked out once (Beam), the loop is
+//     unrolled with a branch-free test (& and |, the hit count in a
+//     register), and the insertion is a rare path behind one compare
+//     against the K-th kept range.
+// The no-hit path of a test fell from 46 SASS instructions to 32.75
+// (tools/sass_loops.py), and the device time at the bench shapes to 0.44x
+// the first port's on an H100 at 700 W (tools/kernel_times.py).
+// A slice longer than kTileA1 columns (a grown slice, up to the bank row)
+// streams through the tile in column order, which keeps the tie order.
+//
+// A2, A3 and A4b: one CTA per chunk, one thread per beam. After the
+// wrap-pad dedup every candidate list is a run of ascending bank columns,
+// at most two intervals of it (A3: band A, then band B's columns past band
+// A), then the wide columns. So the CTA stages the bank columns that any of
+// its threads needs (A2/A3: the union of the chunk's bands, all inside its
+// slice) through one shared-memory tile of kTile columns, in ascending
 // order, each column loaded once; a thread tests only the columns of its
 // own intervals, which keeps the list order. Candidate property rows are
 // x, y, r, dist, azimuth in [0, 2pi) and half-width. Each thread keeps a
 // sorted top-K list in local memory; a hit is inserted only when its range
 // is strictly below the current K-th, which reproduces "value, then lowest
 // index". Hits are rare (a few per beam), so the insertion cost is small.
-// The hit test and the insertion are one function (TopK::consider) that
-// all three kernels share, so their arithmetic is identical.
+// Every kernel here calls one hit test (hit_test) and one interval
+// function, so their arithmetic is identical.
 //
 // A4a. The TPU kernel puts candidates on sublanes and beams on lanes, so
 // each extraction trip is a reduction along the candidate axis. Here a warp
-// takes one beam and splits its candidate list over the lanes (A1 gives a
-// thread a beam and loops over all of the list): lane l tests candidates l,
-// l + 32, ... and keeps its own top-K, then K trips take the warp minimum of
-// (range, candidate index). The list is staged once per CTA when it fits
+// takes one beam and splits its candidate list over the lanes: lane l tests
+// candidates l, l + 32, ... and keeps its own top-K, then K trips take the
+// warp minimum of (range, candidate index). The list is staged once per CTA when it fits
 // the tile (kTileT candidates), else once per round of kWarpsT beams.
 //
 // A4b. The TPU kernel interleaves two chunks' extraction loops for
 // instruction-level parallelism. Here one CTA stages both chunks' lists in
 // two tiles and each thread carries one beam of each chunk through the same
 // column loop: two independent hit-test and insertion chains.
-//
-// What bounds them on this card: the hit test, ~20 flops per (beam, column)
-// pair. At the bench shapes (576 chunks x 128 beams) A1 tests 1408 columns
-// per beam, A2's fast chunks 384 + 32 and A3 at most 2 x band + 32; each
-// staged column is 24 bytes, read once per chunk. It is compute- and
-// latency-bound, not bandwidth-bound.
 //
 // Exactness. Compiled with -fmad=false: the hit test (|px sin - py cos| < r,
 // the half-plane sign) is a decision boundary, and the plain torch version
@@ -73,29 +98,46 @@ constexpr int kTile = 1024;
 
 typedef float Tile[6][kTile];
 
+// A beam's point features, with the centre test's bounds worked out once.
+// The plain version tests the centre angle against [right, left] and, for a
+// wrapped beam, against [right - 2pi, left] and [right, left + 2pi]. The
+// first interval lies inside the third whenever the beam is wrapped, so the
+// test is two intervals: [right, left] and an empty one (lo_b = +inf) for a
+// beam that is not wrapped, the two shifted ones for a wrapped beam. The
+// shifted bounds are the same single float operations, so the booleans are
+// the plain version's.
 struct Beam {
   float d_orig, right, left, sin_r, cos_r, sin_l, cos_l;
-  bool wrapped;
+  float lo_a, hi_a, lo_b, hi_b;
   __device__ explicit Beam(const float* f)
       : d_orig(f[0]), right(f[1]), left(f[2]), sin_r(f[3]), cos_r(f[4]),
-        sin_l(f[5]), cos_l(f[6]), wrapped(f[7] > 0.5f) {}
+        sin_l(f[5]), cos_l(f[6]) {
+    const bool wrapped = f[7] > 0.5f;
+    lo_a = wrapped ? right - kTwoPi : right;
+    hi_a = left;
+    lo_b = wrapped ? right : INFINITY;
+    hi_b = wrapped ? left + kTwoPi : -INFINITY;
+    // keep the bounds in registers: left to itself, the compiler redoes
+    // the wrap select and shift in every test
+    asm("" : "+f"(lo_a), "+f"(lo_b), "+f"(hi_b));
+  }
 };
 
 // The exact hit test of candidate (px, py, pr, pdist, pang) against beam b;
-// on a hit, also whether it is a right or left edge hit.
+// on a hit, also whether it is a right or left edge hit. Every kernel of
+// this file calls it, so their arithmetic is identical.
 __device__ __forceinline__ bool hit_test(const Beam& b, float px, float py,
                                          float pr, float pdist, float pang,
                                          bool& right_hit, bool& left_hit) {
-  bool center_in = (b.right <= pang) && (pang <= b.left);
-  center_in = center_in ||
-              (b.wrapped && (b.right - kTwoPi <= pang) && (pang <= b.left));
-  center_in = center_in ||
-              (b.wrapped && (b.right <= pang) && (pang <= b.left + kTwoPi));
+  // & and | rather than && and ||: every compare is cheap and has no side
+  // effect, so a branch-free predicate beats the short-circuit branches
+  const bool center_in = ((b.lo_a <= pang) & (pang <= b.hi_a)) |
+                         ((b.lo_b <= pang) & (pang <= b.hi_b));
   const float dist_r = fabsf(px * b.sin_r - py * b.cos_r);
   const float dist_l = fabsf(px * b.sin_l - py * b.cos_l);
-  right_hit = (dist_r < pr) && (b.cos_r * px + b.sin_r * py > 0.f);
-  left_hit = (dist_l < pr) && (b.cos_l * px + b.sin_l * py > 0.f);
-  return (center_in || right_hit || left_hit) && (pdist < b.d_orig);
+  right_hit = (dist_r < pr) & (b.cos_r * px + b.sin_r * py > 0.f);
+  left_hit = (dist_l < pr) & (b.cos_l * px + b.sin_l * py > 0.f);
+  return (center_in | right_hit | left_hit) & (pdist < b.d_orig);
 }
 
 // The occluded interval [v1, v2] of a hit.
@@ -197,8 +239,9 @@ __device__ void start_range(const int* starts, int n, int& lo, int& hi) {
   }
 }
 
-// A1's body: the slice [lo, lo + w_sl) of the row up to one wrap period
-// (cnt columns) and the row's end, then its wc wide columns.
+// A2's mode 1, A1's function with one thread a beam: the slice
+// [lo, lo + w_sl) of the row up to one wrap period (cnt columns) and the
+// row's end, then its wc wide columns.
 template <int KMAX>
 __device__ void full_slice(Tile& tile, const Beam& b, const float* bank,
                            const float* wide, int lo, int w_sl, int k_ext,
@@ -207,31 +250,6 @@ __device__ void full_slice(Tile& tile, const Beam& b, const float* bank,
   scan_range(tile, bank, k_ext, lo, hi, lo, min(hi, lo + cnt), 0, 0, b, top,
              k_occ);
   scan_range(tile, wide, wc, 0, wc, 0, wc, 0, 0, b, top, k_occ);
-}
-
-template <int KMAX>
-__global__ void a1_kernel(
-    const float* __restrict__ feats, const int* __restrict__ w0b,
-    const int* __restrict__ rows, const int* __restrict__ los,
-    const int* __restrict__ has, const int* __restrict__ counts,
-    const float* __restrict__ data_t, const float* __restrict__ wide_t,
-    float* __restrict__ a12d, int* __restrict__ ovf,
-    int n_chunks, int blk, int w_sl, int k_ext, int wc, int k_occ) {
-  __shared__ Tile tile;
-  const int chunk = blockIdx.x;
-  const size_t n2 = (size_t)n_chunks * blk;
-  const size_t col_out = (size_t)chunk * blk + threadIdx.x;
-  if (has[chunk] == 0) {   // dead window: sentinels only (uniform per CTA)
-    write_empty(a12d, ovf, n2, col_out, k_occ);
-    return;
-  }
-  const int row = rows[chunk];
-  const Beam b(feats + ((size_t)w0b[chunk] * blk + threadIdx.x) * kFeat);
-  TopK<KMAX> top;
-  full_slice(tile, b, data_t + (size_t)row * kProp * k_ext,
-             wide_t + (size_t)row * kProp * wc, los[chunk], w_sl, k_ext,
-             counts[row], wc, top, k_occ);
-  top.write(a12d, ovf, n2, col_out, k_occ);
 }
 
 template <int KMAX>
@@ -328,10 +346,7 @@ __global__ void a3_kernel(
 }
 
 
-// ---- A4a: each beam's candidate columns split across the lanes of a warp
-
-constexpr int kTileT = 4096;   // A4a's staged candidates (dynamic, <= 96 KB)
-constexpr int kWarpsT = 8;     // warps per A4a CTA
+// ---- Lists split across lanes (A1, A4a): per-lane top-K, then a merge
 
 // One lane's sorted list of its K nearest hits (ascending range; a tie keeps
 // the lower candidate index, which is also the lane's earlier test).
@@ -340,19 +355,15 @@ struct LaneTopK {
   float d[KMAX], a1[KMAX], a2[KMAX];
   int col[KMAX];
   int n_kept = 0, n_hit = 0, head = 0;
+  float kth = INFINITY;   // d[k_occ - 1] once the list is full
 
-  // candidate c of the list, staged at column j of `tile` (6 rows, stride ld)
-  __device__ __forceinline__ void consider(const Beam& b, const float* tile,
-                                           int ld, int j, int c, int k_occ) {
-    const float pdist = tile[3 * ld + j], pang = tile[4 * ld + j];
-    bool right_hit, left_hit;
-    if (!hit_test(b, tile[j], tile[ld + j], tile[2 * ld + j], pdist, pang,
-                  right_hit, left_hit))
-      return;
-    ++n_hit;
-    if (n_kept == k_occ && !(pdist < d[k_occ - 1])) return;
-    float v1, v2;
-    interval(b, pang, tile[5 * ld + j], right_hit, left_hit, v1, v2);
+  // Whether a hit at range pdist enters the list (the K-th kept is nearer
+  // or equal, and earlier, otherwise).
+  __device__ __forceinline__ bool takes(float pdist, int k_occ) const {
+    return n_kept < k_occ || pdist < kth;
+  }
+
+  __device__ void insert(float pdist, float v1, float v2, int c, int k_occ) {
     int pos = n_kept < k_occ ? n_kept : k_occ - 1;
     while (pos > 0 && d[pos - 1] > pdist) {
       d[pos] = d[pos - 1];
@@ -366,8 +377,154 @@ struct LaneTopK {
     a2[pos] = v2;
     col[pos] = c;
     if (n_kept < k_occ) ++n_kept;
+    if (n_kept == k_occ) kth = d[k_occ - 1];
+  }
+
+  // candidate c of the list, staged at column j of `tile` (6 rows, stride ld)
+  __device__ __forceinline__ void consider(const Beam& b, const float* tile,
+                                           int ld, int j, int c, int k_occ) {
+    const float pdist = tile[3 * ld + j], pang = tile[4 * ld + j];
+    bool right_hit, left_hit;
+    if (!hit_test(b, tile[j], tile[ld + j], tile[2 * ld + j], pdist, pang,
+                  right_hit, left_hit))
+      return;
+    ++n_hit;
+    if (!takes(pdist, k_occ)) return;
+    float v1, v2;
+    interval(b, pang, tile[5 * ld + j], right_hit, left_hit, v1, v2);
+    insert(pdist, v1, v2, c, k_occ);
   }
 };
+
+// Merge the lists of each group of G lanes (one beam; G a power of two up to
+// 32, groups aligned in the warp) and write the beam's K slots and overflow.
+// min(K, hits) trips each take the group minimum of (range, candidate
+// index), lax.top_k's "value, then lowest index", and the winning lane pops
+// its head. Every lane of the warp must call it; lanes of an inactive beam
+// hold empty lists and write nothing.
+template <int G, int KMAX>
+__device__ void merge_write(LaneTopK<KMAX>& top, float* a12d, int* ovf,
+                            size_t n2, size_t col_out, int k_occ, int sub,
+                            bool active) {
+  int total = top.n_hit;
+  for (int o = G / 2; o > 0; o >>= 1)
+    total += __shfl_xor_sync(0xffffffffu, total, o);
+  const int trips = min(k_occ, total);
+  int trips_w = trips;   // the warp's largest: shuffles need every lane
+  for (int o = 16; o >= G; o >>= 1)
+    trips_w = max(trips_w, __shfl_xor_sync(0xffffffffu, trips_w, o));
+  for (int k = 0; k < trips_w; ++k) {
+    const bool has = top.head < top.n_kept;
+    float bd = has ? top.d[top.head] : kBig;
+    int bc = has ? top.col[top.head] : 0x7fffffff;
+    for (int o = G / 2; o > 0; o >>= 1) {
+      const float od = __shfl_xor_sync(0xffffffffu, bd, o);
+      const int oc = __shfl_xor_sync(0xffffffffu, bc, o);
+      if (od < bd || (od == bd && oc < bc)) { bd = od; bc = oc; }
+    }
+    if (has && top.col[top.head] == bc) {   // the winner: one lane
+      a12d[(size_t)k * n2 + col_out] = top.a1[top.head];
+      a12d[(size_t)(k_occ + k) * n2 + col_out] = top.a2[top.head];
+      a12d[(size_t)(2 * k_occ + k) * n2 + col_out] = bd;
+      ++top.head;
+    }
+  }
+  if (!active) return;
+  for (int k = trips + sub; k < k_occ; k += G) {
+    a12d[(size_t)k * n2 + col_out] = 0.f;
+    a12d[(size_t)(k_occ + k) * n2 + col_out] = 0.f;
+    a12d[(size_t)(2 * k_occ + k) * n2 + col_out] = kBig;
+  }
+  if (sub == 0) ovf[col_out] = total > k_occ ? total - k_occ : 0;
+}
+
+// ---- A1: each beam's list split over kLanesA1 lanes, columns as structures
+
+constexpr int kLanesA1 = 4;     // lanes per beam
+constexpr int kBeamsA1 = 64;    // beams per CTA (a chunk spans blk / 64 CTAs)
+constexpr int kTileA1 = 2048;   // staged columns per pass (24 B each, 48 KB)
+
+// A1's function: every beam of a chunk against the slice [lo, lo + n_s)
+// (n_s: the slice up to one wrap period and the row's end), then the wc
+// wide columns. The CTA stages the list in column order as {x, y, r, dist}
+// (one 16-byte load a test), the angle and the half-width (read only for a
+// kept hit); lane s of a beam tests candidates s, s + kLanesA1, ... with a
+// branch-free hit test and a rare insertion, then merge_write joins the
+// lanes' lists. Dead chunks (has == 0) write sentinels only.
+template <int KMAX>
+__global__ void __launch_bounds__(kLanesA1 * kBeamsA1) a1_kernel(
+    const float* __restrict__ feats, const int* __restrict__ w0b,
+    const int* __restrict__ rows, const int* __restrict__ los,
+    const int* __restrict__ has, const int* __restrict__ counts,
+    const float* __restrict__ data_t, const float* __restrict__ wide_t,
+    float* __restrict__ a12d, int* __restrict__ ovf,
+    int n_chunks, int blk, int w_sl, int k_ext, int wc, int k_occ, int cap) {
+  extern __shared__ float4 xyrd[];   // cap columns, then ang, then halfw
+  float* ang = reinterpret_cast<float*>(xyrd + cap);
+  float* halfw = ang + cap;
+  const int chunk = blockIdx.x;
+  const int sub = threadIdx.x % kLanesA1;
+  const int beam = blockIdx.y * kBeamsA1 + threadIdx.x / kLanesA1;
+  const bool active = beam < blk;
+  const size_t n2 = (size_t)n_chunks * blk;
+  const size_t col_out = (size_t)chunk * blk + beam;
+  if (has[chunk] == 0) {   // dead window: sentinels only (uniform per CTA)
+    if (active) {
+      for (int k = sub; k < k_occ; k += kLanesA1) {
+        a12d[(size_t)k * n2 + col_out] = 0.f;
+        a12d[(size_t)(k_occ + k) * n2 + col_out] = 0.f;
+        a12d[(size_t)(2 * k_occ + k) * n2 + col_out] = kBig;
+      }
+      if (sub == 0) ovf[col_out] = 0;
+    }
+    return;
+  }
+  const int row = rows[chunk];
+  const int lo = los[chunk];
+  const int n_s = max(min(min(lo + w_sl, k_ext), lo + counts[row]) - lo, 0);
+  const int n_tot = n_s + wc;
+  const float* bank = data_t + (size_t)row * kProp * k_ext + lo;
+  const float* wide = wide_t + (size_t)row * kProp * wc;
+  const Beam b(feats + ((size_t)w0b[chunk] * blk + min(beam, blk - 1)) *
+                           kFeat);
+  LaneTopK<KMAX> top;
+  int n_hit = 0;   // a register; top's counters live with its lists
+  for (int c0 = 0; c0 < n_tot; c0 += cap) {
+    const int n_t = min(cap, n_tot - c0);
+    if (c0 > 0) __syncthreads();   // the last pass's tests are done
+    for (int j = threadIdx.x; j < n_t; j += blockDim.x) {
+      const int c = c0 + j;
+      const float* src = c < n_s ? bank + c : wide + (c - n_s);
+      const size_t ld = c < n_s ? k_ext : wc;
+      xyrd[j] = make_float4(src[0], src[ld], src[2 * ld], src[3 * ld]);
+      ang[j] = src[4 * ld];
+      halfw[j] = src[5 * ld];
+    }
+    __syncthreads();
+    if (!active) continue;
+#pragma unroll 4
+    for (int j = sub; j < n_t; j += kLanesA1) {
+      const float4 q = xyrd[j];
+      const float pang = ang[j];
+      bool right_hit, left_hit;
+      const bool hit =
+          hit_test(b, q.x, q.y, q.z, q.w, pang, right_hit, left_hit);
+      n_hit += hit ? 1 : 0;
+      if (hit && top.takes(q.w, k_occ)) {   // rare: a kept hit
+        float v1, v2;
+        interval(b, pang, halfw[j], right_hit, left_hit, v1, v2);
+        top.insert(q.w, v1, v2, c0 + j, k_occ);
+      }
+    }
+  }
+  top.n_hit = n_hit;
+  merge_write<kLanesA1>(top, a12d, ovf, n2, col_out, k_occ, sub, active);
+}
+
+// ---- A4a: each beam's candidate columns split across the lanes of a warp
+
+constexpr int kTileT = 4096;   // A4a's staged candidates (dynamic, <= 96 KB)
+constexpr int kWarpsT = 8;     // warps per A4a CTA
 
 // A1's function with the candidate list across the lanes. The list is the
 // slice [lo, lo + n_s) (n_s: the slice up to one wrap period and the row's
@@ -419,34 +576,9 @@ __global__ void a4a_kernel(
         for (int j = lane; j < n_t; j += 32)
           top.consider(b, tile, cap, j, c0 + j, k_occ);
     }
-    if (!active) continue;
-    int total = top.n_hit;
-    for (int o = 16; o > 0; o >>= 1)
-      total += __shfl_xor_sync(0xffffffffu, total, o);
-    const int trips = min(k_occ, total);
-    const size_t col_out = (size_t)chunk * blk + beam;
-    for (int k = 0; k < trips; ++k) {
-      const bool has = top.head < top.n_kept;
-      float bd = has ? top.d[top.head] : kBig;
-      int bc = has ? top.col[top.head] : 0x7fffffff;
-      for (int o = 16; o > 0; o >>= 1) {
-        const float od = __shfl_xor_sync(0xffffffffu, bd, o);
-        const int oc = __shfl_xor_sync(0xffffffffu, bc, o);
-        if (od < bd || (od == bd && oc < bc)) { bd = od; bc = oc; }
-      }
-      if (has && top.col[top.head] == bc) {   // the winner: one lane
-        a12d[(size_t)k * n2 + col_out] = top.a1[top.head];
-        a12d[(size_t)(k_occ + k) * n2 + col_out] = top.a2[top.head];
-        a12d[(size_t)(2 * k_occ + k) * n2 + col_out] = bd;
-        ++top.head;
-      }
-    }
-    for (int k = trips + lane; k < k_occ; k += 32) {
-      a12d[(size_t)k * n2 + col_out] = 0.f;
-      a12d[(size_t)(k_occ + k) * n2 + col_out] = 0.f;
-      a12d[(size_t)(2 * k_occ + k) * n2 + col_out] = kBig;
-    }
-    if (lane == 0) ovf[col_out] = total > k_occ ? total - k_occ : 0;
+    if (active)
+      merge_write<32>(top, a12d, ovf, n2, (size_t)chunk * blk + beam, k_occ,
+                      lane, true);
   }
 }
 
@@ -534,9 +666,12 @@ extern "C" int occluders_a1(
     int w_sl, int k_ext, int wc, int k_occ, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_chunks == 0) return static_cast<int>(cudaGetLastError());
-  DISPATCH_K(k_occ, a1_kernel<KMAX><<<n_chunks, blk, 0, s>>>(
+  const int cap = max(1, min(w_sl + wc, kTileA1));
+  const int smem = cap * static_cast<int>(sizeof(float4) + 2 * sizeof(float));
+  const dim3 grid(n_chunks, (blk + kBeamsA1 - 1) / kBeamsA1);
+  DISPATCH_K(k_occ, a1_kernel<KMAX><<<grid, kLanesA1 * kBeamsA1, smem, s>>>(
       feats, w0b, rows, los, has, counts, data_t, wide_t, a12d, ovf,
-      n_chunks, blk, w_sl, k_ext, wc, k_occ))
+      n_chunks, blk, w_sl, k_ext, wc, k_occ, cap))
   return static_cast<int>(cudaGetLastError());
 }
 

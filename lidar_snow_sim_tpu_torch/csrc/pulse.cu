@@ -5,42 +5,68 @@
 // helpers `_side_state`, `_sweep_step`, `_sweep_init` and `_make_wave_fns`),
 // C2 its `_kernel_pair`; phase C of the dense snowfall assembly. For each
 // compacted beam both
-//   1. runs the first-claim angular sweep as an extract-min walk over the
+//   1. run the first-claim angular sweep as an extract-min walk over the
 //      2K+2 interval endpoints: each trip retires every copy of the minimum,
 //      and the lowest-index (nearest) occluder covering the midpoint of
 //      [prev, cur] claims its width;
-//   2. turns the claimed shares into bump amplitudes
+//   2. turn the claimed shares into bump amplitudes
 //      amp_scale * share * xsi(r) / r^2, the unclaimed remainder going to the
 //      hard target;
-//   3. sums the target bump and then occluder bumps 0, 1, 2, ... bin by bin
-//      over the M-bin range grid, and takes the peak and its first bin.
+//   3. sum the target bump and then occluder bumps 0, 1, 2, ... bin by bin
+//      over the M-bin range grid, and take the peak and its first bin.
 //
-// Design. One warp per beam. The sweep state (endpoints, claimed widths,
-// intervals) lives in the warp's slice of shared memory; each trip is two
-// warp reductions (the minimum endpoint, the lowest covering occluder). The
-// waveform strides the lanes over the M bins, so each lane sums its bins in
-// the TPU kernel's bump order, and a final warp reduction takes the maximum
-// and the lowest bin among equal values.
+// Design. A group of G lanes carries one beam (C1: G = kLanesC1 = 16, two
+// beams a warp; C2: G = 32, the whole warp for each of its two beams). The
+// beam's state (endpoints, claimed widths, intervals, bumps) lives in its
+// slice of shared memory, and a final group reduction takes the maximum of
+// the wave and the lowest bin among equal values.
 //
-// Trip counts. The TPU kernel loops to block maxima (sweep trips
-// min(2 * max_valid + 3, 2K + 2) and the block's last active bump). Here the
-// bounds are per beam: the extra trips of a block only add exact zeros
-// (the sweep has retired every endpoint, an inactive bump has amplitude 0),
-// so the values are the same; at most the sign of a zero can differ.
+// The sweep (sweep_all, both kernels). The TPU kernel runs it as up to
+// 2K + 2 dependent extract-min trips, each over all 2K + 2 endpoints. Here
+// only the valid occluders' endpoints are kept (an invalid one's are copies
+// of `left`, which is an endpoint already), the distinct ones are ranked
+// by counting, every elementary interval finds its claimer at once, and
+// each occluder sums its widths in interval order: the trips' operations in
+// their order, so the same values, in a few short passes.
 //
-// What bounds it on this card: the waveform, ~10 flops per (beam, bin,
-// active bump), about 18k beams x 1230 bins x a few bumps at the bench
-// shapes; the sweep is a short chain of warp reductions (latency-bound).
+// What bounds C1 on this card. It does little arithmetic for its bytes, so
+// its time is the latency of each beam's chain of dependent steps, and in
+// one wave of CTAs the kernel lasts as long as its heaviest beams (the
+// count-bucketed order puts the beams with 10-12 occluders together). A
+// bump covers only the bins r * ipm <= bin <= (r + c_tau) * ipm, ~31 of
+// the M = 1230 at the bench's ipm 10 and c_tau 3 m, yet the first port
+// (one warp a beam, the TPU kernel's whole-grid loop) evaluated all M bins
+// for the target and every bump up to the last active one: ~40x the
+// waveform work the function needs, and most of its time. C1 now
+//   - evaluates only the union of the walked windows (walk_list): the
+//     target's and those of the bumps before the last active one with a
+//     nonzero amplitude, in ascending order of range (the top-K order; the
+//     target is the farthest), each less the window before it;
+//   - sums at a bin only the windows that hold it, in today's order
+//     (target, then bumps 0, 1, ...), with the target's and the current
+//     window's parameters in registers: a term left out is an exact zero;
+//     a bin outside the union is +0.0 in the full sum, so the peak is the
+//     larger of the union's peak and +0.0 at the lowest bin outside it,
+//     ties to the lower bin;
+//   - computes amplitudes only for the bumps the walk reads;
+//   - runs the sweep at once (above) with 16 lanes a beam, where the trip
+//     loop left 26 of 32 lanes idle in each reduction step at K = 24.
 //
 // A beam whose amplitudes are all 0 has an all-zero wave: peak 0 at bin 0.
 //
+// C1's precondition: in each beam the valid occluders' ranges rise with
+// their slot, and none lies past the target's d_orig. Phase A's top-K
+// order and its hit test (pdist < d_orig) give exactly that, and it makes
+// the walked windows' bin bounds ascend, which the walk relies on. C2 and
+// the plain version take any order.
+//
 // C2 (the `pulse_pair` knob). The TPU kernel interleaves two blocks' sweep
 // and wave loops under shared trip counts, two independent chains for the
-// scheduler. Here one warp carries one beam of each of two blocks: two sweep
-// states (two sets of warp reductions per trip) and two wave accumulators
-// per lane, stepped under the pair's larger trip counts. The extra trips add
-// exact zeros, so C2's values are C1's; it keeps C1's tie rules. It needs an
-// even number of blocks.
+// scheduler. Here one warp carries one beam of each of two blocks: two
+// sweeps and two wave accumulators per lane over all M bins, stepped under
+// the pair's larger last active bump; the extra bumps add exact zeros, so
+// C2's values are C1's, with C1's tie rules. It needs an even number of
+// blocks.
 //
 // Exactness. Compiled with -fmad=false: the pulse sums are decision
 // boundaries (the peak bin sets the label), and the plain torch version
@@ -53,41 +79,47 @@ namespace {
 
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kBig = 3.0e38f;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kLanesC1 = 16;          // lanes per beam in C1
+constexpr int kSmemMax = 232448;      // a CTA's shared memory on the H100
 
-__device__ __forceinline__ float warp_min(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+// Reductions over the group of G lanes that holds a beam (G a power of two
+// up to 32, groups aligned in the warp). Every lane of the warp takes part.
+template <int G>
+__device__ __forceinline__ int group_max_int(int v) {
+  for (int o = G / 2; o > 0; o >>= 1)
+    v = max(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
 
-__device__ __forceinline__ int warp_min_int(int v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// The ballot bits of lane's group.
+template <int G>
+__device__ __forceinline__ unsigned group_bits(int lane) {
+  return G == 32 ? kFull : ((1u << G) - 1u) << (lane & ~(G - 1));
 }
 
-__device__ __forceinline__ int warp_max_int(int v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// One beam's state in its warp's slice of shared memory: 12K + 8 floats.
+// One beam's state in its slice of shared memory: 12K + 8 floats.
 struct Side {
-  float* score;     // 2K + 2 endpoints
+  float* score;     // 2 nv + 2 endpoints: right, left, then a1, a2 of each
+                    // valid occluder
   float* claimed;   // K
-  float* a1s;       // K
-  float* a2s;       // K
-  float* vs;        // K, 0/1
+  float* a1s;       // nv, the valid occluders' intervals in index order
+  float* a2s;       // nv
+  int* kidx;        // nv, their indices
   float* amp;       // K + 1 (target last)
   float* cb;        // K + 1
   float* sb;        // K + 1
   float* wlo;       // K + 1 window starts
   float* whi;       // K + 1 window ends
+  // C1's walked windows, written over score, claimed and a1s once the
+  // sweep is done: the bumps, then their bins [walk_lo, walk_hi]
+  int* walk;        // K + 1
+  int* walk_lo;     // K + 1
+  int* walk_hi;     // K + 1
   int p;            // the beam
   float d_orig, left;
-  float prev = 0.f, unclaimed = 0.f, remainder = 0.f;
-  int nv = 0, last_active = 0;
+  float unclaimed = 0.f, remainder = 0.f;
+  int nv = 0, last_active = 0, n_walk = 0;
   bool touched = false;
 
   __device__ Side(float* base, int K, int p_) : p(p_) {
@@ -95,97 +127,158 @@ struct Side {
     claimed = score + 2 * K + 2;
     a1s = claimed + K;
     a2s = a1s + K;
-    vs = a2s + K;
-    amp = vs + K;
+    kidx = reinterpret_cast<int*>(a2s + K);
+    amp = a2s + 2 * K;
     cb = amp + K + 1;
     sb = cb + K + 1;
     wlo = sb + K + 1;
     whi = wlo + K + 1;
+    walk = reinterpret_cast<int*>(score);
+    walk_lo = walk + K + 1;
+    walk_hi = walk_lo + K + 1;   // 3K + 3 ints within the 4K + 2 floats
   }
 };
 
-// Load the beam's intervals and endpoints; counts its valid occluders.
+// Load the beam's intervals and endpoints, the valid occluders' only: an
+// invalid occluder's endpoints are copies of `left` (the plain version's
+// rule), which is an endpoint already, so the sweep's distinct values are
+// the same without them.
+template <int G>
 __device__ void side_init(Side& s, const float* __restrict__ feats,
                           const float* __restrict__ a1g,
                           const float* __restrict__ a2g,
                           const float* __restrict__ validg, int cap, int K,
                           int lane) {
+  const int gl = lane & (G - 1);
   const int p = s.p;
   s.d_orig = feats[p];
   const float right = feats[(size_t)cap + p];
   s.left = feats[2 * (size_t)cap + p];
   const bool wrapped = right > s.left;
-  for (int k0 = 0; k0 < K; k0 += 32) {
-    const int k = k0 + lane;
+  int nv = 0;
+  for (int k0 = 0; k0 < K; k0 += G) {
+    const int k = k0 + gl;
     bool v = false;
+    float a1 = 0.f, a2 = 0.f;
     if (k < K) {
       const size_t at = (size_t)k * cap + p;
-      float a1 = a1g[at], a2 = a2g[at];
+      a1 = a1g[at];
+      a2 = a2g[at];
       v = validg[at] > 0.5f;
       if (wrapped && a1 > a2) a1 = a1 - kTwoPi;
-      if (!v) { a1 = s.left; a2 = s.left; }
-      s.a1s[k] = a1;
-      s.a2s[k] = a2;
-      s.vs[k] = v ? 1.f : 0.f;
       s.claimed[k] = 0.f;
-      s.score[2 + k] = a1;
-      s.score[2 + K + k] = a2;
     }
-    s.nv += __popc(__ballot_sync(0xffffffffu, v));
+    const unsigned bits = __ballot_sync(kFull, v) & group_bits<G>(lane);
+    if (v) {   // compacted in index order
+      const int at = nv + __popc(bits & ((1u << lane) - 1u));
+      s.a1s[at] = a1;
+      s.a2s[at] = a2;
+      s.kidx[at] = k;
+      s.score[2 + 2 * at] = a1;
+      s.score[3 + 2 * at] = a2;
+    }
+    nv += __popc(bits);
   }
-  if (lane == 0) {
+  s.nv = nv;
+  if (gl == 0) {
     s.score[0] = wrapped ? right - kTwoPi : right;
     s.score[1] = s.left;
   }
   __syncwarp();
 }
 
-// One trip of the first-claim sweep; a trip past the distinct endpoints
-// adds zeros.
-__device__ __forceinline__ void sweep_step(Side& s, int it, int K, int lane) {
-  const int m_e = 2 * K + 2;
-  float local = kBig;
-  for (int j = lane; j < m_e; j += 32) local = fminf(local, s.score[j]);
-  const float cur = warp_min(local);
-  const bool live = cur < kBig / 2;
-  const float width = (it > 0 && live) ? cur - s.prev : 0.f;
-  const float mid = 0.5f * (cur + s.prev);
-  int w = K;
-  for (int k = lane; k < K; k += 32)
-    if (s.a1s[k] <= mid && mid <= s.a2s[k] && s.vs[k] > 0.5f) { w = k; break; }
-  const int widx = warp_min_int(w);
-  if (widx < K) {
-    if (lane == 0) s.claimed[widx] = s.claimed[widx] + width;
-  } else {
-    s.unclaimed = s.unclaimed + width;
+// The first-claim sweep at once. The TPU kernel's trips take the
+// distinct finite endpoints in ascending order e_0 < e_1 < ...; trip i > 0
+// gives the interval [e_{i-1}, e_i] (width e_i - e_{i-1}, midpoint
+// 0.5 (e_i + e_{i-1})) to the lowest valid occluder covering its midpoint
+// (or to the target), and trip 0 adds a zero width. Here the endpoints are
+// ranked by counting, every interval finds its claimer at once, and each
+// occluder then sums its widths in interval order: the same operations in
+// the same order, so the same values, with a critical path of a few
+// passes instead of 2 nv + 3 dependent trips. Scratch: the sorted
+// endpoints and the claimers in amp.. (free until amplitudes), the widths
+// over score once it is read.
+template <int G>
+__device__ void sweep_all(Side& s, int K, int gl) {
+  const int m_e = 2 * s.nv + 2;
+  float* e = s.amp;
+  int* flag = reinterpret_cast<int*>(s.amp + 2 * K + 2);
+  int* wix = flag;
+  float* wid = s.score;
+  for (int j = gl; j < m_e; j += G) {   // the first copy of each value
+    const float v = s.score[j];
+    // a value the trips would not take as live (>= kBig / 2, or NaN)
+    // adds nothing
+    bool first = v < kBig / 2;
+    for (int i = 0; i < j && first; ++i) first = s.score[i] != v;
+    flag[j] = first ? 1 : 0;
   }
-  // each lane retires only the endpoints it read: no cross-lane hazard
-  for (int j = lane; j < m_e; j += 32)
-    if (s.score[j] == cur) s.score[j] = kBig;
-  s.prev = live ? cur : s.prev;
+  __syncwarp();
+  int n = 0;
+  for (int i = 0; i < m_e; ++i) n += flag[i];
+  for (int j = gl; j < m_e; j += G) {
+    if (!flag[j]) continue;
+    const float v = s.score[j];
+    int rank = 0;
+    for (int i = 0; i < m_e; ++i) rank += (flag[i] && s.score[i] < v) ? 1 : 0;
+    e[rank] = v;
+  }
+  __syncwarp();
+  for (int i = gl + 1; i < n; i += G) {
+    const float cur = e[i], prev = e[i - 1];
+    const float mid = 0.5f * (cur + prev);
+    int w = K;
+    for (int t = 0; t < s.nv; ++t)
+      if (s.a1s[t] <= mid && mid <= s.a2s[t]) { w = s.kidx[t]; break; }
+    wid[i] = cur - prev;
+    wix[i] = w;
+  }
+  __syncwarp();
+  for (int t = gl; t < s.nv; t += G) {
+    const int k = s.kidx[t];
+    float c = s.claimed[k];
+    for (int i = 1; i < n; ++i)
+      if (wix[i] == k) c = c + wid[i];
+    s.claimed[k] = c;
+  }
+  float u = s.unclaimed;
+  for (int i = 1; i < n; ++i)
+    if (wix[i] == K) u = u + wid[i];
+  s.unclaimed = u;
   __syncwarp();
 }
 
 // Shares -> amplitudes; window bounds in bins; touched and the last active
-// bump.
+// bump. The bumps are filled for b < last_active and the target, or for
+// every b when `all_bumps` (C2 sums a pair's bumps under one bound).
+template <int G>
 __device__ void amplitudes(Side& s, const float* __restrict__ feats,
                            const float* __restrict__ rrg,
                            const float* __restrict__ cos_b,
                            const float* __restrict__ sin_b, int cap, int K,
                            int lane, float beam_rad, float ipm, float c_tau,
-                           float xsi_r1, float xsi_den) {
+                           float xsi_r1, float xsi_den, bool all_bumps) {
   const int p = s.p;
+  const int gl = lane & (G - 1);
   const float amp_scale = feats[3 * (size_t)cap + p];
   s.remainder = fminf(fmaxf(s.unclaimed / beam_rad, 0.f), 1.f);
   int last_active = 0;
   bool touched = false;
-  for (int b = lane; b <= K; b += 32) {
+  for (int b = gl; b < K; b += G) {
+    const float c = s.claimed[b];
+    touched = touched || c > 0.f;
+    // a share is positive only for c > 0 (and then may still round to 0)
+    if (c > 0.f && fminf(fmaxf(c / beam_rad, 0.f), 1.f) > 0.f)
+      last_active = max(last_active, b + 1);
+  }
+  s.touched = (__ballot_sync(kFull, touched) & group_bits<G>(lane)) != 0u;
+  s.last_active = group_max_int<G>(last_active);
+  const int n = all_bumps ? K : s.last_active;
+  for (int b = gl; b <= K; b += G) {
+    if (b < K && b >= n) continue;
     float r, share;
     if (b < K) {
-      const float c = s.claimed[b];
-      touched = touched || c > 0.f;
-      share = fminf(fmaxf(c / beam_rad, 0.f), 1.f);
-      if (share > 0.f) last_active = max(last_active, b + 1);
+      share = fminf(fmaxf(s.claimed[b] / beam_rad, 0.f), 1.f);
       r = rrg[(size_t)b * cap + p];
     } else {
       share = s.remainder;
@@ -199,33 +292,161 @@ __device__ void amplitudes(Side& s, const float* __restrict__ feats,
     s.wlo[b] = r * ipm;
     s.whi[b] = (r + c_tau) * ipm;
   }
-  s.touched = __any_sync(0xffffffffu, touched);
-  s.last_active = warp_max_int(last_active);
   __syncwarp();
+}
+
+// One bump's term at a bin, amp * pulse, the pulse
+// 0.5 (1 - (cos_g cb + sin_g sb)) rounded step by step.
+__device__ __forceinline__ float term(float amp, float cb, float sb, float cg,
+                                      float sg) {
+  return amp * (0.5f * (1.0f - (cg * cb + sg * sb)));
 }
 
 // The waveform at one bin: target bump first, then occluder bumps
 // 0 .. n_bumps - 1 in index order (an inactive bump adds an exact zero).
 __device__ __forceinline__ float wave_at(const Side& s, int K, int n_bumps,
                                          float bin, float cg, float sg) {
-  float w;
-  {
-    const float pulse = 0.5f * (1.0f - (cg * s.cb[K] + sg * s.sb[K]));
-    w = (bin >= s.wlo[K] && bin <= s.whi[K]) ? s.amp[K] * pulse : 0.f;
-  }
-  for (int b = 0; b < n_bumps; ++b) {
-    const float pulse = 0.5f * (1.0f - (cg * s.cb[b] + sg * s.sb[b]));
-    w = w + ((bin >= s.wlo[b] && bin <= s.whi[b]) ? s.amp[b] * pulse : 0.f);
-  }
+  float w = (bin >= s.wlo[K] && bin <= s.whi[K])
+                ? term(s.amp[K], s.cb[K], s.sb[K], cg, sg) : 0.f;
+  for (int b = 0; b < n_bumps; ++b)
+    w = w + ((bin >= s.wlo[b] && bin <= s.whi[b])
+                 ? term(s.amp[b], s.cb[b], s.sb[b], cg, sg) : 0.f);
   return w;
 }
 
-// The warp's largest value and its lowest bin among equal values.
-__device__ __forceinline__ void warp_peak(float& best, int& best_i) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, best, o);
-    const int oi = __shfl_xor_sync(0xffffffffu, best_i, o);
+// The group's largest value and its lowest bin among equal values.
+template <int G>
+__device__ __forceinline__ void group_peak(float& best, int& best_i) {
+  for (int o = G / 2; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(kFull, best, o);
+    const int oi = __shfl_xor_sync(kFull, best_i, o);
     if (ov > best || (ov == best && oi < best_i)) { best = ov; best_i = oi; }
+  }
+}
+
+// The bins m in [0, M - 1] with wlo <= m <= whi, as [lo, hi] (empty when
+// lo > hi): for an integer m, wlo <= m is ceil(wlo) <= m and m <= whi is
+// m <= floor(whi).
+__device__ __forceinline__ void window_bins(float wlo, float whi, int M,
+                                            int& lo, int& hi) {
+  if (!(wlo <= whi)) {   // also a NaN bound: the predicate never holds
+    lo = M;
+    hi = -1;
+    return;
+  }
+  lo = (int)fminf(fmaxf(ceilf(wlo), 0.f), (float)M);
+  hi = (int)fmaxf(fminf(floorf(whi), (float)(M - 1)), -1.f);
+}
+
+// The windows the walk takes, in its order: occluder bumps b <
+// last_active of nonzero amplitude (a zero amplitude's terms are exact
+// zeros) in index order, which is ascending range, then the target, the
+// farthest; empty windows are left out. Every lane of the warp calls it.
+template <int G>
+__device__ void walk_list(Side& s, int K, int M, int lane) {
+  const int gl = lane & (G - 1);
+  int n = 0;
+  for (int b0 = 0; b0 < K; b0 += G) {
+    const int b = b0 + gl;
+    int lo = M, hi = -1;
+    if (b < s.last_active && s.amp[b] != 0.f)
+      window_bins(s.wlo[b], s.whi[b], M, lo, hi);
+    const bool walked = lo <= hi;
+    const unsigned bits = __ballot_sync(kFull, walked) & group_bits<G>(lane);
+    if (walked) {
+      const int at = n + __popc(bits & ((1u << lane) - 1u));
+      s.walk[at] = b;
+      s.walk_lo[at] = lo;
+      s.walk_hi[at] = hi;
+    }
+    n += __popc(bits);
+  }
+  int lo, hi;
+  window_bins(s.wlo[K], s.whi[K], M, lo, hi);
+  if (lo <= hi) {
+    if (gl == 0) {
+      s.walk[n] = K;
+      s.walk_lo[n] = lo;
+      s.walk_hi[n] = hi;
+    }
+    ++n;
+  }
+  s.n_walk = n;
+  __syncwarp();   // the group's entries are read back below
+}
+
+// The lowest bin outside every walked window, or M if they cover all: a
+// window holding the candidate moves it past its end (every bin below the
+// candidate stays covered) until none holds it.
+__device__ int lowest_uncovered(const Side& s, int M) {
+  int u = 0;
+  for (bool moved = true; moved && u < M;) {
+    moved = false;
+    for (int t = 0; t < s.n_walk; ++t) {
+      if (s.walk_lo[t] <= u && u <= s.walk_hi[t]) {
+        u = s.walk_hi[t] + 1;
+        moved = true;
+      }
+    }
+  }
+  return u;
+}
+
+// The windowed waveform's peak and first bin (see the notes at the top):
+// the G lanes of a group stride each walked window's bins less the
+// previous window's, then reduce; +0.0 at the lowest uncovered bin joins
+// when the union's peak is not above zero. Every lane of the warp calls it.
+//
+// The windows come sorted (C1's precondition, at the top), so a bin of
+// window t's run lies past the end of every earlier window and is summed
+// from registers: the target's term if the target holds it, window t's
+// term, and the next windows' only from the bin where the next one starts.
+template <int G>
+__device__ void windowed_peak(const Side& s, int K, int M, int lane,
+                              const float* __restrict__ cos_g,
+                              const float* __restrict__ sin_g, float& best,
+                              int& best_i) {
+  const int gl = lane & (G - 1);
+  const int n = s.n_walk;
+  const bool tgt = n > 0 && s.walk[n - 1] == K;
+  const int n_occ = tgt ? n - 1 : n;
+  const int tlo = tgt ? s.walk_lo[n - 1] : M;
+  const int thi = tgt ? s.walk_hi[n - 1] : -1;
+  const float tamp = s.amp[K], tcb = s.cb[K], tsb = s.sb[K];
+  best = -INFINITY;
+  best_i = M;
+  int plo = 0, phi = -1;   // the last window walked (none yet)
+  for (int t = 0; t < n; ++t) {
+    const int lo = s.walk_lo[t], hi = s.walk_hi[t];
+    const int below = min(hi, plo - 1), above = max(lo, phi + 1);
+    const bool occ = t < n_occ;
+    const int b = occ ? s.walk[t] : K;
+    const float amp = s.amp[b], cb = s.cb[b], sb = s.sb[b];
+    const int next_lo = t + 1 < n_occ ? s.walk_lo[t + 1] : M;
+    for (int m = lo + gl; m <= hi; m += G) {
+      if (m > below && m < above) continue;   // the previous window's bins
+      const float cg = cos_g[m], sg = sin_g[m];
+      float w = (tlo <= m && m <= thi) ? term(tamp, tcb, tsb, cg, sg) : 0.f;
+      if (occ) {
+        w = w + term(amp, cb, sb, cg, sg);
+        for (int u = t + 1; m >= next_lo && u < n_occ && s.walk_lo[u] <= m;
+             ++u) {
+          const int bu = s.walk[u];
+          w = w + term(s.amp[bu], s.cb[bu], s.sb[bu], cg, sg);
+        }
+      }
+      if (w > best || (w == best && m < best_i)) { best = w; best_i = m; }
+    }
+    plo = lo;
+    phi = hi;
+  }
+  group_peak<G>(best, best_i);
+  if (!(best > 0.f)) {
+    const int u = lowest_uncovered(s, M);
+    if (u < M && (0.f > best || (0.f == best && u < best_i))) {
+      best = 0.f;
+      best_i = u;
+    }
   }
 }
 
@@ -239,6 +460,9 @@ __device__ __forceinline__ void write_out(const Side& s, float best,
   rem_out[s.p] = s.remainder;
 }
 
+// Kernel C1: kLanesC1 lanes a beam, the windowed waveform. A CTA holds
+// blockDim.x / kLanesC1 beams; a slot past cap computes the last beam again
+// and writes nothing (its lanes take part in the warp's shuffles).
 __global__ void c1_kernel(
     const float* __restrict__ feats, const float* __restrict__ a1g,
     const float* __restrict__ a2g, const float* __restrict__ rrg,
@@ -246,38 +470,31 @@ __global__ void c1_kernel(
     const float* __restrict__ sin_b, const float* __restrict__ cos_g,
     const float* __restrict__ sin_g, float* __restrict__ peak_out,
     int* __restrict__ idx_out, int* __restrict__ touched_out,
-    float* __restrict__ rem_out, int cap, int K, int M, int per_warp,
+    float* __restrict__ rem_out, int cap, int K, int M, int per_beam,
     float beam_rad, float ipm, float c_tau, float xsi_r1, float xsi_den) {
+  constexpr int G = kLanesC1;
   extern __shared__ float smem[];
-  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int p = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (p >= cap) return;   // whole warp leaves together
+  const int slot = threadIdx.x / G;
+  const int p = blockIdx.x * (blockDim.x / G) + slot;
 
-  Side s(smem + (size_t)warp * per_warp, K, p);
-  side_init(s, feats, a1g, a2g, validg, cap, K, lane);
-  const int trips = min(2 * s.nv + 3, 2 * K + 2);
-  for (int it = 0; it < trips; ++it) sweep_step(s, it, K, lane);
-  amplitudes(s, feats, rrg, cos_b, sin_b, cap, K, lane, beam_rad, ipm, c_tau,
-             xsi_r1, xsi_den);
-
-  float best = -INFINITY;
-  int best_i = M;
-  for (int m = lane; m < M; m += 32) {
-    const float w = wave_at(s, K, s.last_active, (float)m, cos_g[m],
-                            sin_g[m]);
-    if (w > best) { best = w; best_i = m; }
-  }
-  warp_peak(best, best_i);
-  if (lane == 0)
+  Side s(smem + (size_t)slot * per_beam, K, min(p, cap - 1));
+  side_init<G>(s, feats, a1g, a2g, validg, cap, K, lane);
+  sweep_all<G>(s, K, lane & (G - 1));
+  amplitudes<G>(s, feats, rrg, cos_b, sin_b, cap, K, lane, beam_rad, ipm,
+                c_tau, xsi_r1, xsi_den, false);
+  walk_list<G>(s, K, M, lane);
+  float best;
+  int best_i;
+  windowed_peak<G>(s, K, M, lane, cos_g, sin_g, best, best_i);
+  if (p < cap && (lane & (G - 1)) == 0)
     write_out(s, best, best_i, peak_out, idx_out, touched_out, rem_out);
 }
 
 // Kernel C2: one warp carries beam j of pulse blocks 2i and 2i + 1 (blocks
-// of blk beams): two sweep states and two waves, stepped together under the
-// pair's shared trip counts (the larger sweep count and the larger last
-// active bump, as the TPU kernel's pair). The extra trips add exact zeros,
-// so each beam's values are C1's.
+// of blk beams): two sweeps and two waves, the waves stepped together under
+// the pair's larger last active bump, as the TPU kernel's pair. The extra
+// bumps add exact zeros, so each beam's values are C1's.
 __global__ void c2_kernel(
     const float* __restrict__ feats, const float* __restrict__ a1g,
     const float* __restrict__ a2g, const float* __restrict__ rrg,
@@ -297,17 +514,14 @@ __global__ void c2_kernel(
 
   Side s0(smem + (size_t)warp * 2 * per_warp, K, p0);
   Side s1(smem + (size_t)warp * 2 * per_warp + per_warp, K, p0 + blk);
-  side_init(s0, feats, a1g, a2g, validg, cap, K, lane);
-  side_init(s1, feats, a1g, a2g, validg, cap, K, lane);
-  const int trips = min(2 * max(s0.nv, s1.nv) + 3, 2 * K + 2);
-  for (int it = 0; it < trips; ++it) {
-    sweep_step(s0, it, K, lane);
-    sweep_step(s1, it, K, lane);
-  }
-  amplitudes(s0, feats, rrg, cos_b, sin_b, cap, K, lane, beam_rad, ipm,
-             c_tau, xsi_r1, xsi_den);
-  amplitudes(s1, feats, rrg, cos_b, sin_b, cap, K, lane, beam_rad, ipm,
-             c_tau, xsi_r1, xsi_den);
+  side_init<32>(s0, feats, a1g, a2g, validg, cap, K, lane);
+  side_init<32>(s1, feats, a1g, a2g, validg, cap, K, lane);
+  sweep_all<32>(s0, K, lane);
+  sweep_all<32>(s1, K, lane);
+  amplitudes<32>(s0, feats, rrg, cos_b, sin_b, cap, K, lane, beam_rad, ipm,
+                 c_tau, xsi_r1, xsi_den, true);
+  amplitudes<32>(s1, feats, rrg, cos_b, sin_b, cap, K, lane, beam_rad, ipm,
+                 c_tau, xsi_r1, xsi_den, true);
 
   const int n_bumps = max(s0.last_active, s1.last_active);
   float best0 = -INFINITY, best1 = -INFINITY;
@@ -319,8 +533,8 @@ __global__ void c2_kernel(
     if (w0 > best0) { best0 = w0; best_i0 = m; }
     if (w1 > best1) { best1 = w1; best_i1 = m; }
   }
-  warp_peak(best0, best_i0);
-  warp_peak(best1, best_i1);
+  group_peak<32>(best0, best_i0);
+  group_peak<32>(best1, best_i1);
   if (lane == 0) {
     write_out(s0, best0, best_i0, peak_out, idx_out, touched_out, rem_out);
     write_out(s1, best1, best_i1, peak_out, idx_out, touched_out, rem_out);
@@ -341,15 +555,21 @@ extern "C" int pulse_c1(
     float ipm, float c_tau, float xsi_r1, float xsi_den, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cap == 0) return static_cast<int>(cudaGetLastError());
-  const int per_warp = 12 * K + 8;   // floats, see the layout above
-  const int per_warp_bytes = per_warp * 4;
-  int warps = 48 * 1024 / per_warp_bytes;
+  const int per_beam = 12 * K + 8;   // floats, see Side
+  const int warp_bytes = (32 / kLanesC1) * per_beam * 4;
+  const int warps = min(4, kSmemMax / warp_bytes);
   if (warps < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (warps > 4) warps = 4;
-  const int blocks = (cap + warps - 1) / warps;
-  c1_kernel<<<blocks, warps * 32, warps * per_warp_bytes, s>>>(
+  const int smem = warps * warp_bytes;
+  if (smem > 48 * 1024) {   // large K: over the default 48 KB
+    const cudaError_t e = cudaFuncSetAttribute(
+        c1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int beams = warps * 32 / kLanesC1;
+  const int blocks = (cap + beams - 1) / beams;
+  c1_kernel<<<blocks, warps * 32, smem, s>>>(
       feats, a1, a2, rr, valid, cos_b, sin_b, cos_g, sin_g, peak, idx,
-      touched, remainder, cap, K, M, per_warp, beam_rad, ipm, c_tau, xsi_r1,
+      touched, remainder, cap, K, M, per_beam, beam_rad, ipm, c_tau, xsi_r1,
       xsi_den);
   return static_cast<int>(cudaGetLastError());
 }

@@ -491,19 +491,25 @@ def find_occluders_folded(frame_args, *, blk: int, w_sl: int, k_occ: int):
     w0b shifted by its block offset, rows/los/has flattened; the output
     splits back along the chunk axis. Returns B (a12d, ovf) pairs, each
     what `find_occluders` returns for that frame alone."""
+    args, offsets = fold_args(frame_args, blk)
+    a12d, ovf = find_occluders(*args, blk=blk, w_sl=w_sl, k_occ=k_occ)
+    return list(zip(torch.split(a12d, [n * blk for n in offsets], dim=1),
+                    torch.split(ovf, offsets, dim=0)))
+
+
+def fold_args(frame_args, blk: int):
+    """B frames' `find_occluders` arguments as one call's: (the folded
+    arguments, each frame's chunk count)."""
     counts, data_t, wide_t = frame_args[0][5:]
     offsets, w0b, off = [], [], 0
     for args in frame_args:
         w0b.append(args[1] + off)
         offsets.append(args[2].shape[0])
         off += args[0].shape[0] // blk
-    a12d, ovf = find_occluders(
-        torch.cat([a[0] for a in frame_args]), torch.cat(w0b),
-        *(torch.cat([a[i] for a in frame_args]) for i in (2, 3, 4)),
-        counts, data_t, wide_t, blk=blk, w_sl=w_sl, k_occ=k_occ,
-    )
-    return list(zip(torch.split(a12d, [n * blk for n in offsets], dim=1),
-                    torch.split(ovf, offsets, dim=0)))
+    folded = (torch.cat([a[0] for a in frame_args]), torch.cat(w0b),
+              *(torch.cat([a[i] for a in frame_args]) for i in (2, 3, 4)),
+              counts, data_t, wide_t)
+    return folded, offsets
 
 
 find_occluders.launches = 0

@@ -73,18 +73,16 @@ def claimed_widths(feats, a1, a2, valid):
     return claimed, unclaimed
 
 
-def pulse_plain(feats, a1, a2, rr, valid, cos_b, sin_b, cos_g, sin_g, *,
-                beam_rad: float, ipm: float, c_tau: float, xsi_r1: float,
-                xsi_r2: float):
-    """Plain torch version of kernel C1, the waveform _CHUNK beams at a
-    time. Trip counts are maxima over all beams (the sweep) or over the
-    chunk (the bumps); the extra trips add exact zeros."""
-    k_occ, cap = a1.shape
-    m_bins = cos_g.shape[0]
-    dev = feats.device
+def bump_amplitudes(feats, a1, a2, rr, valid, *, beam_rad: float,
+                    xsi_r1: float, xsi_r2: float):
+    """The sweep's shares as bumps: (rr_all (K+1, cap), each bump's range,
+    row K the hard target; amp (K+1, cap); last_active (K, cap), b + 1
+    where occluder b claims a share, else 0; touched (cap,); remainder
+    (cap,))."""
+    k_occ = a1.shape[0]
     d_orig, amp_scale = feats[0], feats[3]
     claimed, unclaimed = claimed_widths(feats, a1, a2, valid)
-    row_k = torch.arange(k_occ, device=dev)[:, None]
+    row_k = torch.arange(k_occ, device=feats.device)[:, None]
     ratio = torch.clamp(div(claimed, beam_rad), 0.0, 1.0)
     remainder = torch.clamp(div(unclaimed, beam_rad), 0.0, 1.0)
     touched = (claimed > 0.0).any(dim=0)
@@ -94,6 +92,77 @@ def pulse_plain(feats, a1, a2, rr, valid, cos_b, sin_b, cos_g, sin_g, *,
     xsi = torch.clamp(div(r_amp - xsi_r1, xsi_r2 - xsi_r1), 0.0, 1.0)
     amp = amp_scale * share * xsi / (r_amp * r_amp)
     last_active = torch.where(ratio > 0.0, row_k + 1, 0)     # (K, cap)
+    return rr_all, amp, last_active, touched, remainder
+
+
+def pulse_windows(rr_all, amp, last_active, *, ipm: float, c_tau: float,
+                  m_bins: int):
+    """The bins kernel C1's windowed waveform evaluates (csrc/pulse.cu).
+
+    A bump covers the bins r * ipm <= bin <= (r + c_tau) * ipm; every term
+    outside its window, and every term of a zero amplitude, is an exact
+    zero, and a bin that no other term reaches is +0.0. So the waveform is
+    evaluated on the union of the target's window (row K) and the windows
+    of the occluder bumps before the beam's last active one with a nonzero
+    amplitude, and the peak is the larger of its peak there and +0.0 at the
+    lowest bin outside the union, ties to the lower bin. Returns the
+    windows' bins as (lo, hi) (K+1, cap) int64, clamped to [0, m_bins - 1],
+    empty (lo > hi) for a bump the waveform skips."""
+    k_occ = amp.shape[0] - 1
+    n_active = last_active.amax(dim=0)                        # (cap,)
+    row = torch.arange(k_occ + 1, device=amp.device)[:, None]
+    walked = (row == k_occ) | ((row < n_active) & (amp != 0.0))
+    lo = torch.ceil(rr_all * ipm).clamp(0, m_bins)
+    hi = torch.floor((rr_all + c_tau) * ipm).clamp(-1, m_bins - 1)
+    lo = torch.where(walked, lo, m_bins).long()
+    hi = torch.where(walked, hi, -1).long()
+    return lo, hi
+
+
+def windowed_peak(feats, a1, a2, rr, valid, cos_b, sin_b, cos_g, sin_g, *,
+                  beam_rad: float, ipm: float, c_tau: float, xsi_r1: float,
+                  xsi_r2: float):
+    """The (peak, first bin) of the windowed rule, `pulse_windows`, in
+    plain torch: the waveform summed only over the walked bumps, on the
+    bins of their windows' union, and +0.0 at the lowest bin outside it.
+    Equals `pulse_plain`'s (up to the sign of a zero peak)."""
+    m_bins = cos_g.shape[0]
+    rr_all, amp, last_active, _, _ = bump_amplitudes(
+        feats, a1, a2, rr, valid, beam_rad=beam_rad, xsi_r1=xsi_r1,
+        xsi_r2=xsi_r2)
+    lo, hi = pulse_windows(rr_all, amp, last_active, ipm=ipm, c_tau=c_tau,
+                           m_bins=m_bins)
+    bins = torch.arange(m_bins, device=feats.device)[:, None]   # (M, 1)
+    binf = bins.to(torch.float32)
+    covered = torch.zeros((m_bins, amp.shape[1]), dtype=torch.bool,
+                          device=feats.device)
+    wave = torch.zeros((m_bins, amp.shape[1]), device=feats.device)
+    for b in [amp.shape[0] - 1, *range(amp.shape[0] - 1)]:   # target first
+        walked = lo[b] <= hi[b]
+        covered |= (bins >= lo[b]) & (bins <= hi[b])
+        r = rr_all[b]
+        window = (binf >= r * ipm) & (binf <= (r + c_tau) * ipm)
+        pulse = 0.5 * (1.0 - (cos_g[:, None] * cos_b[b] + sin_g[:, None]
+                              * sin_b[b]))
+        wave = wave + torch.where(window & walked, amp[b] * pulse, 0.0)
+    wave = torch.where(covered, wave, 0.0)
+    peak = wave.max(dim=0).values
+    first = torch.where(wave == peak, bins, m_bins).min(dim=0).values
+    return peak, first.to(torch.int32)
+
+
+def pulse_plain(feats, a1, a2, rr, valid, cos_b, sin_b, cos_g, sin_g, *,
+                beam_rad: float, ipm: float, c_tau: float, xsi_r1: float,
+                xsi_r2: float):
+    """Plain torch version of kernel C1, the waveform _CHUNK beams at a
+    time. Trip counts are maxima over all beams (the sweep) or over the
+    chunk (the bumps); the extra trips add exact zeros."""
+    k_occ, cap = a1.shape
+    m_bins = cos_g.shape[0]
+    dev = feats.device
+    rr_all, amp, last_active, touched, remainder = bump_amplitudes(
+        feats, a1, a2, rr, valid, beam_rad=beam_rad, xsi_r1=xsi_r1,
+        xsi_r2=xsi_r2)
 
     bins = torch.arange(m_bins, device=dev)
     binf = bins.to(torch.float32)[:, None]
@@ -155,7 +224,9 @@ def _launch(entry: str, what: str, extra: tuple, feats, a1, a2, rr, valid,
 def pulse_peaks(*args, **kw):
     """Phase C: kernel C1 on CUDA tensors, its plain version on CPU
     tensors. Arguments as `pulse_plain`; returns (peak, idx, touched,
-    remainder), each (cap,)."""
+    remainder), each (cap,). C1 needs what phase A's top-K gives: in each
+    beam the valid occluders' ranges `rr` rise with their slot and none
+    exceeds the target's d_orig (feats row 0)."""
     if args[0].device.type == "cpu":
         return pulse_plain(*args, **kw)
     out = _launch("pulse_c1", "kernel C1", (), *args, **kw)

@@ -1,5 +1,6 @@
 """Kernels A1 (also folded over frames), A2, A3, A4a, A4b, C1, C2 and L1
-on the card against their plain torch versions.
+on the card against their plain torch versions (C1 and C2 also on the
+crafted beams of test_torch_pulse_windows.py).
 
 These tests need an NVIDIA GPU and nvcc and skip elsewhere. They import no
 jax, so they also run where jax is not installed:
@@ -9,6 +10,8 @@ jax, so they also run where jax is not installed:
 (--noconftest: tests/conftest.py imports jax for the JAX package's tests).
 The scenes here also feed test_torch_kernels.py.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -21,6 +24,7 @@ from lidar_snow_sim_tpu_torch import (
     pad_cloud,
     synthetic_scan,
 )
+from lidar_snow_sim_tpu_torch.config import SPEED_OF_LIGHT
 from lidar_snow_sim_tpu_torch.models import snowfall as ts
 from lidar_snow_sim_tpu_torch.ops.lut_lookup import (
     MAX_CELLS,
@@ -68,21 +72,31 @@ CASES = {
 }
 
 
+def _twins(sets):
+    """Each set three times: as drawn, again (equal ranges in neighbouring
+    bank columns) and mirrored in y (equal ranges in distant columns)."""
+    return [np.concatenate([s, s, s * np.array([1.0, -1.0, 1.0])])
+            for s in sets]
+
+
 def layout(case, device="cpu", slice_width=256, order=None, sets=None,
-           **cfg_kw):
+           k=None, twins=False, **cfg_kw):
     """The port's phase-A layout of the small scene for one case; `cfg_kw`
     (route_band, band_width, band_group, pallas_transposed, pallas_pair)
-    selects kernel A2, A3, A4a or A4b; `order` is the channel order and
-    `sets` replaces the case's particle-set arguments."""
+    selects kernel A2, A3, A4a or A4b; `order` is the channel order,
+    `sets` replaces the case's particle-set arguments, `k` its K, and
+    `twins` repeats every particle (see _twins)."""
     spec = CASES[case]
+    k = k or spec["k"]
     calib = load_hdl64_calib()
     pc = synthetic_scan(n_azimuth=100, seed=2, calib=calib)
-    bank = build_bank(_particle_sets(*(sets or spec["sets"])),
+    particles = _particle_sets(*(sets or spec["sets"]))
+    bank = build_bank(_twins(particles) if twins else particles,
                       window_size=256,
                       wide_capacity=spec["wide"])
     cfg = SnowfallConfig(
         max_points=8192, window_size=256, wide_capacity=spec["wide"],
-        max_occluders=spec["k"], max_bumps=spec["k"], assembly="dense",
+        max_occluders=k, max_bumps=k, assembly="dense",
         channel_capacity=128, block_points=32, slice_width=slice_width,
         **cfg_kw,
     )
@@ -98,6 +112,73 @@ def layout(case, device="cpu", slice_width=256, order=None, sets=None,
         None, cfg, plane=plane,
     )
     return lay, calib, cfg
+
+
+# Phase-C beams crafted to reach the edges of C1's windowed waveform
+# (ops/pulse.pulse_windows); test_torch_pulse_windows.py holds the rule
+# against the plain version on them.
+CFG = SnowfallConfig()
+C_TAU = SPEED_OF_LIGHT * CFG.tau_h
+# a unit vector whose dot product with itself rounds above 1 in float32:
+# 0.5 * (1 - dot) is -6e-8, a pulse a hair below zero
+C_ROUND, S_ROUND = 0.14303084, 0.98971826
+
+
+def crafted(d_orig, occluders, *, k=4, amp_scale=100.0, edge_bin=None):
+    """Phase-C inputs of one beam, [right, left] = [1.0, 1.002], with valid
+    occluders `occluders` = [(a1, a2, range), ...] (slots 0, 1, ...) and the
+    bench's range grid. `edge_bin`: the grid's cos/sin there and the
+    target's are C_ROUND/S_ROUND, so the target's pulse rounds below zero
+    at that bin."""
+    grid = torch.as_tensor(CFG.range_grid())
+    phase = 2.0 * math.pi / C_TAU
+    feats = torch.tensor([[d_orig], [1.0], [1.002], [amp_scale]],
+                         dtype=torch.float32)
+    a1 = torch.zeros((k, 1))
+    a2 = torch.zeros((k, 1))
+    rr = torch.full((k, 1), 3.0e38)
+    valid = torch.zeros((k, 1))
+    for i, (x1, x2, r) in enumerate(occluders):
+        a1[i], a2[i], rr[i], valid[i] = x1, x2, r, 1.0
+    all_r = torch.cat([rr, feats[:1]])
+    cos_b, sin_b = torch.cos(phase * all_r), torch.sin(phase * all_r)
+    cos_g, sin_g = torch.cos(phase * grid), torch.sin(phase * grid)
+    if edge_bin is not None:
+        cos_g[edge_bin], sin_g[edge_bin] = C_ROUND, S_ROUND
+        cos_b[k], sin_b[k] = C_ROUND, S_ROUND
+    return (feats, a1, a2, rr, valid, cos_b, sin_b, cos_g, sin_g)
+
+
+def kw(c_tau=C_TAU, xsi_r1=CFG.xsi_r1, xsi_r2=CFG.xsi_r2):
+    return dict(beam_rad=CFG.beam_divergence_rad,
+                ipm=float(CFG.intervals_per_meter), c_tau=c_tau,
+                xsi_r1=xsi_r1, xsi_r2=xsi_r2)
+
+
+# xsi_r1 = -1, xsi_r2 = 0: the receiver ramp is 1 from range 0 on, so a
+# bump near the sensor keeps its amplitude; c_tau 0.05: a one-bin window
+NEAR = dict(xsi_r1=-1.0, xsi_r2=0.0)
+CRAFTED = {
+    "overlapping windows": (
+        (40.0, [(1.0, 1.0008, 10.0), (1.0008, 1.0015, 10.5)]), {}, {}),
+    "window reaching bin 0": ((30.0, [(1.0, 1.001, 0.0)]), {}, NEAR),
+    "window past the last bin": ((122.5, [(1.0, 1.001, 50.0)]), {}, {}),
+    # occluder 0 is a point at 1.0005: no sweep midpoint falls in it, so it
+    # claims nothing and has amplitude 0 before the last active bump
+    "zero amplitude before the last active bump": (
+        (60.0, [(1.0005, 1.0005, 20.0), (1.001, 1.002, 25.0)]), {}, {}),
+    "pulse below zero at the edge": (
+        (0.5, []), dict(edge_bin=5), dict(c_tau=0.05)),
+    "pulse below zero at bin 0": (
+        (0.0, []), dict(edge_bin=0), dict(c_tau=0.05, **NEAR)),
+    "all amplitudes zero": (
+        (40.0, [(1.0, 1.001, 10.0)]), dict(amp_scale=0.0), {}),
+}
+
+
+def crafted_case(name):
+    (d_orig, occ), beam_kw, pulse_kw = CRAFTED[name]
+    return crafted(d_orig, occ, **beam_kw), kw(**pulse_kw)
 
 
 @pytest.fixture
@@ -131,6 +212,53 @@ def test_cuda_kernels_match_plain(cuda, case, slice_width):
     for got, want in zip(pulse_peaks(*comp.pulse_args, **comp.pulse_kw),
                          pulse_plain(*comp.pulse_args, **comp.pulse_kw)):
         assert torch.equal(got, want)
+
+
+def _assert_phase_a_equal(a12d, ovf, a12d_p, ovf_p, k):
+    assert torch.equal(ovf, ovf_p)
+    assert torch.equal(a12d[2 * k:], a12d_p[2 * k:])
+    live = torch.cat([a12d_p[2 * k:] < 1e37] * 2)
+    assert torch.equal(a12d[:2 * k][live], a12d_p[:2 * k][live])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,slice_width,sets,k,twins", [
+    # K = 24, 64 and 512 on the scene; its ~20% dead chunks write sentinels
+    ("scene", 256, None, 24, False), ("scene", 256, None, 64, False),
+    ("scene", 256, None, 512, False),
+    # every particle three times: equal ranges in neighbouring columns (other
+    # lanes of a beam) and in distant ones, ties to the lowest column
+    ("scene", 512, None, 24, True),
+    # K = 8 under many large flakes: beams with more hits than K
+    ("dense", 256, None, 8, False),
+    # 12,000 flakes a channel, the whole row as the slice: lists longer than
+    # one 2,048-column staged tile and than a CTA's 227 KB of shared memory
+    ("dense", 16384, (9, 12000, 0.9, 0.1, 2.0), 8, False),
+])
+def test_cuda_a1_matches_plain(cuda, case, slice_width, sets, k, twins):
+    """On the card: the redesigned A1 (a beam's list split over four
+    lanes, merged in lax.top_k order) equals its plain version exactly."""
+    lay, _, cfg = layout(case, device=cuda, slice_width=slice_width,
+                         sets=sets, k=k, twins=twins)
+    has = lay.occluder_args[4]
+    n0 = find_occluders.launches
+    a12d, ovf = find_occluders(*lay.occluder_args, **lay.occluder_kw)
+    torch.cuda.synchronize()
+    assert find_occluders.launches == n0 + 1
+    a12d_p, ovf_p = occluders_plain(*lay.occluder_args, **lay.occluder_kw)
+    _assert_phase_a_equal(a12d, ovf, a12d_p, ovf_p, k)
+    if case == "scene" and not twins:
+        assert bool((has == 0).any())                  # dead chunks
+        dead = (has == 0).repeat_interleave(lay.blk)
+        assert bool((a12d[2 * k:, dead] == 3.0e38).all())
+        assert not bool(ovf.reshape(-1)[dead].any())
+    if case == "dense":
+        assert bool((ovf > 0).any())                   # more hits than K
+    if twins:                                          # ties were kept
+        d = a12d[2 * k:]
+        assert bool(((d[1:] == d[:-1]) & (d[1:] < 1e37)).any())
+    if sets is not None:                               # 24 bytes a column
+        assert int(lay.occluder_args[5].max()) > 232448 // 24
 
 
 @pytest.mark.cuda
@@ -236,13 +364,6 @@ def test_cuda_l1_rejects_wide_tables(cuda):
     assert lut_lookup_pairs.launches == n0
 
 
-def _assert_phase_a_equal(a12d, ovf, a12d_p, ovf_p, k):
-    assert torch.equal(ovf, ovf_p)
-    assert torch.equal(a12d[2 * k:], a12d_p[2 * k:])
-    live = torch.cat([a12d_p[2 * k:] < 1e37] * 2)
-    assert torch.equal(a12d[:2 * k][live], a12d_p[:2 * k][live])
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["A4a", "A4b"])
 @pytest.mark.parametrize("case,slice_width,sets", [
@@ -311,3 +432,26 @@ def test_cuda_c2_matches_plain(cuda, case, blk):
     for a, b, c in zip(got, pulse_plain(*comp.pulse_args, **comp.pulse_kw),
                        pulse_peaks(*comp.pulse_args, **comp.pulse_kw)):
         assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [4, 512])
+@pytest.mark.parametrize("name", sorted(CRAFTED))
+def test_cuda_pulse_windows_crafted(cuda, name, k):
+    """On the card: C1 (the windowed waveform) and C2 equal their plain
+    version on the crafted beams, one beam (C1 alone in its CTA) and the
+    beam twice (C2 with blk 1); K = 512 takes C1's and C2's large
+    shared-memory launches."""
+    (d_orig, occ), beam_kw, pulse_kw = CRAFTED[name]
+    args = [t.to(cuda) for t in crafted(d_orig, occ, k=k, **beam_kw)]
+    pkw = kw(**pulse_kw)
+    for cap in (1, 2):
+        a = [t if i >= 7 else t.repeat(1, cap) for i, t in enumerate(args)]
+        want = pulse_plain(*a, **pkw)
+        runs = [pulse_peaks(*a, **pkw)]
+        if cap == 2:
+            runs.append(pulse_peaks_pair(*a, blk=1, **pkw))
+        torch.cuda.synchronize()
+        for got in runs:
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
