@@ -626,15 +626,19 @@ def batched_phase(pc, padded, bank, bank_t, calib, calib_t, cfg, lay, a12d,
                 or not torch.equal(got[0][2 * k:, valid], a12d[2 * k:, valid]):
             fail(f"{name} and A1 differ on the in-channel beams")
         dead = ~lay.valid_blk.any(dim=1)
+        # dead chunks are computed, so they may hold hits (A1 skips them)
+        dead_hits = int((got[0][2 * k:, dead.repeat_interleave(lay.blk)]
+                         < 1e37).sum())
         ms = time_ms(lambda: run(*args_u, **kw))
         times = timed(name, lambda run=run: run(*args_u, **kw),
                       name.lower() + "_kernel")
         plain_ms = time_ms(ungated_plain)
         bnd = phase_a_bound(name, args_u, kw)
         recs[name] = dict(err=err, ms=ms, times=times, plain_ms=plain_ms,
-                          bound=bnd, tpu=tpu)
+                          bound=bnd, tpu=tpu, dead_hits=dead_hits)
         print(f"{name}: chunks {lay.n_chunks} (dead {int(dead.sum())}, "
-              f"computed) max_abs_err {err} ms {ms:.4f} (A1 {a1_ms:.4f}) "
+              f"computed: {dead_hits} hits) max_abs_err {err} ms {ms:.4f} "
+              f"(A1 {a1_ms:.4f}) "
               f"plain_ms {plain_ms:.4f} "
               f"bound_ms {bnd[0]:.4f} ({bnd[1]}) "
               f"equal_to_A1_on_valid_beams True", flush=True)
@@ -797,7 +801,7 @@ def batched_phase(pc, padded, bank, bank_t, calib, calib_t, cfg, lay, a12d,
             launches[{"A4a": "pallas_transposed",
                       "A4b": "pallas_pair"}[name]][name],
             r["err"], r["ms"], r["plain_ms"], r["bound"], r["times"],
-            a1_ms_same_call=a1_ms,
+            a1_ms_same_call=a1_ms, dead_chunk_hits=r["dead_hits"],
         )
         for name, r in recs.items()
     }

@@ -32,10 +32,10 @@
 // branch into the insertion. Now:
 //   - a beam's list is split over kLanesA1 lanes (lane s tests candidates
 //     s, s + kLanesA1, ...), each lane keeps its own top-K, and the lanes
-//     merge as A4a's do (merge_write), which is exact for "value, then
-//     lowest index"; a CTA holds kBeamsA1 beams, so a chunk is blk / 64
-//     CTAs and the grid is many more, smaller items (balance across the
-//     132 SMs, ~6 CTAs of 8 warps resident on each);
+//     merge (merge_write), which is exact for "value, then lowest index";
+//     a CTA holds kBeamsA1 beams, so a chunk is blk / 64 CTAs and the grid
+//     is many more, smaller items (balance across the 132 SMs, ~6 CTAs of
+//     8 warps resident on each);
 //   - the CTA stages its list as structures, {x, y, r, dist} in one float4
 //     plus the angle: one LDS.128 and one LDS.32 a test; the half-width
 //     only for a kept hit;
@@ -44,16 +44,46 @@
 //     register), and the insertion is a rare path behind one compare
 //     against the K-th kept range.
 // The no-hit path of a test fell from 46 SASS instructions to 32.75
-// (tools/sass_loops.py), and the device time at the bench shapes to 0.44x
+// (scripts/sass_loops.py), and the device time at the bench shapes to 0.44x
 // the first port's on an H100 at 700 W (tools/kernel_times.py).
-// A slice longer than kTileA1 columns (a grown slice, up to the bank row)
-// streams through the tile in column order, which keeps the tie order.
+// A slice longer than the tile (a grown slice, up to the bank row) streams
+// through it in column order, which keeps the tie order.
 //
-// A2, A3 and A4b: one CTA per chunk, one thread per beam. After the
-// wrap-pad dedup every candidate list is a run of ascending bank columns,
-// at most two intervals of it (A3: band A, then band B's columns past band
-// A), then the wide columns. So the CTA stages the bank columns that any of
-// its threads needs (A2/A3: the union of the chunk's bands, all inside its
+// A4a and A4b (redesigned for the H100) compute A1's function on every
+// chunk and run A1's body: one device function, lane_split_chunks, with a
+// compile-time switch for the has gate, so the three share their staging,
+// their per-test code (33 SASS instructions a no-hit test) and their
+// merge. Like A1 they are bound by the instructions issued a test and by
+// how many warps each SM keeps in flight to hide the shared-memory and
+// shuffle latencies, not by bytes; and, with ~1.5 waves of CTAs, by how
+// evenly the last wave fills the SMs.
+//   - A4a replaces `_kernel_t`, whose point on the TPU is a beam's
+//     candidates across the lanes (sublanes there) and a reduction along
+//     them a trip. Here a beam's list stays split, over kLanesA4a lanes,
+//     merged by merge_write. The first port gave a warp one beam (32
+//     lanes) and ran the per-test path A1 dropped (six scalar loads from a
+//     row-major tile, a branch on every test, the hit count in memory).
+//     The split (8 lanes, 64 beams a CTA) is the fastest of the variants
+//     timed on the card (scripts/a4_sweep.py): fewer beams a CTA pay the
+//     staging of the whole list for fewer beams, more lanes a beam more
+//     shuffles a merge trip.
+//   - A4b replaces `_kernel_pair`, which interleaves two chunks' extraction
+//     loops for instruction-level parallelism on the TPU. Here a CTA still
+//     owns chunks 2i and 2i + 1 (so the chunk count must be even), as two
+//     groups of threads, each running the lane split (kLanesA4b lanes a
+//     beam) on kBeamsA4b beams of its own chunk, so the pair costs no
+//     occupancy: the CTA stages both lists, each in its own region of
+//     dynamic shared memory (over 48 KB, after cudaFuncSetAttribute), and
+//     each chunk keeps its own candidate indices for the merge. The first
+//     port gave a CTA of 4 warps both chunks' 128 beams, one thread a beam
+//     with both chains: 288 CTAs, ~9 warps an SM, too few to hide the
+//     shared-memory latency.
+//
+// A2 and A3: one CTA per chunk, one thread per beam. After the wrap-pad
+// dedup every candidate list is a run of ascending bank columns, at most
+// two intervals of it (A3: band A, then band B's columns past band A),
+// then the wide columns. So the CTA stages the bank columns that any of its
+// threads needs (A2/A3: the union of the chunk's bands, all inside its
 // slice) through one shared-memory tile of kTile columns, in ascending
 // order, each column loaded once; a thread tests only the columns of its
 // own intervals, which keeps the list order. Candidate property rows are
@@ -63,18 +93,6 @@
 // index". Hits are rare (a few per beam), so the insertion cost is small.
 // Every kernel here calls one hit test (hit_test) and one interval
 // function, so their arithmetic is identical.
-//
-// A4a. The TPU kernel puts candidates on sublanes and beams on lanes, so
-// each extraction trip is a reduction along the candidate axis. Here a warp
-// takes one beam and splits its candidate list over the lanes: lane l tests
-// candidates l, l + 32, ... and keeps its own top-K, then K trips take the
-// warp minimum of (range, candidate index). The list is staged once per CTA when it fits
-// the tile (kTileT candidates), else once per round of kWarpsT beams.
-//
-// A4b. The TPU kernel interleaves two chunks' extraction loops for
-// instruction-level parallelism. Here one CTA stages both chunks' lists in
-// two tiles and each thread carries one beam of each chunk through the same
-// column loop: two independent hit-test and insertion chains.
 //
 // Exactness. Compiled with -fmad=false: the hit test (|px sin - py cos| < r,
 // the half-plane sign) is a decision boundary, and the plain torch version
@@ -346,7 +364,7 @@ __global__ void a3_kernel(
 }
 
 
-// ---- Lists split across lanes (A1, A4a): per-lane top-K, then a merge
+// ---- A1, A4a and A4b: one lane-split body for A1's function
 
 // One lane's sorted list of its K nearest hits (ascending range; a tie keeps
 // the lower candidate index, which is also the lane's earlier test).
@@ -379,21 +397,6 @@ struct LaneTopK {
     if (n_kept < k_occ) ++n_kept;
     if (n_kept == k_occ) kth = d[k_occ - 1];
   }
-
-  // candidate c of the list, staged at column j of `tile` (6 rows, stride ld)
-  __device__ __forceinline__ void consider(const Beam& b, const float* tile,
-                                           int ld, int j, int c, int k_occ) {
-    const float pdist = tile[3 * ld + j], pang = tile[4 * ld + j];
-    bool right_hit, left_hit;
-    if (!hit_test(b, tile[j], tile[ld + j], tile[2 * ld + j], pdist, pang,
-                  right_hit, left_hit))
-      return;
-    ++n_hit;
-    if (!takes(pdist, k_occ)) return;
-    float v1, v2;
-    interval(b, pang, tile[5 * ld + j], right_hit, left_hit, v1, v2);
-    insert(pdist, v1, v2, c, k_occ);
-  }
 };
 
 // Merge the lists of each group of G lanes (one beam; G a power of two up to
@@ -401,7 +404,8 @@ struct LaneTopK {
 // min(K, hits) trips each take the group minimum of (range, candidate
 // index), lax.top_k's "value, then lowest index", and the winning lane pops
 // its head. Every lane of the warp must call it; lanes of an inactive beam
-// hold empty lists and write nothing.
+// hold empty lists and write nothing. A beam without hits (a dead chunk of
+// A1 among them) gets the empty-slot sentinels and overflow 0.
 template <int G, int KMAX>
 __device__ void merge_write(LaneTopK<KMAX>& top, float* a12d, int* ovf,
                             size_t n2, size_t col_out, int k_occ, int sub,
@@ -438,60 +442,30 @@ __device__ void merge_write(LaneTopK<KMAX>& top, float* a12d, int* ovf,
   if (sub == 0) ovf[col_out] = total > k_occ ? total - k_occ : 0;
 }
 
-// ---- A1: each beam's list split over kLanesA1 lanes, columns as structures
+// A chunk's candidate list in A1's function: the slice [lo, lo + n_s) of its
+// bank row (n_s: the slice up to one wrap period and the row's end), then
+// the row's wc wide columns; n_tot = 0 for a chunk that is not computed.
+struct ChunkList {
+  const float* bank;   // property row 0 of the bank row, at column lo
+  const float* wide;
+  int n_s, n_tot, k_ext, wc;
 
-constexpr int kLanesA1 = 4;     // lanes per beam
-constexpr int kBeamsA1 = 64;    // beams per CTA (a chunk spans blk / 64 CTAs)
-constexpr int kTileA1 = 2048;   // staged columns per pass (24 B each, 48 KB)
-
-// A1's function: every beam of a chunk against the slice [lo, lo + n_s)
-// (n_s: the slice up to one wrap period and the row's end), then the wc
-// wide columns. The CTA stages the list in column order as {x, y, r, dist}
-// (one 16-byte load a test), the angle and the half-width (read only for a
-// kept hit); lane s of a beam tests candidates s, s + kLanesA1, ... with a
-// branch-free hit test and a rare insertion, then merge_write joins the
-// lanes' lists. Dead chunks (has == 0) write sentinels only.
-template <int KMAX>
-__global__ void __launch_bounds__(kLanesA1 * kBeamsA1) a1_kernel(
-    const float* __restrict__ feats, const int* __restrict__ w0b,
-    const int* __restrict__ rows, const int* __restrict__ los,
-    const int* __restrict__ has, const int* __restrict__ counts,
-    const float* __restrict__ data_t, const float* __restrict__ wide_t,
-    float* __restrict__ a12d, int* __restrict__ ovf,
-    int n_chunks, int blk, int w_sl, int k_ext, int wc, int k_occ, int cap) {
-  extern __shared__ float4 xyrd[];   // cap columns, then ang, then halfw
-  float* ang = reinterpret_cast<float*>(xyrd + cap);
-  float* halfw = ang + cap;
-  const int chunk = blockIdx.x;
-  const int sub = threadIdx.x % kLanesA1;
-  const int beam = blockIdx.y * kBeamsA1 + threadIdx.x / kLanesA1;
-  const bool active = beam < blk;
-  const size_t n2 = (size_t)n_chunks * blk;
-  const size_t col_out = (size_t)chunk * blk + beam;
-  if (has[chunk] == 0) {   // dead window: sentinels only (uniform per CTA)
-    if (active) {
-      for (int k = sub; k < k_occ; k += kLanesA1) {
-        a12d[(size_t)k * n2 + col_out] = 0.f;
-        a12d[(size_t)(k_occ + k) * n2 + col_out] = 0.f;
-        a12d[(size_t)(2 * k_occ + k) * n2 + col_out] = kBig;
-      }
-      if (sub == 0) ovf[col_out] = 0;
-    }
-    return;
+  __device__ ChunkList(const int* rows, const int* los, const int* counts,
+                       const float* data_t, const float* wide_t, int chunk,
+                       bool computed, int w_sl, int k_ext_, int wc_)
+      : k_ext(k_ext_), wc(wc_) {
+    const int row = rows[chunk];
+    const int lo = los[chunk];
+    n_s = max(min(min(lo + w_sl, k_ext), lo + counts[row]) - lo, 0);
+    n_tot = computed ? n_s + wc : 0;
+    bank = data_t + (size_t)row * kProp * k_ext + lo;
+    wide = wide_t + (size_t)row * kProp * wc;
   }
-  const int row = rows[chunk];
-  const int lo = los[chunk];
-  const int n_s = max(min(min(lo + w_sl, k_ext), lo + counts[row]) - lo, 0);
-  const int n_tot = n_s + wc;
-  const float* bank = data_t + (size_t)row * kProp * k_ext + lo;
-  const float* wide = wide_t + (size_t)row * kProp * wc;
-  const Beam b(feats + ((size_t)w0b[chunk] * blk + min(beam, blk - 1)) *
-                           kFeat);
-  LaneTopK<KMAX> top;
-  int n_hit = 0;   // a register; top's counters live with its lists
-  for (int c0 = 0; c0 < n_tot; c0 += cap) {
-    const int n_t = min(cap, n_tot - c0);
-    if (c0 > 0) __syncthreads();   // the last pass's tests are done
+
+  // Stage list columns [c0, c0 + n_t) in column order, by the CTA's
+  // threads: {x, y, r, dist} as one float4, the angle, the half-width.
+  __device__ __forceinline__ void stage(int c0, int n_t, float4* xyrd,
+                                        float* ang, float* halfw) const {
     for (int j = threadIdx.x; j < n_t; j += blockDim.x) {
       const int c = c0 + j;
       const float* src = c < n_s ? bank + c : wide + (c - n_s);
@@ -500,148 +474,151 @@ __global__ void __launch_bounds__(kLanesA1 * kBeamsA1) a1_kernel(
       ang[j] = src[4 * ld];
       halfw[j] = src[5 * ld];
     }
+  }
+};
+
+// A1's function on NL chunks per CTA (1, or 2 for A4b): thread group l,
+// threads [l * NB * G, (l + 1) * NB * G), holds beams blockIdx.y * NB ...
+// + NB - 1 of chunk chunk0 + l, G lanes a beam. The CTA stages every
+// chunk's list, cap columns a pass, each in its own region of the dynamic
+// shared memory (NL * cap * 24 bytes: NL * cap float4, then the angles,
+// then the half-widths). Lane s of a beam tests its chunk's candidates s,
+// s + G, ... with the branch-free hit test, the hit count in a register and
+// the insertion behind one compare against the K-th kept range; then
+// merge_write joins the lanes' lists in lax.top_k order, with each chunk's
+// own candidate indices. kGated: a chunk with has == 0 is not computed and
+// gets sentinels (A1); otherwise every chunk is computed (A4a, A4b). Every
+// thread of the CTA must call it.
+template <int KMAX, int G, int NB, int NL, bool kGated>
+__device__ __forceinline__ void lane_split_chunks(
+    const float* __restrict__ feats, const int* __restrict__ w0b,
+    const int* __restrict__ rows, const int* __restrict__ los,
+    const int* __restrict__ has, const int* __restrict__ counts,
+    const float* __restrict__ data_t, const float* __restrict__ wide_t,
+    float* __restrict__ a12d, int* __restrict__ ovf, int n_chunks, int blk,
+    int w_sl, int k_ext, int wc, int k_occ, int cap, int chunk0) {
+  extern __shared__ float4 xyrd[];   // NL * cap columns, then ang, halfw
+  float* ang = reinterpret_cast<float*>(xyrd + NL * cap);
+  float* halfw = ang + NL * cap;
+  const int l_me = NL == 1 ? 0 : threadIdx.x / (NB * G);   // per warp
+  const int sub = threadIdx.x % G;
+  const int beam = blockIdx.y * NB + (threadIdx.x % (NB * G)) / G;
+  const bool active = beam < blk;
+  const int chunk = chunk0 + l_me;
+  const size_t n2 = (size_t)n_chunks * blk;
+  const ChunkList l0(rows, los, counts, data_t, wide_t, chunk0,
+                     !kGated || has[chunk0] != 0, w_sl, k_ext, wc);
+  const ChunkList l1 =
+      NL == 1 ? l0
+              : ChunkList(rows, los, counts, data_t, wide_t, chunk0 + 1,
+                          !kGated || has[chunk0 + 1] != 0, w_sl, k_ext, wc);
+  const int n_max = max(l0.n_tot, l1.n_tot);
+  const int n_me = l_me ? l1.n_tot : l0.n_tot;
+  const Beam b(feats + ((size_t)w0b[chunk] * blk + min(beam, blk - 1)) *
+                           kFeat);
+  const float4* my_xyrd = xyrd + l_me * cap;
+  const float* my_ang = ang + l_me * cap;
+  const float* my_halfw = halfw + l_me * cap;
+  LaneTopK<KMAX> top;
+  int n_hit = 0;   // a register; top's counters live with its lists
+  for (int c0 = 0; c0 < n_max; c0 += cap) {
+    if (c0 > 0) __syncthreads();   // the last pass's tests are done
+    l0.stage(c0, min(cap, l0.n_tot - c0), xyrd, ang, halfw);
+    if (NL == 2)
+      l1.stage(c0, min(cap, l1.n_tot - c0), xyrd + cap, ang + cap,
+               halfw + cap);
     __syncthreads();
     if (!active) continue;
+    const int n_t = min(cap, n_me - c0);
 #pragma unroll 4
-    for (int j = sub; j < n_t; j += kLanesA1) {
-      const float4 q = xyrd[j];
-      const float pang = ang[j];
+    for (int j = sub; j < n_t; j += G) {
+      const float4 q = my_xyrd[j];
+      const float pang = my_ang[j];
       bool right_hit, left_hit;
       const bool hit =
           hit_test(b, q.x, q.y, q.z, q.w, pang, right_hit, left_hit);
       n_hit += hit ? 1 : 0;
       if (hit && top.takes(q.w, k_occ)) {   // rare: a kept hit
         float v1, v2;
-        interval(b, pang, halfw[j], right_hit, left_hit, v1, v2);
+        interval(b, pang, my_halfw[j], right_hit, left_hit, v1, v2);
         top.insert(q.w, v1, v2, c0 + j, k_occ);
       }
     }
   }
   top.n_hit = n_hit;
-  merge_write<kLanesA1>(top, a12d, ovf, n2, col_out, k_occ, sub, active);
+  merge_write<G>(top, a12d, ovf, n2, (size_t)chunk * blk + beam, k_occ, sub,
+                 active);
 }
 
-// ---- A4a: each beam's candidate columns split across the lanes of a warp
+// A1: 4 lanes a beam, 64 beams a CTA (a chunk spans blk / 64 CTAs), up to
+// 2,048 staged columns a pass (48 KB), the has gate.
+constexpr int kLanesA1 = 4;
+constexpr int kBeamsA1 = 64;
+constexpr int kTileA1 = 2048;
+// A4a and A4b: every chunk; the splits are the fastest of the variants
+// timed on the card (scripts/a4_sweep.py, PERF.md section 6). A4a: 8
+// lanes a beam, 64 beams a CTA (512 threads). A4b: chunks 2i and 2i + 1
+// in one CTA, each on 32 beams of 8 lanes (512 threads, two 1,408-column
+// lists in 66 KB at the bench).
+constexpr int kLanesA4a = 8;
+constexpr int kBeamsA4a = 64;
+constexpr int kTileA4a = 2048;
+constexpr int kLanesA4b = 8;
+constexpr int kBeamsA4b = 32;
+constexpr int kTileA4b = 2048;
 
-constexpr int kTileT = 4096;   // A4a's staged candidates (dynamic, <= 96 KB)
-constexpr int kWarpsT = 8;     // warps per A4a CTA
+#define LANE_SPLIT_ARGS                                                    \
+  const float* __restrict__ feats, const int* __restrict__ w0b,           \
+      const int* __restrict__ rows, const int* __restrict__ los,          \
+      const int* __restrict__ counts, const float* __restrict__ data_t,   \
+      const float* __restrict__ wide_t, float* __restrict__ a12d,         \
+      int* __restrict__ ovf, int n_chunks, int blk, int w_sl, int k_ext,  \
+      int wc, int k_occ, int cap
 
-// A1's function with the candidate list across the lanes. The list is the
-// slice [lo, lo + n_s) (n_s: the slice up to one wrap period and the row's
-// end) then the wc wide columns; candidate c is staged at column c % cap of
-// the CTA's tile. Each warp takes one beam at a time: lane l tests
-// candidates l, l + 32, ... and keeps its own top-K; then K trips take the
-// warp minimum of (range, candidate), lax.top_k's "value, then lowest
-// index", and the winning lane pops its head. Every chunk is computed (no
-// has gate), as in the TPU kernel.
 template <int KMAX>
-__global__ void a4a_kernel(
-    const float* __restrict__ feats, const int* __restrict__ w0b,
-    const int* __restrict__ rows, const int* __restrict__ los,
-    const int* __restrict__ counts, const float* __restrict__ data_t,
-    const float* __restrict__ wide_t, float* __restrict__ a12d,
-    int* __restrict__ ovf, int n_chunks, int blk, int w_sl, int k_ext,
-    int wc, int k_occ, int cap) {
-  extern __shared__ float tile[];   // 6 rows x cap candidates
-  const int chunk = blockIdx.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t n2 = (size_t)n_chunks * blk;
-  const int row = rows[chunk];
-  const int lo = los[chunk];
-  const int n_s = max(min(min(lo + w_sl, k_ext), lo + counts[row]) - lo, 0);
-  const int n_tot = n_s + wc;
-  const int n_tiles = (n_tot + cap - 1) / cap;
-  const float* bank = data_t + (size_t)row * kProp * k_ext + lo;
-  const float* wide = wide_t + (size_t)row * kProp * wc;
-  for (int r0 = 0; r0 < blk; r0 += kWarpsT) {
-    const int beam = r0 + warp;
-    const bool active = beam < blk;   // uniform per warp
-    const Beam b(feats + ((size_t)w0b[chunk] * blk + min(beam, blk - 1)) *
-                             kFeat);
-    LaneTopK<KMAX> top;
-    for (int t = 0; t < n_tiles; ++t) {
-      const int c0 = t * cap;
-      const int n_t = min(cap, n_tot - c0);
-      if (n_tiles > 1 || r0 == 0) {   // one tile holds the list: stage once
-        __syncthreads();
-        for (int j = threadIdx.x; j < n_t; j += blockDim.x) {
-          const int c = c0 + j;
-          for (int r = 0; r < 6; ++r)
-            tile[r * cap + j] = c < n_s ? bank[(size_t)r * k_ext + c]
-                                        : wide[(size_t)r * wc + c - n_s];
-        }
-        __syncthreads();
-      }
-      if (active)
-        for (int j = lane; j < n_t; j += 32)
-          top.consider(b, tile, cap, j, c0 + j, k_occ);
-    }
-    if (active)
-      merge_write<32>(top, a12d, ovf, n2, (size_t)chunk * blk + beam, k_occ,
-                      lane, true);
-  }
+__global__ void __launch_bounds__(kLanesA1 * kBeamsA1)
+    a1_kernel(const int* __restrict__ has, LANE_SPLIT_ARGS) {
+  lane_split_chunks<KMAX, kLanesA1, kBeamsA1, 1, true>(
+      feats, w0b, rows, los, has, counts, data_t, wide_t, a12d, ovf,
+      n_chunks, blk, w_sl, k_ext, wc, k_occ, cap, blockIdx.x);
 }
 
-// ---- A4b: two chunks per CTA, two independent chains per thread
-
-// Thread t carries beam t of chunks 2i and 2i + 1 through one column loop:
-// each step tests column c of both chunks' lists (each staged in its own
-// tile), so the two hit tests and insertions are independent chains. The
-// lists are A1's (slice up to one wrap period, then the wide columns), and
-// each keeps A1's order. Every chunk is computed (no has gate), as in the
-// TPU kernel.
 template <int KMAX>
-__global__ void a4b_kernel(
-    const float* __restrict__ feats, const int* __restrict__ w0b,
-    const int* __restrict__ rows, const int* __restrict__ los,
-    const int* __restrict__ counts, const float* __restrict__ data_t,
-    const float* __restrict__ wide_t, float* __restrict__ a12d,
-    int* __restrict__ ovf, int n_chunks, int blk, int w_sl, int k_ext,
-    int wc, int k_occ) {
-  extern __shared__ float smem[];   // two Tiles
-  Tile* tiles = reinterpret_cast<Tile*>(smem);
-  const size_t n2 = (size_t)n_chunks * blk;
-  const float* src[2];
-  const float* wsrc[2];
-  int n_s[2];
-  const Beam ba(feats + ((size_t)w0b[2 * blockIdx.x] * blk + threadIdx.x) *
-                            kFeat);
-  const Beam bb(feats +
-                ((size_t)w0b[2 * blockIdx.x + 1] * blk + threadIdx.x) *
-                    kFeat);
-  for (int s = 0; s < 2; ++s) {
-    const int chunk = 2 * blockIdx.x + s;
-    const int row = rows[chunk];
-    const int lo = los[chunk];
-    n_s[s] = max(min(min(lo + w_sl, k_ext), lo + counts[row]) - lo, 0);
-    src[s] = data_t + (size_t)row * kProp * k_ext + lo;
-    wsrc[s] = wide_t + (size_t)row * kProp * wc;
+__global__ void __launch_bounds__(kLanesA4a * kBeamsA4a)
+    a4a_kernel(LANE_SPLIT_ARGS) {
+  lane_split_chunks<KMAX, kLanesA4a, kBeamsA4a, 1, false>(
+      feats, w0b, rows, los, nullptr, counts, data_t, wide_t, a12d, ovf,
+      n_chunks, blk, w_sl, k_ext, wc, k_occ, cap, blockIdx.x);
+}
+
+template <int KMAX>
+__global__ void __launch_bounds__(2 * kLanesA4b * kBeamsA4b)
+    a4b_kernel(LANE_SPLIT_ARGS) {
+  lane_split_chunks<KMAX, kLanesA4b, kBeamsA4b, 2, false>(
+      feats, w0b, rows, los, nullptr, counts, data_t, wide_t, a12d, ovf,
+      n_chunks, blk, w_sl, k_ext, wc, k_occ, cap, 2 * blockIdx.x);
+}
+
+#undef LANE_SPLIT_ARGS
+
+// Launch a lane-split kernel (NL chunks a CTA, G lanes and NB beams a chunk)
+// with its tile of min(w_sl + wc, tile) columns a chunk, raising the
+// kernel's dynamic shared-memory limit past 48 KB where it needs more.
+// Returns the first CUDA error.
+template <int NL, int G, int NB, typename Kernel, typename... Args>
+int launch_lane_split(Kernel kernel, int tile, int n_chunks, int blk,
+                      int w_sl, int wc, cudaStream_t s, Args... args) {
+  const int cap = max(1, min(w_sl + wc, tile));
+  const int smem =
+      NL * cap * static_cast<int>(sizeof(float4) + 2 * sizeof(float));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-  TopK<KMAX> ta, tb;
-  // the slices, then the wide lists, kTile columns of both per pass
-  for (int phase = 0; phase < 2; ++phase) {
-    const int na = phase ? wc : n_s[0], nb = phase ? wc : n_s[1];
-    const size_t lda = phase ? wc : k_ext;
-    const float* pa = phase ? wsrc[0] : src[0];
-    const float* pb = phase ? wsrc[1] : src[1];
-    for (int t0 = 0; t0 < max(na, nb); t0 += kTile) {
-      const int ea = min(kTile, na - t0), eb = min(kTile, nb - t0);
-      __syncthreads();
-      for (int j = threadIdx.x; j < kTile; j += blockDim.x)
-        for (int r = 0; r < 6; ++r) {
-          if (j < ea) tiles[0][r][j] = pa[(size_t)r * lda + t0 + j];
-          if (j < eb) tiles[1][r][j] = pb[(size_t)r * lda + t0 + j];
-        }
-      __syncthreads();
-      for (int j = 0; j < max(ea, eb); ++j) {
-        if (j < ea) ta.consider(ba, tiles[0], j, k_occ);
-        if (j < eb) tb.consider(bb, tiles[1], j, k_occ);
-      }
-    }
-  }
-  ta.write(a12d, ovf, n2, (size_t)2 * blockIdx.x * blk + threadIdx.x, k_occ);
-  tb.write(a12d, ovf, n2, ((size_t)2 * blockIdx.x + 1) * blk + threadIdx.x,
-           k_occ);
+  const dim3 grid(n_chunks / NL, (blk + NB - 1) / NB);
+  kernel<<<grid, NL * NB * G, smem, s>>>(args..., cap);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -666,13 +643,10 @@ extern "C" int occluders_a1(
     int w_sl, int k_ext, int wc, int k_occ, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_chunks == 0) return static_cast<int>(cudaGetLastError());
-  const int cap = max(1, min(w_sl + wc, kTileA1));
-  const int smem = cap * static_cast<int>(sizeof(float4) + 2 * sizeof(float));
-  const dim3 grid(n_chunks, (blk + kBeamsA1 - 1) / kBeamsA1);
-  DISPATCH_K(k_occ, a1_kernel<KMAX><<<grid, kLanesA1 * kBeamsA1, smem, s>>>(
-      feats, w0b, rows, los, has, counts, data_t, wide_t, a12d, ovf,
-      n_chunks, blk, w_sl, k_ext, wc, k_occ, cap))
-  return static_cast<int>(cudaGetLastError());
+  DISPATCH_K(k_occ, return launch_lane_split<1, kLanesA1, kBeamsA1>(
+      a1_kernel<KMAX>, kTileA1, n_chunks, blk, w_sl, wc, s, has, feats, w0b,
+      rows, los, counts, data_t, wide_t, a12d, ovf, n_chunks, blk, w_sl,
+      k_ext, wc, k_occ))
 }
 
 // As occluders_a1, with gloa (n_chunks * blk / group,) i32 band starts and
@@ -712,8 +686,8 @@ extern "C" int occluders_a3(
   return static_cast<int>(cudaGetLastError());
 }
 
-// A1's function with the candidates of a beam across a warp's lanes (kernel
-// A4a). Arguments as occluders_a1 without has: every chunk is computed.
+// A1's function on every chunk, each beam's candidates split over
+// kLanesA4a lanes (kernel A4a). Arguments as occluders_a1 without has.
 extern "C" int occluders_a4a(
     const float* feats, const int* w0b, const int* rows, const int* los,
     const int* counts, const float* data_t, const float* wide_t, float* a12d,
@@ -721,23 +695,14 @@ extern "C" int occluders_a4a(
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_chunks == 0) return static_cast<int>(cudaGetLastError());
-  const int cap = min(w_sl + wc, kTileT);
-  const int smem = cap * 6 * static_cast<int>(sizeof(float));
-  DISPATCH_K(k_occ, {
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          a4a_kernel<KMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    a4a_kernel<KMAX><<<n_chunks, kWarpsT * 32, smem, s>>>(
-        feats, w0b, rows, los, counts, data_t, wide_t, a12d, ovf, n_chunks,
-        blk, w_sl, k_ext, wc, k_occ, cap);
-  })
-  return static_cast<int>(cudaGetLastError());
+  DISPATCH_K(k_occ, return launch_lane_split<1, kLanesA4a, kBeamsA4a>(
+      a4a_kernel<KMAX>, kTileA4a, n_chunks, blk, w_sl, wc, s, feats, w0b,
+      rows, los, counts, data_t, wide_t, a12d, ovf, n_chunks, blk, w_sl,
+      k_ext, wc, k_occ))
 }
 
-// A1's function on two chunks per CTA (kernel A4b). Arguments as
-// occluders_a4a; n_chunks must be even.
+// A1's function on every chunk, chunks 2i and 2i + 1 in one CTA (kernel
+// A4b). Arguments as occluders_a4a; n_chunks must be even.
 extern "C" int occluders_a4b(
     const float* feats, const int* w0b, const int* rows, const int* los,
     const int* counts, const float* data_t, const float* wide_t, float* a12d,
@@ -746,14 +711,8 @@ extern "C" int occluders_a4b(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_chunks == 0) return static_cast<int>(cudaGetLastError());
   if (n_chunks % 2) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = 2 * static_cast<int>(sizeof(Tile));
-  DISPATCH_K(k_occ, {
-    const cudaError_t e = cudaFuncSetAttribute(
-        a4b_kernel<KMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    a4b_kernel<KMAX><<<n_chunks / 2, blk, smem, s>>>(
-        feats, w0b, rows, los, counts, data_t, wide_t, a12d, ovf, n_chunks,
-        blk, w_sl, k_ext, wc, k_occ);
-  })
-  return static_cast<int>(cudaGetLastError());
+  DISPATCH_K(k_occ, return launch_lane_split<2, kLanesA4b, kBeamsA4b>(
+      a4b_kernel<KMAX>, kTileA4b, n_chunks, blk, w_sl, wc, s, feats, w0b,
+      rows, los, counts, data_t, wide_t, a12d, ovf, n_chunks, blk, w_sl,
+      k_ext, wc, k_occ))
 }

@@ -23,7 +23,7 @@ Per scan:
    - A4b with `pallas_pair` and an even chunk count: A1's function, two
      chunks per CTA;
    - A4a with `pallas_transposed` (and not `pallas_pair`): A1's function,
-     each beam's candidates across a warp.
+     each beam's candidates across 8 lanes.
    A2 and A3 run where the JAX package takes them
    (models/snowfall.py:504-514): `block_points % band_group == 0` and a
    widened slice at least `route_band` (A2) or `2 * band_width` (A3) wide.
@@ -41,8 +41,16 @@ Per scan:
 The slice geometry, and so every overflow counter, is the JAX Pallas
 branch's, so the counters of the two packages can be compared. Where a
 bank row is shorter than the widened slice (the JAX package then takes its
-XLA branch, which neither routes nor bands) the port keeps A1's layout and
-clips the slice to the row.
+XLA branch, which neither routes nor bands) the port keeps A1's layout
+(A4b or A4a under their knobs) and clips the slice to the row: the whole
+row up to one wrap period. The XLA branch's slice holds that period too
+whenever its width is at least the row's particle count, which holds for
+every bank built with window_size >= 64 (a row is count + 2 *
+window_size wide). There the output meets the parity contract and every
+counter equals the XLA branch's, starved capacities included
+(tests/test_torch_snowfall.py::test_clipped_slice_matches_jax). With a
+narrower window_size the XLA slice may miss particles and count them in
+window_overflow, where the port's clipped slice misses none.
 
 `snowfall_augment_dense` runs one scan; `dense_layout`, `run_phase_a` and
 `finish_scan` are its seams, so a batched step (parallel/batched.py) can

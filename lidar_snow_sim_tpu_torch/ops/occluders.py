@@ -21,11 +21,11 @@ candidate column).
   tail-anchored, plus `wide_sl` wide columns, and a per-beam coverage
   plane. Chosen by `band_width > 0`, which supersedes `route_band`.
 - A4a (`find_occluders_t`; TPU `_kernel_t`, :312): A1's function with each
-  beam's candidates split across a warp's lanes. Chosen by
-  `pallas_transposed`.
+  beam's candidates split across 8 lanes. Chosen by `pallas_transposed`.
 - A4b (`find_occluders_pair`; TPU `_kernel_pair`, :747): A1's function on
-  two chunks per CTA, two independent chains per thread; needs an even
-  chunk count. Chosen by `pallas_pair`.
+  two chunks per CTA, each on its own threads; needs an even chunk count.
+  Chosen by `pallas_pair`.
+  A1, A4a and A4b run one lane-split body in the CUDA source.
   A4a and A4b compute every chunk (the TPU kernels have no `has` gate), so
   their plain version, `occluders_ungated_plain`, is A1's with every chunk
   live.

@@ -1,5 +1,5 @@
-"""An A/B of kernels A1 (single and folded over 16 frames) and C1 against
-another checkout's, on one CUDA device.
+"""An A/B of kernels A1 (single and folded over 16 frames), A4a, A4b and C1
+against another checkout's, on one CUDA device.
 
     python -m scripts.kernel_ab --other DIR [--rounds 2]
 
@@ -7,9 +7,11 @@ Run from the repository root. DIR is the root of another checkout of the
 repository (a `git archive` of the parent commit, say). Its
 csrc/occluders.cu and csrc/pulse.cu are compiled here by nvcc with this
 tree's flags into DIR's own build directory and loaded with this tree's
-C signatures, so both versions' A1 and C1 run through their C entry points
-on the same inputs: the phase-A and phase-C inputs of chip_smoke.py's
-bench scene, and the A1 chunks of 16 frames of it folded into one launch.
+C signatures, so both versions' A1, A4a, A4b and C1 run through their C
+entry points on the same inputs: the phase-A and phase-C inputs of
+chip_smoke.py's bench scene (A4a and A4b on A1's layout without its has
+gate, as chip_smoke's phase 7 runs them), and the A1 chunks of 16 frames
+of it folded into one launch.
 Their outputs must be equal; then each kernel's device_ms
 (`tools/kernel_times.device_ms`) in turns, other, this, this, other per
 round. Prints one JSON line after the card's name and power limit.
@@ -124,6 +126,37 @@ def _a1_call(lib, args, kw):
     return run
 
 
+def ungated_call(lib, entry: str, args, kw):
+    """fn() launching `lib`'s `entry` (occluders_a4a or occluders_a4b) on
+    A1's arguments `args` without has, into fixed outputs."""
+    import torch
+
+    feats, w0b, rows, los, counts, data_t, wide_t = args
+    n_chunks, blk, k = rows.shape[0], kw["blk"], kw["k_occ"]
+    a12d = torch.empty((3 * k, n_chunks * blk), device=feats.device)
+    ovf = torch.empty((n_chunks, blk), dtype=torch.int32, device=feats.device)
+    ptrs = [t.data_ptr() for t in (*args, a12d, ovf)]
+
+    def run():
+        _kernels.check(getattr(lib, entry)(
+            *ptrs, n_chunks, blk, kw["w_sl"], data_t.shape[2],
+            wide_t.shape[2], k,
+            torch.cuda.current_stream().cuda_stream), entry)
+        return a12d, ovf
+    return run
+
+
+def phase_a_equal(got, want, k: int) -> bool:
+    """Whether two phase-A outputs (a12d, ovf) agree as chip_smoke holds
+    them: ovf and the dist plane equal, a1/a2 where dist < 1e37."""
+    import torch
+
+    live = torch.cat([want[0][2 * k:] < 1e37] * 2)
+    return (torch.equal(got[1], want[1])
+            and torch.equal(got[0][2 * k:], want[0][2 * k:])
+            and torch.equal(got[0][:2 * k][live], want[0][:2 * k][live]))
+
+
 def _c1_call(lib, args, kw):
     """fn() launching `lib`'s pulse_c1 on `args` into fixed outputs."""
     import torch
@@ -171,6 +204,8 @@ def main(argv=None) -> int:
     lay, folded, calib_t, cfg = bench_inputs(dev)
     kw = lay.occluder_kw
 
+    feats, w0b, rows, los, _, counts, data_t, wide_t = lay.occluder_args
+    args_u = (feats, w0b, rows, los, counts, data_t, wide_t)
     calls = {}
     for ver, lib in libs.items():
         a12d, ovf = _a1_call(lib["occluders"], lay.occluder_args, kw)()
@@ -181,6 +216,10 @@ def main(argv=None) -> int:
                    "a1_kernel"),
             "A1 folded 16 frames": (_a1_call(lib["occluders"], folded, kw),
                                     "a1_kernel"),
+            "A4a": (ungated_call(lib["occluders"], "occluders_a4a", args_u,
+                                 kw), "a4a_kernel"),
+            "A4b": (ungated_call(lib["occluders"], "occluders_a4b", args_u,
+                                 kw), "a4b_kernel"),
             "C1": (_c1_call(lib["pulse"], comp.pulse_args, comp.pulse_kw),
                    "c1_kernel"),
         }
@@ -188,13 +227,8 @@ def main(argv=None) -> int:
         got = [t.clone() for t in calls["this"][name][0]()]
         want = calls["other"][name][0]()
         torch.cuda.synchronize()
-        if name.startswith("A1"):   # a1/a2 where dist < 1e37, as chip_smoke
-            k = kw["k_occ"]
-            live = torch.cat([want[0][2 * k:] < 1e37] * 2)
-            same = (torch.equal(got[1], want[1])
-                    and torch.equal(got[0][2 * k:], want[0][2 * k:])
-                    and torch.equal(got[0][:2 * k][live],
-                                    want[0][:2 * k][live]))
+        if name.startswith("A"):    # a1/a2 where dist < 1e37, as chip_smoke
+            same = phase_a_equal(got, want, kw["k_occ"])
         else:
             same = all(torch.equal(a, b) for a, b in zip(got, want))
         if not same:

@@ -366,20 +366,29 @@ def test_cuda_l1_rejects_wide_tables(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["A4a", "A4b"])
-@pytest.mark.parametrize("case,slice_width,sets", [
-    ("dense", 256, None), ("scene", 256, None), ("scene", 2048, None),
+@pytest.mark.parametrize("case,slice_width,sets,k,twins", [
+    ("dense", 256, None, None, False), ("scene", 256, None, None, False),
+    ("scene", 2048, None, None, False),
     # 6000 flakes a channel and the whole row as the slice: candidate lists
-    # longer than A4a's 4096-candidate tile, staged once per beam round
-    ("dense", 8192, (9, 6000, 0.9, 0.15, 2.0)),
+    # longer than one staged tile
+    ("dense", 8192, (9, 6000, 0.9, 0.15, 2.0), None, False),
+    # A1's cases (test_cuda_a1_matches_plain): K = 24, 64 and 512; every
+    # particle three times (ties to the lowest column, across lanes and
+    # lists); K = 8 under many large flakes; 12,000 flakes a channel, lists
+    # longer than a tile and than a CTA's 227 KB of shared memory
+    ("scene", 256, None, 24, False), ("scene", 256, None, 64, False),
+    ("scene", 256, None, 512, False), ("scene", 512, None, 24, True),
+    ("dense", 256, None, 8, False),
+    ("dense", 16384, (9, 12000, 0.9, 0.1, 2.0), 8, False),
 ])
 def test_cuda_ungated_kernels_match_plain(cuda, kernel, case, slice_width,
-                                          sets):
+                                          sets, k, twins):
     """On the card: A4a and A4b equal their plain version (A1's with every
-    chunk live) exactly, dead chunks included, and A1 on the in-channel
-    beams."""
+    chunk live) exactly, dead chunks included, where they hold computed
+    hits and not A1's sentinels, and A1 on the in-channel beams."""
     knob = "pallas_transposed" if kernel == "A4a" else "pallas_pair"
     lay, _, cfg = layout(case, device=cuda, slice_width=slice_width,
-                         sets=sets, **{knob: True})
+                         sets=sets, k=k, twins=twins, **{knob: True})
     assert lay.kernel == kernel
     run = find_occluders_t if kernel == "A4a" else find_occluders_pair
     n0 = run.launches
@@ -390,8 +399,20 @@ def test_cuda_ungated_kernels_match_plain(cuda, kernel, case, slice_width,
                                             **lay.occluder_kw)
     k = cfg.max_occluders
     _assert_phase_a_equal(a12d, ovf, a12d_p, ovf_p, k)
+    dead = (~lay.valid_blk.any(dim=1)).repeat_interleave(lay.blk)
+    assert bool(dead.any())
+    assert bool((a12d[2 * k:, dead] < 1e37).any())     # computed, not empty
+    assert torch.equal(a12d[2 * k:, dead], a12d_p[2 * k:, dead])
+    assert torch.equal(ovf.reshape(-1)[dead], ovf_p.reshape(-1)[dead])
+    if case == "dense":
+        assert bool((ovf > 0).any())                   # more hits than K
+    if twins:                                          # ties were kept
+        d = a12d[2 * k:]
+        assert bool(((d[1:] == d[:-1]) & (d[1:] < 1e37)).any())
+    if sets is not None and sets[1] > 6000:            # 24 bytes a column
+        assert int(lay.occluder_args[4].max()) > 232448 // 24
     lay1, _, _ = layout(case, device=cuda, slice_width=slice_width,
-                        sets=sets)
+                        sets=sets, k=k, twins=twins)
     a12d_1, ovf_1 = find_occluders(*lay1.occluder_args, **lay1.occluder_kw)
     valid = lay.valid_blk.reshape(-1)
     assert torch.equal(ovf.reshape(-1)[valid], ovf_1.reshape(-1)[valid])

@@ -226,6 +226,44 @@ def test_slice_wider_than_bank_row():
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("starved", [False, True])
+@pytest.mark.parametrize("change,kernel", [
+    (dict(), "A1"),
+    (dict(pallas_pair=True), "A4b"),
+    (dict(pallas_transposed=True), "A4a"),
+])
+def test_clipped_slice_matches_jax(change, kernel, starved):
+    """A slice wider than the bank row against the JAX package, which takes
+    its XLA dense branch there (k_ext < slice_width + 128). The port's
+    clipped slice, on A1 or on A4b / A4a under their knobs, is the whole
+    row up to one wrap period, which is the XLA branch's slice: every
+    counter is equal and the output meets the parity contract. Starved
+    capacities fire the occluder, channel and compact counters with the
+    XLA branch's counts."""
+    pc, sets, base = _scene("fov")
+    bank = build_bank(sets, window_size=256, wide_capacity=64)
+    assert bank.angle.shape[1] < 2048
+    order = np.random.default_rng(3).permutation(64)
+    cfg = SnowfallConfig(**dict(base, slice_width=2048, **change))
+    if starved:
+        cfg = dataclasses.replace(
+            cfg, channel_capacity=64, compact_capacity=64, pulse_chunk=64,
+            touch_capacity=16, scatter_capacity=16, max_occluders=1,
+            max_bumps=1)
+    assert _kernel_of(pc, bank, order, cfg) == kernel
+    rj = _run_jax(pc, bank, order, cfg)
+    rt, noise_at = _run_port(pc, bank, order, cfg)
+    got = {c: int(getattr(rt, c)) for c in COUNTERS}
+    assert got == {c: int(getattr(rj, c)) for c in COUNTERS}
+    if starved:
+        for c in ("occluder_overflow", "channel_overflow",
+                  "compact_overflow"):
+            assert got[c] > 0, c
+        return
+    assert (rt.planes[4, :len(pc)].numpy() > 0).sum() > 10
+    _assert_parity(pc, sets, order, rj, rt, noise_at)
+
+
 @pytest.mark.parametrize("starve,fires", [
     (dict(slice_width=8), "window_overflow"),
     (dict(max_occluders=1, max_bumps=1), "occluder_overflow"),
