@@ -6,7 +6,7 @@
 //      of `blk` consecutive sorted beams against one bank slice
 //      data_t[row, :, lo:lo+w_sl] plus the row's whole wide list;
 //   A2 `_kernel_routed`: per chunk mode 0 (dead: sentinels), mode 1 (A1's
-//      body) or mode 2 (each band_group of beams against its own band
+//      function) or mode 2 (each band_group of beams against its own band
 //      data_t[row, :, gloa:gloa+band] plus wide[:wide_sl]);
 //   A3 `_kernel_banded` (with `_prep_banded`): each band_group against two
 //      bands, head-anchored A and tail-anchored B (B's columns already in A
@@ -20,79 +20,48 @@
 // What bounds them on this card: instructions issued, not bytes. The hit
 // test is ~20 flops per (beam, column) pair; at the bench shapes (576
 // chunks x 128 beams) A1 tests 1408 columns per beam (~83 M tests on the
-// live chunks), A2's fast chunks 384 + 32 and A3 at most 2 x band + 32,
-// while each staged column is 24 bytes read once per chunk (~19.5 MB, most
-// of it from L2). So the count of instructions per test, and how many
-// warps each SM has in flight to hide their latency, set the time.
+// live chunks), A2's mode-2 chunks 384 + 32 and A3 at most 2 x band + 32,
+// while each staged column is 24 bytes read once per CTA (most of it from
+// L2). So the count of instructions per test, how many warps each SM has
+// in flight to hide their latency, and how evenly the CTAs fill the SMs set
+// the time; for A2 and A3, whose CTAs test ~100 columns a lane against
+// A1's 352, also each CTA's fixed costs (its hull, staging and merge).
 //
-// A1 (redesigned for the H100). The first port gave one thread a beam and
-// one CTA of 4 warps a chunk: a single wave of 576 CTAs, ~20% of them dead,
-// ~3.5 warps per scheduler, and per test six scalar shared loads, the wrap
-// shifts of the centre test recomputed, the loop bounds re-derived and a
-// branch into the insertion. Now:
-//   - a beam's list is split over kLanesA1 lanes (lane s tests candidates
-//     s, s + kLanesA1, ...), each lane keeps its own top-K, and the lanes
-//     merge (merge_write), which is exact for "value, then lowest index";
-//     a CTA holds kBeamsA1 beams, so a chunk is blk / 64 CTAs and the grid
-//     is many more, smaller items (balance across the 132 SMs, ~6 CTAs of
-//     8 warps resident on each);
-//   - the CTA stages its list as structures, {x, y, r, dist} in one float4
-//     plus the angle: one LDS.128 and one LDS.32 a test; the half-width
-//     only for a kept hit;
-//   - the beam's centre-test bounds are worked out once (Beam), the loop is
-//     unrolled with a branch-free test (& and |, the hit count in a
-//     register), and the insertion is a rare path behind one compare
-//     against the K-th kept range.
-// The no-hit path of a test fell from 46 SASS instructions to 32.75
-// (scripts/sass_loops.py), and the device time at the bench shapes to 0.44x
-// the first port's on an H100 at 700 W (tools/kernel_times.py).
-// A slice longer than the tile (a grown slice, up to the bank row) streams
-// through it in column order, which keeps the tie order.
-//
-// A4a and A4b (redesigned for the H100) compute A1's function on every
-// chunk and run A1's body: one device function, lane_split_chunks, with a
-// compile-time switch for the has gate, so the three share their staging,
-// their per-test code (33 SASS instructions a no-hit test) and their
-// merge. Like A1 they are bound by the instructions issued a test and by
-// how many warps each SM keeps in flight to hide the shared-memory and
-// shuffle latencies, not by bytes; and, with ~1.5 waves of CTAs, by how
-// evenly the last wave fills the SMs.
-//   - A4a replaces `_kernel_t`, whose point on the TPU is a beam's
-//     candidates across the lanes (sublanes there) and a reduction along
-//     them a trip. Here a beam's list stays split, over kLanesA4a lanes,
-//     merged by merge_write. The first port gave a warp one beam (32
-//     lanes) and ran the per-test path A1 dropped (six scalar loads from a
-//     row-major tile, a branch on every test, the hit count in memory).
-//     The split (8 lanes, 64 beams a CTA) is the fastest of the variants
-//     timed on the card (scripts/a4_sweep.py): fewer beams a CTA pay the
-//     staging of the whole list for fewer beams, more lanes a beam more
-//     shuffles a merge trip.
-//   - A4b replaces `_kernel_pair`, which interleaves two chunks' extraction
-//     loops for instruction-level parallelism on the TPU. Here a CTA still
-//     owns chunks 2i and 2i + 1 (so the chunk count must be even), as two
-//     groups of threads, each running the lane split (kLanesA4b lanes a
-//     beam) on kBeamsA4b beams of its own chunk, so the pair costs no
-//     occupancy: the CTA stages both lists, each in its own region of
-//     dynamic shared memory (over 48 KB, after cudaFuncSetAttribute), and
-//     each chunk keeps its own candidate indices for the merge. The first
-//     port gave a CTA of 4 warps both chunks' 128 beams, one thread a beam
-//     with both chains: 288 CTAs, ~9 warps an SM, too few to hide the
-//     shared-memory latency.
-//
-// A2 and A3: one CTA per chunk, one thread per beam. After the wrap-pad
-// dedup every candidate list is a run of ascending bank columns, at most
-// two intervals of it (A3: band A, then band B's columns past band A),
-// then the wide columns. So the CTA stages the bank columns that any of its
-// threads needs (A2/A3: the union of the chunk's bands, all inside its
-// slice) through one shared-memory tile of kTile columns, in ascending
-// order, each column loaded once; a thread tests only the columns of its
-// own intervals, which keeps the list order. Candidate property rows are
-// x, y, r, dist, azimuth in [0, 2pi) and half-width. Each thread keeps a
-// sorted top-K list in local memory; a hit is inserted only when its range
-// is strictly below the current K-th, which reproduces "value, then lowest
-// index". Hits are rare (a few per beam), so the insertion cost is small.
-// Every kernel here calls one hit test (hit_test) and one interval
-// function, so their arithmetic is identical.
+// One body computes A1's function for all five. A CTA stages a candidate
+// list in shared memory, column order kept (ChunkList): a bank range
+// [c_lo, c_hi) of its chunk's row, then a prefix wide[:w_n] of the row's
+// wide list, cap columns a pass (a longer list streams through in passes),
+// as structures, {x, y, r, dist} in one float4 plus the angle: one LDS.128
+// and one LDS.32 a test, the half-width only for a kept hit. A beam's
+// candidates are split over G lanes (lane s tests s, s + G, ...); each lane
+// tests with the branch-free hit_test, the hit count in a register and the
+// insertion behind one compare against its K-th kept range (test_span),
+// then merge_write joins the lanes' lists, exact for lax.top_k's "value,
+// then lowest index" with the staged position as the index (it ascends
+// along every beam's list). The first ports gave one thread a beam and one
+// CTA of 4 warps a chunk, with six scalar shared loads, a branch on every
+// test and the bounds re-derived every tile: 46 SASS instructions a no-hit
+// test, against 31.75-33.25 now (scripts/sass_loops.py).
+//   - A1, A4a, A4b and A2's mode 1 (lane_split_chunks): the list is the
+//     chunk's slice [lo, lo + n_s) then wide[:wc], and every beam tests all
+//     of it. A1 gates on has; A4b puts chunks 2i and 2i + 1 in one CTA, as
+//     two groups of threads with their lists in separate regions of the
+//     dynamic shared memory (the pair costs no occupancy), which is how it
+//     replaces `_kernel_pair`'s interleaved chains; A4a replaces
+//     `_kernel_t`'s beam across the sublanes by the lane split itself.
+//   - A2's mode 2 and A3 (band_chunk): after the wrap-pad dedup a beam's
+//     list is at most two runs of ascending bank columns (A2: its group's
+//     band; A3: band A, then band B's columns past band A) and the wide
+//     prefix. The CTA stages the hull of its own groups' runs, not the
+//     chunk's, and each beam tests its runs only; with band_group >= the
+//     beams of a warp their bounds are uniform across the warp. A2's mode
+//     is uniform per chunk, so per CTA; its mode-1 chunks test ~3.4x a
+//     mode-2 chunk's columns a beam, so they run on more lanes a beam over
+//     more CTAs (a second grid row), which keeps them from setting the
+//     kernel's length. A3 computes every chunk, as `_kernel_banded` does,
+//     and writes each beam's coverage flag.
+// The splits (lanes a beam, beams a CTA, columns a pass) are chosen on the
+// card (scripts/phase_a_sweep.py, PERF.md section 6).
 //
 // Exactness. Compiled with -fmad=false: the hit test (|px sin - py cos| < r,
 // the half-plane sign) is a decision boundary, and the plain torch version
@@ -112,9 +81,6 @@ constexpr float kBig = 3.0e38f;
 constexpr int kFeat = 9;   // point-feature rows, see ops/occluders.py
 constexpr int kProp = 8;   // bank property rows
 constexpr int kSangRow = 6;  // bank row of the signed sort angle
-constexpr int kTile = 1024;
-
-typedef float Tile[6][kTile];
 
 // A beam's point features, with the centre test's bounds worked out once.
 // The plain version tests the centre angle against [right, left] and, for a
@@ -170,201 +136,6 @@ __device__ __forceinline__ void interval(const Beam& b, float pang,
   if (right_hit) v1 = b.right;
   if (left_hit) v2 = b.left;
 }
-
-template <int KMAX>
-struct TopK {
-  float d[KMAX], a1[KMAX], a2[KMAX];
-  int n_kept = 0, n_hit = 0;
-
-  // The exact hit test of one staged candidate column, then the insertion
-  // of a hit among the K nearest so far.
-  __device__ __forceinline__ void consider(const Beam& b, const Tile& tile,
-                                           int j, int k_occ) {
-    const float pdist = tile[3][j], pang = tile[4][j];
-    bool right_hit, left_hit;
-    if (!hit_test(b, tile[0][j], tile[1][j], tile[2][j], pdist, pang,
-                  right_hit, left_hit))
-      return;
-    ++n_hit;
-    if (n_kept == k_occ && !(pdist < d[k_occ - 1])) return;
-    float v1, v2;
-    interval(b, pang, tile[5][j], right_hit, left_hit, v1, v2);
-    int pos = n_kept < k_occ ? n_kept : k_occ - 1;
-    while (pos > 0 && d[pos - 1] > pdist) {
-      d[pos] = d[pos - 1];
-      a1[pos] = a1[pos - 1];
-      a2[pos] = a2[pos - 1];
-      --pos;
-    }
-    d[pos] = pdist;
-    a1[pos] = v1;
-    a2[pos] = v2;
-    if (n_kept < k_occ) ++n_kept;
-  }
-
-  __device__ void write(float* a12d, int* ovf, size_t n2, size_t col,
-                        int k_occ) const {
-    for (int k = 0; k < k_occ; ++k) {
-      const bool kept = k < n_kept;
-      a12d[(size_t)k * n2 + col] = kept ? a1[k] : 0.f;
-      a12d[(size_t)(k_occ + k) * n2 + col] = kept ? a2[k] : 0.f;
-      a12d[(size_t)(2 * k_occ + k) * n2 + col] = kept ? d[k] : kBig;
-    }
-    ovf[col] = n_hit > k_occ ? n_hit - k_occ : 0;
-  }
-};
-
-__device__ void write_empty(float* a12d, int* ovf, size_t n2, size_t col,
-                            int k_occ) {
-  for (int k = 0; k < k_occ; ++k) {
-    a12d[(size_t)k * n2 + col] = 0.f;
-    a12d[(size_t)(k_occ + k) * n2 + col] = 0.f;
-    a12d[(size_t)(2 * k_occ + k) * n2 + col] = kBig;
-  }
-  ovf[col] = 0;
-}
-
-// Test every thread's beam against the columns of its own intervals
-// [s0, e0) and [s1, e1) (e0 <= s1; either may be empty), in ascending
-// column order. The CTA stages the columns [c_lo, c_hi), which must hold
-// every thread's intervals, through the shared tile once, so threads whose
-// intervals overlap share the loads. Must be reached by every thread.
-template <int KMAX>
-__device__ void scan_range(Tile& tile, const float* src, size_t ld,
-                           int c_lo, int c_hi, int s0, int e0, int s1,
-                           int e1, const Beam& b, TopK<KMAX>& top,
-                           int k_occ) {
-  for (int t0 = c_lo; t0 < c_hi; t0 += kTile) {
-    const int n_t = min(kTile, c_hi - t0);
-    __syncthreads();
-    for (int j = threadIdx.x; j < n_t; j += blockDim.x)
-      for (int r = 0; r < 6; ++r) tile[r][j] = src[(size_t)r * ld + t0 + j];
-    __syncthreads();
-    for (int c = max(s0, t0); c < min(e0, t0 + n_t); ++c)
-      top.consider(b, tile, c - t0, k_occ);
-    for (int c = max(s1, t0); c < min(e1, t0 + n_t); ++c)
-      top.consider(b, tile, c - t0, k_occ);
-  }
-}
-
-// The smallest and largest of a chunk's n per-group band starts.
-__device__ void start_range(const int* starts, int n, int& lo, int& hi) {
-  lo = starts[0];
-  hi = starts[0];
-  for (int g = 1; g < n; ++g) {
-    lo = min(lo, starts[g]);
-    hi = max(hi, starts[g]);
-  }
-}
-
-// A2's mode 1, A1's function with one thread a beam: the slice
-// [lo, lo + w_sl) of the row up to one wrap period (cnt columns) and the
-// row's end, then its wc wide columns.
-template <int KMAX>
-__device__ void full_slice(Tile& tile, const Beam& b, const float* bank,
-                           const float* wide, int lo, int w_sl, int k_ext,
-                           int cnt, int wc, TopK<KMAX>& top, int k_occ) {
-  const int hi = min(lo + w_sl, k_ext);
-  scan_range(tile, bank, k_ext, lo, hi, lo, min(hi, lo + cnt), 0, 0, b, top,
-             k_occ);
-  scan_range(tile, wide, wc, 0, wc, 0, wc, 0, 0, b, top, k_occ);
-}
-
-template <int KMAX>
-__global__ void a2_kernel(
-    const float* __restrict__ feats, const int* __restrict__ w0b,
-    const int* __restrict__ rows, const int* __restrict__ los,
-    const int* __restrict__ gloa, const int* __restrict__ mode,
-    const int* __restrict__ counts, const float* __restrict__ data_t,
-    const float* __restrict__ wide_t, float* __restrict__ a12d,
-    int* __restrict__ ovf, int n_chunks, int blk, int w_sl, int k_ext,
-    int wc, int k_occ, int band, int group, int wide_sl) {
-  __shared__ Tile tile;
-  const int chunk = blockIdx.x;
-  const size_t n2 = (size_t)n_chunks * blk;
-  const size_t col_out = (size_t)chunk * blk + threadIdx.x;
-  const int m = mode[chunk];   // uniform per CTA
-  if (m == 0) {
-    write_empty(a12d, ovf, n2, col_out, k_occ);
-    return;
-  }
-  const int row = rows[chunk];
-  const int cnt = counts[row];
-  const float* bank = data_t + (size_t)row * kProp * k_ext;
-  const float* wide = wide_t + (size_t)row * kProp * wc;
-  const Beam b(feats + ((size_t)w0b[chunk] * blk + threadIdx.x) * kFeat);
-  TopK<KMAX> top;
-  if (m == 1) {
-    full_slice(tile, b, bank, wide, los[chunk], w_sl, k_ext, cnt, wc, top,
-               k_occ);
-  } else {
-    const int* lo_g = gloa + (size_t)chunk * (blk / group);
-    int c_lo, c_hi;
-    start_range(lo_g, blk / group, c_lo, c_hi);
-    const int s = lo_g[threadIdx.x / group];
-    // the band, one copy per wrap period counted from its start
-    scan_range(tile, bank, k_ext, c_lo, min(c_hi + band, k_ext), s,
-               min(s + min(band, cnt), k_ext), 0, 0, b, top, k_occ);
-    scan_range(tile, wide, wc, 0, wide_sl, 0, wide_sl, 0, 0, b, top, k_occ);
-  }
-  top.write(a12d, ovf, n2, col_out, k_occ);
-}
-
-template <int KMAX>
-__global__ void a3_kernel(
-    const float* __restrict__ feats, const int* __restrict__ w0b,
-    const int* __restrict__ rows, const int* __restrict__ gloa,
-    const int* __restrict__ glob, const int* __restrict__ counts,
-    const float* __restrict__ data_t, const float* __restrict__ wide_t,
-    float* __restrict__ a12d, int* __restrict__ ovf, int* __restrict__ unc,
-    int n_chunks, int blk, int k_ext, int wc, int wide_sl, int k_occ,
-    int band, int group, float delta) {
-  __shared__ Tile tile;
-  const int chunk = blockIdx.x;
-  const size_t n2 = (size_t)n_chunks * blk;
-  const size_t col_out = (size_t)chunk * blk + threadIdx.x;
-  const int row = rows[chunk];
-  const int cnt = counts[row];
-  const float* bank = data_t + (size_t)row * kProp * k_ext;
-  const float* f = feats + ((size_t)w0b[chunk] * blk + threadIdx.x) * kFeat;
-  const Beam b(f);
-  const int n_groups = blk / group;
-  const int* lo_a = gloa + (size_t)chunk * n_groups;
-  const int* lo_b = glob + (size_t)chunk * n_groups;
-  int a_lo, a_hi, b_lo, b_hi;
-  start_range(lo_a, n_groups, a_lo, a_hi);
-  start_range(lo_b, n_groups, b_lo, b_hi);
-  const int g = threadIdx.x / group;
-  const int la = lo_a[g], lb = lo_b[g];
-  // band A up to one wrap period from its start, then the columns of band B
-  // past band A, up to the same period
-  const int end = min(la + cnt, k_ext);
-  TopK<KMAX> top;
-  scan_range(tile, bank, k_ext, min(a_lo, b_lo),
-             min(max(a_hi, b_hi) + band, k_ext), la, min(la + band, end),
-             max(lb, la + band), min(lb + band, end), b, top, k_occ);
-  scan_range(tile, wide_t + (size_t)row * kProp * wc, wc, 0, wide_sl, 0,
-             wide_sl, 0, 0, b, top, k_occ);
-  top.write(a12d, ovf, n2, col_out, k_occ);
-
-  // coverage: the beam's sort-angle window [az - delta, az + delta] lies
-  // inside band A, band B or (when they overlap or adjoin) their union
-  const float* sang = bank + (size_t)kSangRow * k_ext;
-  const float s_a0 = sang[min(la, k_ext - 1)];
-  const float s_a1 = sang[min(la + band - 1, k_ext - 1)];
-  const float s_b0 = sang[min(lb, k_ext - 1)];
-  const float s_b1 = sang[min(lb + band - 1, k_ext - 1)];
-  const float need_l = f[8] - delta;
-  const float need_r = f[8] + delta;
-  const bool in_a = (s_a0 <= need_l) && (need_r <= s_a1);
-  const bool in_b = (s_b0 <= need_l) && (need_r <= s_b1);
-  const bool in_j = (lb - la <= band) && (s_a0 <= need_l) && (need_r <= s_b1);
-  const bool covered = (cnt <= band) || in_a || in_b || in_j;
-  unc[col_out] = covered ? 0 : 1;
-}
-
-
-// ---- A1, A4a and A4b: one lane-split body for A1's function
 
 // One lane's sorted list of its K nearest hits (ascending range; a tie keeps
 // the lower candidate index, which is also the lane's earlier test).
@@ -442,14 +213,16 @@ __device__ void merge_write(LaneTopK<KMAX>& top, float* a12d, int* ovf,
   if (sub == 0) ovf[col_out] = total > k_occ ? total - k_occ : 0;
 }
 
-// A chunk's candidate list in A1's function: the slice [lo, lo + n_s) of its
-// bank row (n_s: the slice up to one wrap period and the row's end), then
-// the row's wc wide columns; n_tot = 0 for a chunk that is not computed.
+// A CTA's staged candidate list: bank columns [c_lo, c_lo + n_s) of its
+// chunk's row, in column order, then the row's first w_n wide columns;
+// n_tot = 0 for a chunk that is not computed.
 struct ChunkList {
-  const float* bank;   // property row 0 of the bank row, at column lo
+  const float* bank;   // property row 0 of the bank row, at column c_lo
   const float* wide;
   int n_s, n_tot, k_ext, wc;
 
+  // A1's list of a chunk: the slice [lo, lo + w_sl) up to one wrap period
+  // (counts[row] columns) and the row's end, then all wc wide columns.
   __device__ ChunkList(const int* rows, const int* los, const int* counts,
                        const float* data_t, const float* wide_t, int chunk,
                        bool computed, int w_sl, int k_ext_, int wc_)
@@ -461,6 +234,14 @@ struct ChunkList {
     bank = data_t + (size_t)row * kProp * k_ext + lo;
     wide = wide_t + (size_t)row * kProp * wc;
   }
+
+  // Bank columns [c_lo, c_lo + n_s) of row `row`, then wide[:w_n].
+  __device__ ChunkList(const float* data_t, const float* wide_t, int row,
+                       int c_lo, int n_s_, int w_n, bool computed,
+                       int k_ext_, int wc_)
+      : bank(data_t + (size_t)row * kProp * k_ext_ + c_lo),
+        wide(wide_t + (size_t)row * kProp * wc_), n_s(n_s_),
+        n_tot(computed ? n_s_ + w_n : 0), k_ext(k_ext_), wc(wc_) {}
 
   // Stage list columns [c0, c0 + n_t) in column order, by the CTA's
   // threads: {x, y, r, dist} as one float4, the angle, the half-width.
@@ -477,7 +258,33 @@ struct ChunkList {
   }
 };
 
-// A1's function on NL chunks per CTA (1, or 2 for A4b): thread group l,
+// Test the beam against staged columns j0, j0 + G, ... below j1 of the
+// current pass (base: the pass's first staged position): the branch-free hit
+// test, the hit count in a register, the insertion behind one compare
+// against the K-th kept range.
+template <int G, int KMAX>
+__device__ __forceinline__ void test_span(
+    const Beam& b, LaneTopK<KMAX>& top, int& n_hit, const float4* xyrd,
+    const float* ang, const float* halfw, int j0, int j1, int base,
+    int k_occ) {
+#pragma unroll 4
+  for (int j = j0; j < j1; j += G) {
+    const float4 q = xyrd[j];
+    const float pang = ang[j];
+    bool right_hit, left_hit;
+    const bool hit =
+        hit_test(b, q.x, q.y, q.z, q.w, pang, right_hit, left_hit);
+    n_hit += hit ? 1 : 0;
+    if (hit && top.takes(q.w, k_occ)) {   // rare: a kept hit
+      float v1, v2;
+      interval(b, pang, halfw[j], right_hit, left_hit, v1, v2);
+      top.insert(q.w, v1, v2, base + j, k_occ);
+    }
+  }
+}
+
+// A1's function on NL chunks per CTA (1, or 2 for A4b; A1, A4a, A4b and
+// A2's mode-1 chunks): thread group l,
 // threads [l * NB * G, (l + 1) * NB * G), holds beams blockIdx.y * NB ...
 // + NB - 1 of chunk chunk0 + l, G lanes a beam. The CTA stages every
 // chunk's list, cap columns a pass, each in its own region of the dynamic
@@ -487,8 +294,9 @@ struct ChunkList {
 // the insertion behind one compare against the K-th kept range; then
 // merge_write joins the lanes' lists in lax.top_k order, with each chunk's
 // own candidate indices. kGated: a chunk with has == 0 is not computed and
-// gets sentinels (A1); otherwise every chunk is computed (A4a, A4b). Every
-// thread of the CTA must call it.
+// gets sentinels (A1); otherwise every chunk is computed. Every thread of
+// the CTA must call it. (A pass loop shared with band_chunk, its bounds
+// per beam, cost A1, A4a and A4b 2.5-3.3% and spills: PERF.md section 6.)
 template <int KMAX, int G, int NB, int NL, bool kGated>
 __device__ __forceinline__ void lane_split_chunks(
     const float* __restrict__ feats, const int* __restrict__ w0b,
@@ -530,42 +338,123 @@ __device__ __forceinline__ void lane_split_chunks(
     __syncthreads();
     if (!active) continue;
     const int n_t = min(cap, n_me - c0);
-#pragma unroll 4
-    for (int j = sub; j < n_t; j += G) {
-      const float4 q = my_xyrd[j];
-      const float pang = my_ang[j];
-      bool right_hit, left_hit;
-      const bool hit =
-          hit_test(b, q.x, q.y, q.z, q.w, pang, right_hit, left_hit);
-      n_hit += hit ? 1 : 0;
-      if (hit && top.takes(q.w, k_occ)) {   // rare: a kept hit
-        float v1, v2;
-        interval(b, pang, my_halfw[j], right_hit, left_hit, v1, v2);
-        top.insert(q.w, v1, v2, c0 + j, k_occ);
-      }
-    }
+    test_span<G>(b, top, n_hit, my_xyrd, my_ang, my_halfw, sub, n_t, c0,
+                 k_occ);
   }
   top.n_hit = n_hit;
   merge_write<G>(top, a12d, ovf, n2, (size_t)chunk * blk + beam, k_occ, sub,
                  active);
 }
 
-// A1: 4 lanes a beam, 64 beams a CTA (a chunk spans blk / 64 CTAs), up to
-// 2,048 staged columns a pass (48 KB), the has gate.
+// Group g's bank-column runs, one copy a wrap period (cnt columns). A2 (lb
+// null): its band [s, min(s + min(band, cnt), k_ext)). A3: band A
+// [la, min(la + band, end)), then band B's columns past band A,
+// [max(lb, la + band), min(lb + band, end)), end = min(la + cnt, k_ext).
+struct Bands {
+  int lo0, hi0, lo1, hi1;
+};
+
+__device__ __forceinline__ Bands group_bands(const int* la, const int* lb,
+                                             int g, int band, int cnt,
+                                             int k_ext) {
+  const int a = la[g];
+  if (lb == nullptr) return {a, min(a + min(band, cnt), k_ext), 0, 0};
+  const int end = min(a + cnt, k_ext);
+  const int b = lb[g];
+  return {a, min(a + band, end), max(b, a + band), min(b + band, end)};
+}
+
+// A2's mode 2 (gla = gloa, glb null) and A3 (gla = gloa, glb = glob) on
+// chunk `chunk`: beams blockIdx.y * NB ... + NB - 1, G lanes a beam, with
+// lane_split_chunks' staging, test loop, top-K and merge. The CTA stages
+// the hull of its own groups' runs, then wide[:wide_sl], cap columns a
+// pass; each beam tests its group's runs, then the wide prefix, in list
+// order, their bounds clipped to the pass once a pass. The staged position
+// is the candidate index: it ascends along every beam's list. computed =
+// false (A2's mode 0): an empty list, so sentinels and overflow 0.
+template <int KMAX, int G, int NB>
+__device__ __forceinline__ void band_chunk(
+    const int* __restrict__ gla, const int* __restrict__ glb, bool computed,
+    int band, int group, int wide_sl, const float* __restrict__ feats,
+    const int* __restrict__ w0b, const int* __restrict__ rows,
+    const int* __restrict__ counts, const float* __restrict__ data_t,
+    const float* __restrict__ wide_t, float* __restrict__ a12d,
+    int* __restrict__ ovf, int n_chunks, int blk, int k_ext, int wc,
+    int k_occ, int cap, int chunk) {
+  const int beam0 = blockIdx.y * NB;
+  const int beam = beam0 + threadIdx.x / G;
+  const int row = rows[chunk];
+  const int cnt = counts[row];
+  const size_t g0 = (size_t)chunk * (blk / group);
+  const int* la = gla + g0;
+  const int* lb = glb == nullptr ? nullptr : glb + g0;
+  int c_lo = k_ext, c_hi = 0;
+  for (int g = beam0 / group; g <= (min(beam0 + NB, blk) - 1) / group; ++g) {
+    const Bands r = group_bands(la, lb, g, band, cnt, k_ext);
+    if (r.lo0 < r.hi0) { c_lo = min(c_lo, r.lo0); c_hi = max(c_hi, r.hi0); }
+    if (r.lo1 < r.hi1) { c_lo = min(c_lo, r.lo1); c_hi = max(c_hi, r.hi1); }
+  }
+  const int n_s = max(c_hi - c_lo, 0);
+  if (n_s == 0) c_lo = 0;
+  const ChunkList l(data_t, wide_t, row, c_lo, n_s, wide_sl, computed,
+                    k_ext, wc);
+  const Bands r = group_bands(la, lb, min(beam, blk - 1) / group, band, cnt,
+                              k_ext);
+  const int lo[3] = {r.lo0 - c_lo, r.lo1 - c_lo, n_s};
+  const int hi[3] = {r.hi0 - c_lo, r.hi1 - c_lo, n_s + wide_sl};
+  const Beam b(feats + ((size_t)w0b[chunk] * blk + min(beam, blk - 1)) *
+                           kFeat);
+  extern __shared__ float4 xyrd[];   // cap columns, then ang, halfw
+  float* ang = reinterpret_cast<float*>(xyrd + cap);
+  float* halfw = ang + cap;
+  const int sub = threadIdx.x % G;
+  const bool active = beam < blk;
+  LaneTopK<KMAX> top;
+  int n_hit = 0;
+  for (int c0 = 0; c0 < l.n_tot; c0 += cap) {
+    if (c0 > 0) __syncthreads();   // the last pass's tests are done
+    const int n_t = min(cap, l.n_tot - c0);
+    l.stage(c0, n_t, xyrd, ang, halfw);
+    __syncthreads();
+    if (!active) continue;
+#pragma unroll
+    for (int r = 0; r < 3; ++r)   // in list order: ascending positions
+      test_span<G>(b, top, n_hit, xyrd, ang, halfw, max(lo[r] - c0, 0) + sub,
+                   min(hi[r] - c0, n_t), c0, k_occ);
+  }
+  top.n_hit = n_hit;
+  merge_write<G>(top, a12d, ovf, (size_t)n_chunks * blk,
+                 (size_t)chunk * blk + beam, k_occ, sub, active);
+}
+
+// The splits: lanes a beam, beams a CTA, columns a pass (cap). A1: 4 x 64
+// (a chunk spans blk / 64 CTAs), 2,048 columns (48 KB), the has gate.
+// A4a, A4b, A2 and A3: the fastest of the variants timed on the card
+// (scripts/phase_a_sweep.py, PERF.md section 6). A4a: 8 lanes a beam, 64
+// beams a CTA (512 threads). A4b: chunks 2i and 2i + 1 in one CTA, each on
+// 32 beams of 8 lanes (512 threads, two 1,408-column lists in 66 KB at the
+// bench). A2: mode 2 on 4 lanes x 64 beams, mode 1 on the same 256
+// threads as 32 lanes x 8 beams (a mode-1 chunk on 16 CTAs, not 2). A3:
+// 4 x 64 with 1,024-column passes (24 KB).
 constexpr int kLanesA1 = 4;
 constexpr int kBeamsA1 = 64;
 constexpr int kTileA1 = 2048;
-// A4a and A4b: every chunk; the splits are the fastest of the variants
-// timed on the card (scripts/a4_sweep.py, PERF.md section 6). A4a: 8
-// lanes a beam, 64 beams a CTA (512 threads). A4b: chunks 2i and 2i + 1
-// in one CTA, each on 32 beams of 8 lanes (512 threads, two 1,408-column
-// lists in 66 KB at the bench).
 constexpr int kLanesA4a = 8;
 constexpr int kBeamsA4a = 64;
 constexpr int kTileA4a = 2048;
 constexpr int kLanesA4b = 8;
 constexpr int kBeamsA4b = 32;
 constexpr int kTileA4b = 2048;
+constexpr int kLanesA2 = 4;
+constexpr int kBeamsA2 = 64;
+constexpr int kTileA2 = 2048;
+constexpr int kLanesA2s = 32;
+constexpr int kBeamsA2s = 8;
+constexpr int kLanesA3 = 4;
+constexpr int kBeamsA3 = 64;
+constexpr int kTileA3 = 1024;
+static_assert(kLanesA2 * kBeamsA2 == kLanesA2s * kBeamsA2s,
+              "A2's two modes share the CTA's threads");
 
 #define LANE_SPLIT_ARGS                                                    \
   const float* __restrict__ feats, const int* __restrict__ w0b,           \
@@ -599,27 +488,83 @@ __global__ void __launch_bounds__(2 * kLanesA4b * kBeamsA4b)
       n_chunks, blk, w_sl, k_ext, wc, k_occ, cap, 2 * blockIdx.x);
 }
 
+// A2: the mode is uniform per chunk, so per CTA. The grid has rows enough
+// for the narrower of the two splits; a CTA past its mode's beams exits.
+template <int KMAX>
+__global__ void __launch_bounds__(kLanesA2 * kBeamsA2)
+    a2_kernel(const int* __restrict__ gloa, const int* __restrict__ mode,
+              int band, int group, int wide_sl, LANE_SPLIT_ARGS) {
+  const int chunk = blockIdx.x;
+  const int m = mode[chunk];
+  if (m == 1) {
+    if (blockIdx.y * kBeamsA2s < blk)
+      lane_split_chunks<KMAX, kLanesA2s, kBeamsA2s, 1, false>(
+          feats, w0b, rows, los, nullptr, counts, data_t, wide_t, a12d, ovf,
+          n_chunks, blk, w_sl, k_ext, wc, k_occ, cap, chunk);
+  } else if (blockIdx.y * kBeamsA2 < blk) {
+    band_chunk<KMAX, kLanesA2, kBeamsA2>(
+        gloa, nullptr, m == 2, band, group, wide_sl, feats, w0b, rows,
+        counts, data_t, wide_t, a12d, ovf, n_chunks, blk, k_ext, wc, k_occ,
+        cap, chunk);
+  }
+}
+
+// A3: every chunk, then each beam's coverage flag (one lane a beam): its
+// sort-angle window [az - delta, az + delta] lies inside band A, band B or
+// (when they overlap or adjoin) their union.
+template <int KMAX>
+__global__ void __launch_bounds__(kLanesA3 * kBeamsA3)
+    a3_kernel(const int* __restrict__ gloa, const int* __restrict__ glob,
+              int* __restrict__ unc, int band, int group, int wide_sl,
+              float delta, LANE_SPLIT_ARGS) {
+  const int chunk = blockIdx.x;
+  band_chunk<KMAX, kLanesA3, kBeamsA3>(
+      gloa, glob, true, band, group, wide_sl, feats, w0b, rows, counts,
+      data_t, wide_t, a12d, ovf, n_chunks, blk, k_ext, wc, k_occ, cap,
+      chunk);
+  const int beam = blockIdx.y * kBeamsA3 + threadIdx.x / kLanesA3;
+  if (beam >= blk || threadIdx.x % kLanesA3 != 0) return;
+  const int row = rows[chunk];
+  const int cnt = counts[row];
+  const size_t g = (size_t)chunk * (blk / group) + beam / group;
+  const int la = gloa[g], lb = glob[g];
+  const float* sang = data_t + ((size_t)row * kProp + kSangRow) * k_ext;
+  const float s_a0 = sang[min(la, k_ext - 1)];
+  const float s_a1 = sang[min(la + band - 1, k_ext - 1)];
+  const float s_b0 = sang[min(lb, k_ext - 1)];
+  const float s_b1 = sang[min(lb + band - 1, k_ext - 1)];
+  const float az = feats[((size_t)w0b[chunk] * blk + beam) * kFeat + 8];
+  const float need_l = az - delta;
+  const float need_r = az + delta;
+  const bool in_a = (s_a0 <= need_l) && (need_r <= s_a1);
+  const bool in_b = (s_b0 <= need_l) && (need_r <= s_b1);
+  const bool in_j = (lb - la <= band) && (s_a0 <= need_l) && (need_r <= s_b1);
+  const bool covered = (cnt <= band) || in_a || in_b || in_j;
+  unc[(size_t)chunk * blk + beam] = covered ? 0 : 1;
+}
+
 #undef LANE_SPLIT_ARGS
 
-// Launch a lane-split kernel (NL chunks a CTA, G lanes and NB beams a chunk)
-// with its tile of min(w_sl + wc, tile) columns a chunk, raising the
-// kernel's dynamic shared-memory limit past 48 KB where it needs more.
-// Returns the first CUDA error.
-template <int NL, int G, int NB, typename Kernel, typename... Args>
-int launch_lane_split(Kernel kernel, int tile, int n_chunks, int blk,
-                      int w_sl, int wc, cudaStream_t s, Args... args) {
-  const int cap = max(1, min(w_sl + wc, tile));
+// Launch a lane-split kernel on grid (grid_x, grid_y) of `threads`, with
+// nl staged lists of cap columns in its dynamic shared memory, raising the
+// kernel's limit past 48 KB where it needs more; the kernel takes cap as its
+// last argument. Returns the first CUDA error.
+template <typename Kernel, typename... Args>
+int launch_lane_split(Kernel kernel, int grid_x, int grid_y, int threads,
+                      int nl, int cap, cudaStream_t s, Args... args) {
+  cap = max(1, cap);
   const int smem =
-      NL * cap * static_cast<int>(sizeof(float4) + 2 * sizeof(float));
+      nl * cap * static_cast<int>(sizeof(float4) + 2 * sizeof(float));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const dim3 grid(n_chunks / NL, (blk + NB - 1) / NB);
-  kernel<<<grid, NL * NB * G, smem, s>>>(args..., cap);
+  kernel<<<dim3(grid_x, grid_y), threads, smem, s>>>(args..., cap);
   return static_cast<int>(cudaGetLastError());
 }
+
+int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 }  // namespace
 
@@ -643,10 +588,10 @@ extern "C" int occluders_a1(
     int w_sl, int k_ext, int wc, int k_occ, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_chunks == 0) return static_cast<int>(cudaGetLastError());
-  DISPATCH_K(k_occ, return launch_lane_split<1, kLanesA1, kBeamsA1>(
-      a1_kernel<KMAX>, kTileA1, n_chunks, blk, w_sl, wc, s, has, feats, w0b,
-      rows, los, counts, data_t, wide_t, a12d, ovf, n_chunks, blk, w_sl,
-      k_ext, wc, k_occ))
+  DISPATCH_K(k_occ, return launch_lane_split(
+      a1_kernel<KMAX>, n_chunks, cdiv(blk, kBeamsA1), kLanesA1 * kBeamsA1,
+      1, min(w_sl + wc, kTileA1), s, has, feats, w0b, rows, los, counts,
+      data_t, wide_t, a12d, ovf, n_chunks, blk, w_sl, k_ext, wc, k_occ))
 }
 
 // As occluders_a1, with gloa (n_chunks * blk / group,) i32 band starts and
@@ -661,10 +606,12 @@ extern "C" int occluders_a2(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_chunks == 0) return static_cast<int>(cudaGetLastError());
   if (group <= 0 || blk % group) return static_cast<int>(cudaErrorInvalidValue);
-  DISPATCH_K(k_occ, a2_kernel<KMAX><<<n_chunks, blk, 0, s>>>(
-      feats, w0b, rows, los, gloa, mode, counts, data_t, wide_t, a12d, ovf,
-      n_chunks, blk, w_sl, k_ext, wc, k_occ, band, group, wide_sl))
-  return static_cast<int>(cudaGetLastError());
+  // mode 1's list (the slice and every wide column) is the longest
+  DISPATCH_K(k_occ, return launch_lane_split(
+      a2_kernel<KMAX>, n_chunks, cdiv(blk, min(kBeamsA2, kBeamsA2s)),
+      kLanesA2 * kBeamsA2, 1, min(w_sl + wc, kTileA2), s, gloa, mode, band,
+      group, wide_sl, feats, w0b, rows, los, counts, data_t, wide_t, a12d,
+      ovf, n_chunks, blk, w_sl, k_ext, wc, k_occ))
 }
 
 // Two bands per group: gloa, glob (n_chunks * blk / group,) i32 head- and
@@ -680,10 +627,11 @@ extern "C" int occluders_a3(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_chunks == 0) return static_cast<int>(cudaGetLastError());
   if (group <= 0 || blk % group) return static_cast<int>(cudaErrorInvalidValue);
-  DISPATCH_K(k_occ, a3_kernel<KMAX><<<n_chunks, blk, 0, s>>>(
-      feats, w0b, rows, gloa, glob, counts, data_t, wide_t, a12d, ovf, unc,
-      n_chunks, blk, k_ext, wc, wide_sl, k_occ, band, group, delta))
-  return static_cast<int>(cudaGetLastError());
+  DISPATCH_K(k_occ, return launch_lane_split(
+      a3_kernel<KMAX>, n_chunks, cdiv(blk, kBeamsA3), kLanesA3 * kBeamsA3,
+      1, min(k_ext + wide_sl, kTileA3), s, gloa, glob, unc, band, group,
+      wide_sl, delta, feats, w0b, rows, nullptr, counts, data_t, wide_t,
+      a12d, ovf, n_chunks, blk, 0, k_ext, wc, k_occ))
 }
 
 // A1's function on every chunk, each beam's candidates split over
@@ -695,8 +643,9 @@ extern "C" int occluders_a4a(
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_chunks == 0) return static_cast<int>(cudaGetLastError());
-  DISPATCH_K(k_occ, return launch_lane_split<1, kLanesA4a, kBeamsA4a>(
-      a4a_kernel<KMAX>, kTileA4a, n_chunks, blk, w_sl, wc, s, feats, w0b,
+  DISPATCH_K(k_occ, return launch_lane_split(
+      a4a_kernel<KMAX>, n_chunks, cdiv(blk, kBeamsA4a),
+      kLanesA4a * kBeamsA4a, 1, min(w_sl + wc, kTileA4a), s, feats, w0b,
       rows, los, counts, data_t, wide_t, a12d, ovf, n_chunks, blk, w_sl,
       k_ext, wc, k_occ))
 }
@@ -711,8 +660,9 @@ extern "C" int occluders_a4b(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_chunks == 0) return static_cast<int>(cudaGetLastError());
   if (n_chunks % 2) return static_cast<int>(cudaErrorInvalidValue);
-  DISPATCH_K(k_occ, return launch_lane_split<2, kLanesA4b, kBeamsA4b>(
-      a4b_kernel<KMAX>, kTileA4b, n_chunks, blk, w_sl, wc, s, feats, w0b,
+  DISPATCH_K(k_occ, return launch_lane_split(
+      a4b_kernel<KMAX>, n_chunks / 2, cdiv(blk, kBeamsA4b),
+      2 * kLanesA4b * kBeamsA4b, 2, min(w_sl + wc, kTileA4b), s, feats, w0b,
       rows, los, counts, data_t, wide_t, a12d, ovf, n_chunks, blk, w_sl,
       k_ext, wc, k_occ))
 }

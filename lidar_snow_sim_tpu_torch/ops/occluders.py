@@ -25,12 +25,16 @@ candidate column).
 - A4b (`find_occluders_pair`; TPU `_kernel_pair`, :747): A1's function on
   two chunks per CTA, each on its own threads; needs an even chunk count.
   Chosen by `pallas_pair`.
-  A1, A4a and A4b run one lane-split body in the CUDA source.
   A4a and A4b compute every chunk (the TPU kernels have no `has` gate), so
   their plain version, `occluders_ungated_plain`, is A1's with every chunk
   live.
 - The folded A1 (`find_occluders_folded`, the TPU `batch_fold` rule,
   :1080-1128): B frames' A1 chunks in one A1 launch.
+
+All five kernels run one lane-split body in the CUDA source: a beam's
+candidates split over a few lanes and merged in lax.top_k order. A1, A4a,
+A4b and A2's mode-1 chunks test A1's whole list; A2's mode-2 chunks and A3
+test their group's band runs and the wide prefix.
 
 Wrap-pad dedup: a bank row repeats its narrow particles with period
 `count`, so a candidate is kept only as the first copy counted from where

@@ -1,5 +1,5 @@
-"""An A/B of kernels A1 (single and folded over 16 frames), A4a, A4b and C1
-against another checkout's, on one CUDA device.
+"""An A/B of kernels A1 (single and folded over 16 frames), A2, A3, A4a,
+A4b and C1 against another checkout's, on one CUDA device.
 
     python -m scripts.kernel_ab --other DIR [--rounds 2]
 
@@ -7,11 +7,13 @@ Run from the repository root. DIR is the root of another checkout of the
 repository (a `git archive` of the parent commit, say). Its
 csrc/occluders.cu and csrc/pulse.cu are compiled here by nvcc with this
 tree's flags into DIR's own build directory and loaded with this tree's
-C signatures, so both versions' A1, A4a, A4b and C1 run through their C
-entry points on the same inputs: the phase-A and phase-C inputs of
-chip_smoke.py's bench scene (A4a and A4b on A1's layout without its has
-gate, as chip_smoke's phase 7 runs them), and the A1 chunks of 16 frames
-of it folded into one launch.
+C signatures, so both versions' kernels run through their C entry points
+on the same inputs: the phase-A and phase-C inputs of chip_smoke.py's
+bench scene (A4a and A4b on A1's layout without its has gate, as
+chip_smoke's phase 7 runs them; A2 on its routed layout, route_band 384
+and band_group 16, and A3 on its banded one, band_width 256 and
+band_group 8, as chip_smoke's phase 3), and the A1 chunks of 16 frames of
+it folded into one launch.
 Their outputs must be equal; then each kernel's device_ms
 (`tools/kernel_times.device_ms`) in turns, other, this, this, other per
 round. Prints one JSON line after the card's name and power limit.
@@ -21,11 +23,13 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -62,10 +66,20 @@ def build_other(root: Path, name: str) -> ctypes.CDLL:
     return lib
 
 
-def bench_inputs(dev):
-    """chip_smoke.py's bench scene on `dev`: (the phase-A layout of one
-    scan, the folded phase-A arguments of 16 frames of it (bench_batch),
-    the calibration tensors, the config)."""
+class BenchInputs(NamedTuple):
+    lay: object       # A1's phase-A layout of one scan
+    folded: tuple     # the folded phase-A arguments of 16 frames of it
+    calib: tuple      # the calibration tensors
+    cfg: object       # the config
+    routed: object    # A2's layout: route_band 384, band_group 16
+    banded: object    # A3's layout: band_width 256, band_group 8
+
+
+def bench_inputs(dev) -> BenchInputs:
+    """chip_smoke.py's bench scene on `dev`: the phase-A layouts of one scan
+    (A1's, the routed and the banded config's), the folded phase-A
+    arguments of 16 frames of it (bench_batch), the calibration tensors and
+    the config."""
     import torch
 
     from lidar_snow_sim_tpu_torch import (
@@ -93,10 +107,14 @@ def bench_inputs(dev):
     padded = pad_cloud(pc, cfg.max_points)
     points = torch.as_tensor(padded.points, device=dev)
     mask = torch.as_tensor(padded.mask, device=dev)
-    lay = dense_layout(
-        points, mask, bank_t,
-        torch.as_tensor(np.random.default_rng(0).permutation(64), device=dev),
-        ransac_draws(0, cfg.ransac_trials).to(dev), cfg)
+    order = torch.as_tensor(np.random.default_rng(0).permutation(64),
+                            device=dev)
+    draws = ransac_draws(0, cfg.ransac_trials).to(dev)
+
+    def lay_of(c):
+        return dense_layout(points, mask, bank_t, order, draws, c)
+
+    lay = lay_of(cfg)
     orders, seeds = bench_batch()
     frames = [dense_layout(points, mask, bank_t,
                            torch.as_tensor(o, device=dev),
@@ -104,7 +122,13 @@ def bench_inputs(dev):
               for o, s in zip(orders, seeds)]
     folded = fold_args([f.occluder_args for f in frames],
                        lay.occluder_kw["blk"])[0]
-    return lay, folded, calib_to_torch(calib, dev), cfg
+    routed = lay_of(dataclasses.replace(cfg, route_band=384, band_group=16))
+    banded = lay_of(dataclasses.replace(cfg, band_width=256, band_group=8))
+    if (routed.kernel, banded.kernel) != ("A2", "A3"):
+        raise RuntimeError(f"the bench scene laid out {routed.kernel} and "
+                           f"{banded.kernel}, not A2 and A3")
+    return BenchInputs(lay, folded, calib_to_torch(calib, dev), cfg, routed,
+                       banded)
 
 
 def _a1_call(lib, args, kw):
@@ -146,6 +170,47 @@ def ungated_call(lib, entry: str, args, kw):
     return run
 
 
+def routed_call(lib, args, kw):
+    """fn() launching `lib`'s occluders_a2 on A2's arguments `args` into
+    fixed outputs."""
+    import torch
+
+    feats, w0b, rows, los, gloa, mode, counts, data_t, wide_t = args
+    n_chunks, blk, k = rows.shape[0], kw["blk"], kw["k_occ"]
+    a12d = torch.empty((3 * k, n_chunks * blk), device=feats.device)
+    ovf = torch.empty((n_chunks, blk), dtype=torch.int32, device=feats.device)
+    ptrs = [t.data_ptr() for t in (*args, a12d, ovf)]
+
+    def run():
+        _kernels.check(lib.occluders_a2(
+            *ptrs, n_chunks, blk, kw["w_sl"], data_t.shape[2],
+            wide_t.shape[2], k, kw["band"], kw["group"], kw["wide_sl"],
+            torch.cuda.current_stream().cuda_stream), "occluders_a2")
+        return a12d, ovf
+    return run
+
+
+def banded_call(lib, args, kw):
+    """fn() launching `lib`'s occluders_a3 on A3's arguments `args` into
+    fixed outputs."""
+    import torch
+
+    feats, w0b, rows, gloa, glob, counts, data_t, wide_t = args
+    n_chunks, blk, k = rows.shape[0], kw["blk"], kw["k_occ"]
+    a12d = torch.empty((3 * k, n_chunks * blk), device=feats.device)
+    ovf = torch.empty((n_chunks, blk), dtype=torch.int32, device=feats.device)
+    unc = torch.empty((n_chunks, blk), dtype=torch.int32, device=feats.device)
+    ptrs = [t.data_ptr() for t in (*args, a12d, ovf, unc)]
+
+    def run():
+        _kernels.check(lib.occluders_a3(
+            *ptrs, n_chunks, blk, data_t.shape[2], wide_t.shape[2],
+            kw["wide_sl"], k, kw["band"], kw["group"], kw["delta"],
+            torch.cuda.current_stream().cuda_stream), "occluders_a3")
+        return a12d, ovf, unc
+    return run
+
+
 def phase_a_equal(got, want, k: int) -> bool:
     """Whether two phase-A outputs (a12d, ovf) agree as chip_smoke holds
     them: ovf and the dist plane equal, a1/a2 where dist < 1e37."""
@@ -155,6 +220,17 @@ def phase_a_equal(got, want, k: int) -> bool:
     return (torch.equal(got[1], want[1])
             and torch.equal(got[0][2 * k:], want[0][2 * k:])
             and torch.equal(got[0][:2 * k][live], want[0][:2 * k][live]))
+
+
+def outputs_equal(name: str, got, want, k: int) -> bool:
+    """Whether two outputs of kernel `name` agree: A1 (folded too), A4a
+    and A4b as phase_a_equal; A2, A3 (both write a1 = a2 = 0 in empty
+    slots) and C1 in full."""
+    import torch
+
+    if name.startswith(("A1", "A4")):
+        return phase_a_equal(got, want, k)
+    return all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def _c1_call(lib, args, kw):
@@ -201,7 +277,7 @@ def main(argv=None) -> int:
         libs = {"this": {n: f.result() for n, f in this.items()},
                 "other": {n: f.result() for n, f in other.items()}}
 
-    lay, folded, calib_t, cfg = bench_inputs(dev)
+    lay, folded, calib_t, cfg, routed, banded = bench_inputs(dev)
     kw = lay.occluder_kw
 
     feats, w0b, rows, los, _, counts, data_t, wide_t = lay.occluder_args
@@ -220,6 +296,10 @@ def main(argv=None) -> int:
                                  kw), "a4a_kernel"),
             "A4b": (ungated_call(lib["occluders"], "occluders_a4b", args_u,
                                  kw), "a4b_kernel"),
+            "A2": (routed_call(lib["occluders"], routed.occluder_args,
+                               routed.occluder_kw), "a2_kernel"),
+            "A3": (banded_call(lib["occluders"], banded.occluder_args,
+                               banded.occluder_kw), "a3_kernel"),
             "C1": (_c1_call(lib["pulse"], comp.pulse_args, comp.pulse_kw),
                    "c1_kernel"),
         }
@@ -227,11 +307,7 @@ def main(argv=None) -> int:
         got = [t.clone() for t in calls["this"][name][0]()]
         want = calls["other"][name][0]()
         torch.cuda.synchronize()
-        if name.startswith("A"):    # a1/a2 where dist < 1e37, as chip_smoke
-            same = phase_a_equal(got, want, kw["k_occ"])
-        else:
-            same = all(torch.equal(a, b) for a, b in zip(got, want))
-        if not same:
+        if not outputs_equal(name, got, want, kw["k_occ"]):
             print(f"kernel_ab: {name} differs between the two versions",
                   file=sys.stderr)
             return 1

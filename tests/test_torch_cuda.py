@@ -72,11 +72,22 @@ CASES = {
 }
 
 
-def _twins(sets):
+def _twins(sets, n_wide=40):
     """Each set three times: as drawn, again (equal ranges in neighbouring
-    bank columns) and mirrored in y (equal ranges in distant columns)."""
-    return [np.concatenate([s, s, s * np.array([1.0, -1.0, 1.0])])
-            for s in sets]
+    bank columns) and mirrored in y (equal ranges in distant columns); then
+    its `n_wide` nearest narrow particles once more with a radius past the
+    bank's wide threshold (equal ranges in a bank column and a wide
+    column)."""
+    out = []
+    for s in sets:
+        d = np.hypot(s[:, 0], s[:, 1])
+        narrow = np.arcsin(np.clip(s[:, 2] / d, 0.0, 1.0)) <= 5e-3
+        near = np.argsort(np.where(narrow, d, np.inf))[:n_wide]
+        wide = s[near].copy()
+        wide[:, 2] = d[near] * 0.01
+        out.append(np.concatenate([s, s, s * np.array([1.0, -1.0, 1.0]),
+                                   wide]))
+    return out
 
 
 def layout(case, device="cpu", slice_width=256, order=None, sets=None,
@@ -286,23 +297,83 @@ def test_cuda_wrapper_checks_inputs(cuda):
     assert find_occluders_routed.launches == n2
 
 
+# (case, route_band or band_width, band_group, slice_width, sets, k,
+# twins) of the routed (A2) and banded (A3) card tests
+LONG = (9, 12000, 0.9, 0.1, 2.0)   # 12,000 flakes a channel
+ROUTED_CASES = [
+    ("dense", 128, 8, 256, None, None, False),
+    ("dense", 96, 8, 256, None, None, False),
+    ("scene", 128, 8, 256, None, None, False),
+    ("scene", 96, 8, 256, None, None, False),
+    # A1's hard cases: K = 24, 64 and 512; every particle three times and
+    # some once more as wide flakes (ties to the lowest column, across
+    # lanes, runs and bank / wide); K = 8 under many large flakes (the dense
+    # cases above); bands of 4,096 columns and full slices of 8,320, longer
+    # than one 2,048-column staged pass
+    ("scene", 128, 8, 256, None, 24, False),
+    ("scene", 128, 8, 256, None, 64, False),
+    ("scene", 128, 8, 256, None, 512, False),
+    ("scene", 128, 8, 512, None, 24, True),
+    ("dense", 4096, 8, 8192, LONG, 8, False),
+    # groups of 2 and 4 beams: one warp's beams span groups with their own
+    # bands
+    ("scene", 128, 2, 256, None, None, False),
+    ("scene", 128, 4, 512, None, 24, True),
+]
+BANDED_CASES = [
+    ("dense", 256, 8, 384, None, None, False),
+    ("scene", 256, 8, 384, None, None, False),
+    ("scene", 256, 8, 384, None, 24, False),
+    ("scene", 256, 8, 384, None, 64, False),
+    ("scene", 256, 8, 384, None, 512, False),
+    ("scene", 256, 8, 384, None, 24, True),
+    # 128-column bands of 16-beam groups: a tie across bands A and B
+    ("scene", 128, 16, 384, None, 24, True),
+    ("dense", 2560, 8, 8192, LONG, 8, False),
+    ("scene", 256, 2, 384, None, None, False),
+    ("dense", 256, 4, 384, None, None, False),
+]
+
+
+def _grouped_layout(kernel, case, width, group, slice_width, sets, k,
+                    twins, device):
+    knob = "route_band" if kernel == "A2" else "band_width"
+    lay, _, cfg = layout(case, device=device, slice_width=slice_width,
+                         sets=sets, k=k, twins=twins, band_group=group,
+                         **{knob: width})
+    assert lay.kernel == kernel
+    return lay, cfg
+
+
+def _assert_grouped_case(a12d, ovf, case, k, twins):
+    if case == "dense":
+        assert bool((ovf > 0).any())                   # more hits than K
+    if twins:                                          # ties were kept
+        d = a12d[2 * k:]
+        assert bool(((d[1:] == d[:-1]) & (d[1:] < 1e37)).any())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", [128, 96])
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_cuda_routed_matches_plain(cuda, case, route):
+@pytest.mark.parametrize("case,route,group,slice_width,sets,k,twins",
+                         ROUTED_CASES)
+def test_cuda_routed_matches_plain(cuda, case, route, group, slice_width,
+                                   sets, k, twins):
     """On the card: A2 equals its plain version exactly, and A1 on the
     in-channel beams (dist plane and overflow)."""
-    lay, _, cfg = layout(case, device=cuda, route_band=route, band_group=8)
-    assert lay.kernel == "A2"
+    lay, cfg = _grouped_layout("A2", case, route, group, slice_width, sets,
+                               k, twins, cuda)
     n0 = find_occluders_routed.launches
     a12d, ovf = find_occluders_routed(*lay.occluder_args, **lay.occluder_kw)
+    torch.cuda.synchronize()
     assert find_occluders_routed.launches == n0 + 1
     a12d_p, ovf_p = occluders_routed_plain(*lay.occluder_args,
                                            **lay.occluder_kw)
     k = cfg.max_occluders
     assert torch.equal(ovf, ovf_p)
     assert torch.equal(a12d, a12d_p)
-    lay1, _, _ = layout(case, device=cuda)
+    _assert_grouped_case(a12d, ovf, case, k, twins)
+    lay1, _, _ = layout(case, device=cuda, slice_width=slice_width,
+                        sets=sets, k=k, twins=twins)
     a12d_1, ovf_1 = find_occluders(*lay1.occluder_args, **lay1.occluder_kw)
     valid = lay.valid_blk.reshape(-1)
     assert torch.equal(ovf.reshape(-1)[valid], ovf_1.reshape(-1)[valid])
@@ -310,19 +381,22 @@ def test_cuda_routed_matches_plain(cuda, case, route):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_cuda_banded_matches_plain(cuda, case):
+@pytest.mark.parametrize("case,band,group,slice_width,sets,k,twins",
+                         BANDED_CASES)
+def test_cuda_banded_matches_plain(cuda, case, band, group, slice_width,
+                                   sets, k, twins):
     """On the card: A3 equals its plain version exactly, coverage plane
     included."""
-    lay, _, _ = layout(case, device=cuda, slice_width=384, band_width=256,
-                       band_group=8)
-    assert lay.kernel == "A3"
+    lay, cfg = _grouped_layout("A3", case, band, group, slice_width, sets,
+                               k, twins, cuda)
     n0 = find_occluders_banded.launches
     got = find_occluders_banded(*lay.occluder_args, **lay.occluder_kw)
+    torch.cuda.synchronize()
     assert find_occluders_banded.launches == n0 + 1
     want = occluders_banded_plain(*lay.occluder_args, **lay.occluder_kw)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+    _assert_grouped_case(got[0], got[1], case, cfg.max_occluders, twins)
 
 
 @pytest.mark.cuda

@@ -37,7 +37,12 @@ from lidar_snow_sim_tpu_torch.ops.pulse import (
     pulse_peaks_pair,
     pulse_plain,
 )
-from test_torch_cuda import CASES, layout
+from test_torch_cuda import (
+    CASES,
+    ROUTED_CASES,
+    _grouped_layout,
+    layout,
+)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -92,12 +97,26 @@ def _assert_same_phase_a(a12d, ovf, ja, jo, k):
         assert to.max() > 0          # ... and the overflow count
 
 
-@pytest.mark.parametrize("route", [128, 256, 96])
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_a2_plain_matches_pallas(case, route):
+# (case, route_band, band_group, twins): every route on both cases, then
+# tripled particles (ties to the lowest column across lanes, bands and
+# bank / wide columns) and groups of 2 and 4 beams, narrower than a warp's
+A2_CASES = [
+    pytest.param(case, route, 8, False, id=f"{case}-{route}")
+    for route in (128, 256, 96) for case in sorted(CASES)
+] + [
+    pytest.param("scene", 128, 8, True, id="scene-128-twins"),
+    pytest.param("scene", 128, 4, True, id="scene-128-group4-twins"),
+    pytest.param("scene", 128, 2, False, id="scene-128-group2"),
+    pytest.param("dense", 96, 4, False, id="dense-96-group4"),
+]
+
+
+@pytest.mark.parametrize("case,route,group,twins", A2_CASES)
+def test_a2_plain_matches_pallas(case, route, group, twins):
     """Kernel A2's plain version against `_kernel_routed`; 96 is a band
     that is not a multiple of 128 (the upper band clamp floors to 128)."""
-    lay, _, cfg = layout(case, route_band=route, band_group=8)
+    lay, _, cfg = layout(case, route_band=route, band_group=group,
+                         twins=twins, k=24 if twins else None)
     assert lay.kernel == "A2"
     kw = lay.occluder_kw
     a12d, ovf = occluders_routed_plain(*lay.occluder_args, **kw)
@@ -105,7 +124,7 @@ def test_a2_plain_matches_pallas(case, route):
     run = make_pallas_occluder_phase(
         blk=kw["blk"], w_sl=kw["w_sl"], wide_cap=rest[-1].shape[2],
         k_occ=kw["k_occ"], beam_rad=cfg.beam_divergence_rad, interpret=True,
-        route_band=route, band_group=8, wide_sl=kw["wide_sl"],
+        route_band=route, band_group=group, wide_sl=kw["wide_sl"],
     )
     ja, jo = run(jnp.asarray(feats.reshape(-1, kw["blk"], feats.shape[1])),
                  *(jnp.asarray(a) for a in rest))
@@ -114,25 +133,58 @@ def test_a2_plain_matches_pallas(case, route):
     assert modes[2] > 0              # fast chunks exist at every width
     if route == 128 and case == "scene":
         assert modes[1] > 0          # ... and full-slice ones at 128
+    if twins:
+        _assert_ties(a12d, kw["k_occ"])
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_a3_plain_matches_pallas(case):
+def _assert_ties(a12d, k):
+    """Some beam keeps two hits of equal range."""
+    d = a12d[2 * k:]
+    assert bool(((d[1:] == d[:-1]) & (d[1:] < 1e37)).any())
+
+
+def test_routed_card_cases_hold_every_mode():
+    """The routed cases of the card tests (test_torch_cuda.ROUTED_CASES)
+    together hold chunks of modes 0 (dead), 1 (A1's list, its own branch
+    in kernel A2) and 2 (per-group bands)."""
+    seen = set()
+    for case in ROUTED_CASES:
+        lay, _ = _grouped_layout("A2", *case, "cpu")
+        seen |= set(lay.occluder_args[5].tolist())
+    assert seen == {0, 1, 2}
+
+
+# (case, band_width, band_group, twins): both cases, then tripled
+# particles (with 128-column bands of 16 beams also a tie across bands A
+# and B) and groups of 2 and 4 beams
+A3_CASES = [
+    pytest.param(case, 256, 8, False, id=case) for case in sorted(CASES)
+] + [
+    pytest.param("scene", 256, 8, True, id="scene-twins"),
+    pytest.param("scene", 128, 16, True, id="scene-band128-group16-twins"),
+    pytest.param("scene", 256, 2, False, id="scene-group2"),
+    pytest.param("dense", 256, 4, False, id="dense-group4"),
+]
+
+
+@pytest.mark.parametrize("case,band,group,twins", A3_CASES)
+def test_a3_plain_matches_pallas(case, band, group, twins):
     """Kernel A3's plain version against `_kernel_banded` (run_banded),
     coverage plane included; the dense case has uncovered beams."""
-    lay, _, cfg = layout(case, slice_width=384, band_width=256,
-                         band_group=8)
+    lay, _, cfg = layout(case, slice_width=384, band_width=band,
+                         band_group=group, twins=twins,
+                         k=24 if twins else None)
     assert lay.kernel == "A3"
     kw = lay.occluder_kw
     a12d, ovf, unc = occluders_banded_plain(*lay.occluder_args, **kw)
     feats, w0b, rows, gloa, glob, counts, data_t, wide_t = (
         np.asarray(a) for a in lay.occluder_args
     )
-    g_dim = kw["blk"] // 8
+    g_dim = kw["blk"] // group
     run = make_pallas_occluder_phase(
         blk=kw["blk"], w_sl=384 + 128, wide_cap=wide_t.shape[2],
         k_occ=kw["k_occ"], beam_rad=cfg.beam_divergence_rad, interpret=True,
-        band=256, band_group=8, wide_sl=kw["wide_sl"],
+        band=band, band_group=group, wide_sl=kw["wide_sl"],
     )
     glo_vec = np.stack([gloa.reshape(-1, g_dim), glob.reshape(-1, g_dim)],
                        axis=2)
@@ -148,6 +200,8 @@ def test_a3_plain_matches_pallas(case):
     np.testing.assert_array_equal(unc.numpy(), np.asarray(ju))
     if case == "dense":
         assert unc.sum() > 0
+    if twins:
+        _assert_ties(a12d, kw["k_occ"])
 
 
 @pytest.mark.parametrize("kernel", ["A4a", "A4b"])
