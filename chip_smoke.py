@@ -46,7 +46,8 @@ Phases, each printing one line of numbers:
      datagen draws them): kernels A4a (pallas_transposed) and A4b
      (pallas_pair) against their plain version (A1's, every chunk live)
      and against A1 on the in-channel beams, C2 (pulse_pair) against its
-     plain version and C1, exact, and A1 folded over the 16 frames
+     plain version and C1, exact (its record carries C1's ms and
+     device_ms from the same run), and A1 folded over the 16 frames
      (batch_fold) against 16 single launches; then batched_step with the
      default config and with each knob, output byte-identical to the
      default, launches counted around one batch (A1 once with batch_fold,
@@ -1225,6 +1226,7 @@ def main() -> int:
     # --- 8. each kernel's device times, after every end-to-end phase ---
     time_kernels()
     merge_times(kernels)
+    batched["C2"]["c1_device_ms_same_call"] = c1_t["device_ms"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

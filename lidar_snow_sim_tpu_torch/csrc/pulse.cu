@@ -16,10 +16,10 @@
 //      over the M-bin range grid, and take the peak and its first bin.
 //
 // Design. A group of G lanes carries one beam (C1: G = kLanesC1 = 16, two
-// beams a warp; C2: G = 32, the whole warp for each of its two beams). The
-// beam's state (endpoints, claimed widths, intervals, bumps) lives in its
-// slice of shared memory, and a final group reduction takes the maximum of
-// the wave and the lowest bin among equal values.
+// beams a warp; C2: G = kLanesC2, the two beams of a pair in one warp).
+// The beam's state (endpoints, claimed widths, intervals, bumps) lives in
+// its slice of shared memory, and a final group reduction takes the
+// maximum of the wave and the lowest bin among equal values.
 //
 // The sweep (sweep_all, both kernels). The TPU kernel runs it as up to
 // 2K + 2 dependent extract-min trips, each over all 2K + 2 endpoints. Here
@@ -54,19 +54,28 @@
 //
 // A beam whose amplitudes are all 0 has an all-zero wave: peak 0 at bin 0.
 //
-// C1's precondition: in each beam the valid occluders' ranges rise with
-// their slot, and none lies past the target's d_orig. Phase A's top-K
-// order and its hit test (pdist < d_orig) give exactly that, and it makes
-// the walked windows' bin bounds ascend, which the walk relies on. C2 and
-// the plain version take any order.
+// The precondition of C1 and C2: in each beam the valid occluders' ranges
+// rise with their slot, and none lies past the target's d_orig. Phase A's
+// top-K order and its hit test (pdist < d_orig) give exactly that, and it
+// makes the walked windows' bin bounds ascend, which the walk relies on.
+// The plain version takes any order.
 //
-// C2 (the `pulse_pair` knob). The TPU kernel interleaves two blocks' sweep
-// and wave loops under shared trip counts, two independent chains for the
-// scheduler. Here one warp carries one beam of each of two blocks: two
-// sweeps and two wave accumulators per lane over all M bins, stepped under
-// the pair's larger last active bump; the extra bumps add exact zeros, so
-// C2's values are C1's, with C1's tie rules. It needs an even number of
-// blocks.
+// C2 (the `pulse_pair` knob) is C1's body under the TPU kernel's pair map:
+// beam j of pulse blocks 2i and 2i + 1 (blocks of blk beams) share a warp,
+// each on its own group of kLanesC2 lanes, so its values are C1's, with
+// C1's tie rules; it needs an even number of blocks. The TPU kernel pairs
+// the blocks to run two independent sweep chains side by side; here every
+// warp already runs two beams' chains, so the pair only chooses which two
+// beams share a warp. That costs little: the count-bucketed compaction
+// sorts beams by occluder count, so paired blocks have near-equal trip
+// counts (pallas_pulse.py's `_kernel_pair` docstring), though less equal
+// than neighbouring beams: on the bench scene 17% of pairs differ in
+// occluder count against 0.07% of C1's neighbours, and C2 takes ~1.06x
+// C1's device time on an H100 (PERF.md). The split (lanes a beam) was chosen on the card against 8
+// and 4 lanes (two and four pairs a warp) and 32 lanes with the pair's
+// two walks interleaved in one warp (scripts/phase_c_sweep.py; PERF.md).
+// c2_kernel repeats c1_kernel's few lines of calls rather than sharing
+// them, so that C1's code stays as it was.
 //
 // Exactness. Compiled with -fmad=false: the pulse sums are decision
 // boundaries (the peak bin sets the label), and the plain torch version
@@ -81,6 +90,8 @@ constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kBig = 3.0e38f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kLanesC1 = 16;          // lanes per beam in C1
+constexpr int kLanesC2 = 16;          // lanes per beam in C2
+static_assert(32 % (2 * kLanesC2) == 0, "a pair shares one warp");
 constexpr int kSmemMax = 232448;      // a CTA's shared memory on the H100
 
 // Reductions over the group of G lanes that holds a beam (G a power of two
@@ -249,15 +260,14 @@ __device__ void sweep_all(Side& s, int K, int gl) {
 }
 
 // Shares -> amplitudes; window bounds in bins; touched and the last active
-// bump. The bumps are filled for b < last_active and the target, or for
-// every b when `all_bumps` (C2 sums a pair's bumps under one bound).
+// bump. The bumps are filled for b < last_active and the target.
 template <int G>
 __device__ void amplitudes(Side& s, const float* __restrict__ feats,
                            const float* __restrict__ rrg,
                            const float* __restrict__ cos_b,
                            const float* __restrict__ sin_b, int cap, int K,
                            int lane, float beam_rad, float ipm, float c_tau,
-                           float xsi_r1, float xsi_den, bool all_bumps) {
+                           float xsi_r1, float xsi_den) {
   const int p = s.p;
   const int gl = lane & (G - 1);
   const float amp_scale = feats[3 * (size_t)cap + p];
@@ -273,9 +283,8 @@ __device__ void amplitudes(Side& s, const float* __restrict__ feats,
   }
   s.touched = (__ballot_sync(kFull, touched) & group_bits<G>(lane)) != 0u;
   s.last_active = group_max_int<G>(last_active);
-  const int n = all_bumps ? K : s.last_active;
   for (int b = gl; b <= K; b += G) {
-    if (b < K && b >= n) continue;
+    if (b < K && b >= s.last_active) continue;
     float r, share;
     if (b < K) {
       share = fminf(fmaxf(s.claimed[b] / beam_rad, 0.f), 1.f);
@@ -300,18 +309,6 @@ __device__ void amplitudes(Side& s, const float* __restrict__ feats,
 __device__ __forceinline__ float term(float amp, float cb, float sb, float cg,
                                       float sg) {
   return amp * (0.5f * (1.0f - (cg * cb + sg * sb)));
-}
-
-// The waveform at one bin: target bump first, then occluder bumps
-// 0 .. n_bumps - 1 in index order (an inactive bump adds an exact zero).
-__device__ __forceinline__ float wave_at(const Side& s, int K, int n_bumps,
-                                         float bin, float cg, float sg) {
-  float w = (bin >= s.wlo[K] && bin <= s.whi[K])
-                ? term(s.amp[K], s.cb[K], s.sb[K], cg, sg) : 0.f;
-  for (int b = 0; b < n_bumps; ++b)
-    w = w + ((bin >= s.wlo[b] && bin <= s.whi[b])
-                 ? term(s.amp[b], s.cb[b], s.sb[b], cg, sg) : 0.f);
-  return w;
 }
 
 // The group's largest value and its lowest bin among equal values.
@@ -397,7 +394,7 @@ __device__ int lowest_uncovered(const Side& s, int M) {
 // previous window's, then reduce; +0.0 at the lowest uncovered bin joins
 // when the union's peak is not above zero. Every lane of the warp calls it.
 //
-// The windows come sorted (C1's precondition, at the top), so a bin of
+// The windows come sorted (the precondition, at the top), so a bin of
 // window t's run lies past the end of every earlier window and is summed
 // from registers: the target's term if the target holds it, window t's
 // term, and the next windows' only from the bin where the next one starts.
@@ -452,7 +449,8 @@ __device__ void windowed_peak(const Side& s, int K, int M, int lane,
 
 __device__ __forceinline__ void write_out(const Side& s, float best,
                                           int best_i, float* peak_out,
-                                          int* idx_out, int* touched_out,
+                                          int* idx_out,
+                                          unsigned char* touched_out,
                                           float* rem_out) {
   peak_out[s.p] = best;
   idx_out[s.p] = best_i;
@@ -469,7 +467,7 @@ __global__ void c1_kernel(
     const float* __restrict__ validg, const float* __restrict__ cos_b,
     const float* __restrict__ sin_b, const float* __restrict__ cos_g,
     const float* __restrict__ sin_g, float* __restrict__ peak_out,
-    int* __restrict__ idx_out, int* __restrict__ touched_out,
+    int* __restrict__ idx_out, unsigned char* __restrict__ touched_out,
     float* __restrict__ rem_out, int cap, int K, int M, int per_beam,
     float beam_rad, float ipm, float c_tau, float xsi_r1, float xsi_den) {
   constexpr int G = kLanesC1;
@@ -482,7 +480,7 @@ __global__ void c1_kernel(
   side_init<G>(s, feats, a1g, a2g, validg, cap, K, lane);
   sweep_all<G>(s, K, lane & (G - 1));
   amplitudes<G>(s, feats, rrg, cos_b, sin_b, cap, K, lane, beam_rad, ipm,
-                c_tau, xsi_r1, xsi_den, false);
+                c_tau, xsi_r1, xsi_den);
   walk_list<G>(s, K, M, lane);
   float best;
   int best_i;
@@ -491,86 +489,83 @@ __global__ void c1_kernel(
     write_out(s, best, best_i, peak_out, idx_out, touched_out, rem_out);
 }
 
-// Kernel C2: one warp carries beam j of pulse blocks 2i and 2i + 1 (blocks
-// of blk beams): two sweeps and two waves, the waves stepped together under
-// the pair's larger last active bump, as the TPU kernel's pair. The extra
-// bumps add exact zeros, so each beam's values are C1's.
+// Kernel C2: C1's body under the pair map. Beam slots 2j and 2j + 1 of a
+// CTA (kLanesC2 lanes each, in one warp) carry pair q: beam q % blk of
+// pulse blocks 2 (q / blk) and 2 (q / blk) + 1. Slots past the last pair
+// compute it again and write nothing (their lanes take part in the warp's
+// shuffles).
 __global__ void c2_kernel(
     const float* __restrict__ feats, const float* __restrict__ a1g,
     const float* __restrict__ a2g, const float* __restrict__ rrg,
     const float* __restrict__ validg, const float* __restrict__ cos_b,
     const float* __restrict__ sin_b, const float* __restrict__ cos_g,
     const float* __restrict__ sin_g, float* __restrict__ peak_out,
-    int* __restrict__ idx_out, int* __restrict__ touched_out,
-    float* __restrict__ rem_out, int cap, int K, int M, int per_warp,
+    int* __restrict__ idx_out, unsigned char* __restrict__ touched_out,
+    float* __restrict__ rem_out, int cap, int K, int M, int per_beam,
     int blk, float beam_rad, float ipm, float c_tau, float xsi_r1,
     float xsi_den) {
+  constexpr int G = kLanesC2;
   extern __shared__ float smem[];
-  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int q = blockIdx.x * (blockDim.x >> 5) + warp;   // the warp's pair
-  if (q >= cap / 2) return;   // whole warp leaves together
-  const int p0 = (q / blk) * 2 * blk + q % blk;
+  const int slot = threadIdx.x / G;
+  const int pairs = cap / 2;
+  const int q = blockIdx.x * (blockDim.x / (2 * G)) + slot / 2;
+  const int qc = min(q, pairs - 1);
+  const int p = (qc / blk) * 2 * blk + qc % blk + (slot & 1) * blk;
 
-  Side s0(smem + (size_t)warp * 2 * per_warp, K, p0);
-  Side s1(smem + (size_t)warp * 2 * per_warp + per_warp, K, p0 + blk);
-  side_init<32>(s0, feats, a1g, a2g, validg, cap, K, lane);
-  side_init<32>(s1, feats, a1g, a2g, validg, cap, K, lane);
-  sweep_all<32>(s0, K, lane);
-  sweep_all<32>(s1, K, lane);
-  amplitudes<32>(s0, feats, rrg, cos_b, sin_b, cap, K, lane, beam_rad, ipm,
-                 c_tau, xsi_r1, xsi_den, true);
-  amplitudes<32>(s1, feats, rrg, cos_b, sin_b, cap, K, lane, beam_rad, ipm,
-                 c_tau, xsi_r1, xsi_den, true);
+  Side s(smem + (size_t)slot * per_beam, K, p);
+  side_init<G>(s, feats, a1g, a2g, validg, cap, K, lane);
+  sweep_all<G>(s, K, lane & (G - 1));
+  amplitudes<G>(s, feats, rrg, cos_b, sin_b, cap, K, lane, beam_rad, ipm,
+                c_tau, xsi_r1, xsi_den);
+  walk_list<G>(s, K, M, lane);
+  float best;
+  int best_i;
+  windowed_peak<G>(s, K, M, lane, cos_g, sin_g, best, best_i);
+  if (q < pairs && (lane & (G - 1)) == 0)
+    write_out(s, best, best_i, peak_out, idx_out, touched_out, rem_out);
+}
 
-  const int n_bumps = max(s0.last_active, s1.last_active);
-  float best0 = -INFINITY, best1 = -INFINITY;
-  int best_i0 = M, best_i1 = M;
-  for (int m = lane; m < M; m += 32) {
-    const float bin = (float)m, cg = cos_g[m], sg = sin_g[m];
-    const float w0 = wave_at(s0, K, n_bumps, bin, cg, sg);
-    const float w1 = wave_at(s1, K, n_bumps, bin, cg, sg);
-    if (w0 > best0) { best0 = w0; best_i0 = m; }
-    if (w1 > best1) { best1 = w1; best_i1 = m; }
-  }
-  group_peak<32>(best0, best_i0);
-  group_peak<32>(best1, best_i1);
-  if (lane == 0) {
-    write_out(s0, best0, best_i0, peak_out, idx_out, touched_out, rem_out);
-    write_out(s1, best1, best_i1, peak_out, idx_out, touched_out, rem_out);
-  }
+// The launch shape of a kernel of `lanes` lanes a beam: up to 4 warps a
+// CTA, as many as fit at 12 K + 8 floats of shared memory a beam (see
+// Side), the kernel allowed its size above the default 48 KB. Sets warps
+// and smem (bytes); returns the error, if any.
+template <typename Kernel>
+cudaError_t launch_shape(Kernel kernel, int K, int lanes, int& warps,
+                         int& smem) {
+  const int warp_bytes = (32 / lanes) * (12 * K + 8) * 4;
+  warps = min(4, kSmemMax / warp_bytes);
+  if (warps < 1) return cudaErrorInvalidValue;
+  smem = warps * warp_bytes;
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 }  // namespace
 
 // Inputs (contiguous f32): feats (4, cap) rows [d_orig, right, left,
 // 0.9 * max_intensity]; a1, a2, rr, valid (K, cap); cos_b, sin_b (K+1, cap);
-// cos_g, sin_g (M,). Outputs (cap,): peak f32, idx i32, touched i32 0/1,
-// remainder f32. Returns cudaGetLastError().
+// cos_g, sin_g (M,). Outputs (cap,): peak f32, idx i32, touched one byte
+// 0/1 (torch.bool), remainder f32. Returns cudaGetLastError().
 extern "C" int pulse_c1(
     const float* feats, const float* a1, const float* a2, const float* rr,
     const float* valid, const float* cos_b, const float* sin_b,
     const float* cos_g, const float* sin_g, float* peak, int* idx,
-    int* touched, float* remainder, int cap, int K, int M, float beam_rad,
-    float ipm, float c_tau, float xsi_r1, float xsi_den, void* stream) {
+    unsigned char* touched, float* remainder, int cap, int K, int M,
+    float beam_rad, float ipm, float c_tau, float xsi_r1, float xsi_den,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cap == 0) return static_cast<int>(cudaGetLastError());
-  const int per_beam = 12 * K + 8;   // floats, see Side
-  const int warp_bytes = (32 / kLanesC1) * per_beam * 4;
-  const int warps = min(4, kSmemMax / warp_bytes);
-  if (warps < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = warps * warp_bytes;
-  if (smem > 48 * 1024) {   // large K: over the default 48 KB
-    const cudaError_t e = cudaFuncSetAttribute(
-        c1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  int warps, smem;
+  const cudaError_t e = launch_shape(c1_kernel, K, kLanesC1, warps, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int beams = warps * 32 / kLanesC1;
   const int blocks = (cap + beams - 1) / beams;
   c1_kernel<<<blocks, warps * 32, smem, s>>>(
       feats, a1, a2, rr, valid, cos_b, sin_b, cos_g, sin_g, peak, idx,
-      touched, remainder, cap, K, M, per_beam, beam_rad, ipm, c_tau, xsi_r1,
-      xsi_den);
+      touched, remainder, cap, K, M, 12 * K + 8, beam_rad, ipm, c_tau,
+      xsi_r1, xsi_den);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -580,26 +575,20 @@ extern "C" int pulse_c2(
     const float* feats, const float* a1, const float* a2, const float* rr,
     const float* valid, const float* cos_b, const float* sin_b,
     const float* cos_g, const float* sin_g, float* peak, int* idx,
-    int* touched, float* remainder, int cap, int K, int M, int blk,
+    unsigned char* touched, float* remainder, int cap, int K, int M, int blk,
     float beam_rad, float ipm, float c_tau, float xsi_r1, float xsi_den,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cap == 0) return static_cast<int>(cudaGetLastError());
   if (blk <= 0 || cap % (2 * blk)) return static_cast<int>(cudaErrorInvalidValue);
-  const int per_warp = 12 * K + 8;   // floats per beam, see Side
-  const int per_warp_bytes = 2 * per_warp * 4;
-  const int warps = max(1, min(4, 48 * 1024 / per_warp_bytes));
-  const int smem = warps * per_warp_bytes;
-  if (smem > 48 * 1024) {   // K near 512: one warp over 48 KB
-    const cudaError_t e = cudaFuncSetAttribute(
-        c2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int pairs = cap / 2;
-  const int blocks = (pairs + warps - 1) / warps;
+  int warps, smem;
+  const cudaError_t e = launch_shape(c2_kernel, K, kLanesC2, warps, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int pairs = warps * 32 / (2 * kLanesC2);   // a CTA's
+  const int blocks = (cap / 2 + pairs - 1) / pairs;
   c2_kernel<<<blocks, warps * 32, smem, s>>>(
       feats, a1, a2, rr, valid, cos_b, sin_b, cos_g, sin_g, peak, idx,
-      touched, remainder, cap, K, M, per_warp, blk, beam_rad, ipm, c_tau,
+      touched, remainder, cap, K, M, 12 * K + 8, blk, beam_rad, ipm, c_tau,
       xsi_r1, xsi_den);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,8 +5,8 @@ pulse peak per occluded beam (counterpart of
 `pulse_peaks` launches kernel C1 (`csrc/pulse.cu`) on CUDA tensors and
 runs `pulse_plain`, the same function in plain torch, on CPU tensors;
 `pulse_peaks_pair` (the `pulse_pair` knob) does the same with kernel C2,
-which carries two pulse blocks' beams per warp (TPU `_kernel_pair`,
-pallas_pulse.py:244) and computes the same values. All follow the
+C1's body with one beam of each of two pulse blocks per warp (TPU
+`_kernel_pair`, pallas_pulse.py:244), which computes the same values. All follow the
 arithmetic of the TPU kernel `_kernel` (pallas_pulse.py:173):
 
 1. the sweep: extract-min over the 2K+2 interval endpoints, each trip
@@ -22,7 +22,8 @@ arithmetic of the TPU kernel `_kernel` (pallas_pulse.py:173):
 Inputs are K-outer: feats (4, cap) rows [d_orig, right, left,
 0.9 * max_intensity]; a1, a2, rr, valid (K, cap); cos_b, sin_b (K+1, cap),
 row K the hard target; cos_g, sin_g (M,). Outputs (cap,) each: peak f32,
-first peak bin int32, touched bool, remainder f32.
+first peak bin int32, touched bool (the kernels write it as one byte a
+beam), remainder f32.
 """
 
 from __future__ import annotations
@@ -207,7 +208,7 @@ def _launch(entry: str, what: str, extra: tuple, feats, a1, a2, rr, valid,
     dev = feats.device
     peak = torch.empty(cap, dtype=torch.float32, device=dev)
     idx = torch.empty(cap, dtype=torch.int32, device=dev)
-    touched = torch.empty(cap, dtype=torch.int32, device=dev)
+    touched = torch.empty(cap, dtype=torch.bool, device=dev)
     remainder = torch.empty(cap, dtype=torch.float32, device=dev)
     err = getattr(_kernels.load("pulse"), entry)(
         feats.data_ptr(), a1.data_ptr(), a2.data_ptr(), rr.data_ptr(),
@@ -218,7 +219,7 @@ def _launch(entry: str, what: str, extra: tuple, feats, a1, a2, rr, valid,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _kernels.check(err, f"{what} ({entry})")
-    return peak, idx, touched.bool(), remainder
+    return peak, idx, touched, remainder
 
 
 def pulse_peaks(*args, **kw):
@@ -235,10 +236,12 @@ def pulse_peaks(*args, **kw):
 
 
 def pulse_peaks_pair(*args, blk: int, **kw):
-    """Phase C on kernel C2 (CUDA tensors): one warp carries beam j of
-    pulse blocks 2i and 2i + 1 of `blk` beams, so cap must be a multiple of
-    2 * blk. Its plain version is C1's, `pulse_plain` (CPU tensors). As
-    `pulse_peaks` otherwise."""
+    """Phase C on kernel C2 (CUDA tensors): C1's body, with beam j of
+    pulse blocks 2i and 2i + 1 of `blk` beams in one warp, so cap must be
+    a multiple of 2 * blk. Its plain version is C1's, `pulse_plain` (CPU
+    tensors). As `pulse_peaks` otherwise, C1's precondition included: in
+    each beam the valid occluders' ranges `rr` rise with their slot and
+    none exceeds the target's d_orig (feats row 0)."""
     cap = args[1].shape[1]
     if blk <= 0 or cap % (2 * blk):
         raise ValueError(f"kernel C2 needs cap ({cap}) to be a multiple of "

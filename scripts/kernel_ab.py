@@ -1,5 +1,5 @@
 """An A/B of kernels A1 (single and folded over 16 frames), A2, A3, A4a,
-A4b and C1 against another checkout's, on one CUDA device.
+A4b, C1 and C2 against another checkout's, on one CUDA device.
 
     python -m scripts.kernel_ab --other DIR [--rounds 2]
 
@@ -12,9 +12,12 @@ on the same inputs: the phase-A and phase-C inputs of chip_smoke.py's
 bench scene (A4a and A4b on A1's layout without its has gate, as
 chip_smoke's phase 7 runs them; A2 on its routed layout, route_band 384
 and band_group 16, and A3 on its banded one, band_width 256 and
-band_group 8, as chip_smoke's phase 3), and the A1 chunks of 16 frames of
-it folded into one launch.
-Their outputs must be equal; then each kernel's device_ms
+band_group 8, as chip_smoke's phase 3), the A1 chunks of 16 frames of
+it folded into one launch, and C1 and C2 (pulse block 512, as chip_smoke's
+phase 7) on its compacted beams. Each version's phase C writes touched in
+its own width (an int32 before it became one byte a beam; touched_bytes)
+into a buffer of that width.
+Their outputs must be equal (touched as 0/1); then each kernel's device_ms
 (`tools/kernel_times.device_ms`) in turns, other, this, this, other per
 round. Prints one JSON line after the card's name and power limit.
 """
@@ -25,6 +28,7 @@ import argparse
 import ctypes
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -43,6 +47,7 @@ from lidar_snow_sim_tpu_torch.tools.kernel_times import (
 )
 
 NAMES = ("occluders", "pulse")
+C2_BLOCK = 512   # C2's pulse block on the bench scene (chip_smoke phase 7)
 
 
 def build_other(root: Path, name: str) -> ctypes.CDLL:
@@ -225,33 +230,57 @@ def phase_a_equal(got, want, k: int) -> bool:
 def outputs_equal(name: str, got, want, k: int) -> bool:
     """Whether two outputs of kernel `name` agree: A1 (folded too), A4a
     and A4b as phase_a_equal; A2, A3 (both write a1 = a2 = 0 in empty
-    slots) and C1 in full."""
+    slots) in full; C1 and C2 in full, touched as 0/1 whatever its
+    width."""
     import torch
 
     if name.startswith(("A1", "A4")):
         return phase_a_equal(got, want, k)
+    if name.startswith("C"):
+        got, want = list(got), list(want)
+        got[2], want[2] = got[2].to(torch.int32), want[2].to(torch.int32)
     return all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-def _c1_call(lib, args, kw):
-    """fn() launching `lib`'s pulse_c1 on `args` into fixed outputs."""
+def touched_bytes(root: Path) -> int:
+    """The bytes a beam's touched flag takes in <root>'s phase C: 4 where
+    its csrc/pulse.cu entries take `int* touched`, else 1 (torch.bool)."""
+    src = (root / "lidar_snow_sim_tpu_torch" / "csrc" / "pulse.cu"
+           ).read_text()
+    return 4 if re.search(r"\bint\s*\*\s*touched\b", src) else 1
+
+
+def pulse_call(lib, entry: str, args, kw, width: int, extra=()):
+    """fn() launching `lib`'s `entry` (pulse_c1, or pulse_c2 with `extra`
+    (blk,)) on `args` into fixed outputs, touched `width` bytes a beam."""
     import torch
 
     k, cap = args[1].shape
     dev = args[0].device
     outs = (torch.empty(cap, device=dev),
             torch.empty(cap, dtype=torch.int32, device=dev),
-            torch.empty(cap, dtype=torch.int32, device=dev),
+            torch.empty(cap, dtype=torch.int32 if width == 4 else torch.bool,
+                        device=dev),
             torch.empty(cap, device=dev))
     ptrs = [t.data_ptr() for t in (*args, *outs)]
 
     def run():
-        _kernels.check(lib.pulse_c1(
-            *ptrs, cap, k, args[7].shape[0], kw["beam_rad"], kw["ipm"],
-            kw["c_tau"], kw["xsi_r1"], kw["xsi_r2"] - kw["xsi_r1"],
-            torch.cuda.current_stream().cuda_stream), "pulse_c1")
+        _kernels.check(getattr(lib, entry)(
+            *ptrs, cap, k, args[7].shape[0], *extra, kw["beam_rad"],
+            kw["ipm"], kw["c_tau"], kw["xsi_r1"], kw["xsi_r2"] - kw["xsi_r1"],
+            torch.cuda.current_stream().cuda_stream), entry)
         return outs
     return run
+
+
+def _c1_call(lib, args, kw, width: int = 1):
+    """fn() launching `lib`'s pulse_c1 (pulse_call)."""
+    return pulse_call(lib, "pulse_c1", args, kw, width)
+
+
+def _c2_call(lib, args, kw, width: int = 1, blk: int = C2_BLOCK):
+    """fn() launching `lib`'s pulse_c2 at pulse block `blk` (pulse_call)."""
+    return pulse_call(lib, "pulse_c2", args, kw, width, (blk,))
 
 
 def main(argv=None) -> int:
@@ -271,6 +300,8 @@ def main(argv=None) -> int:
     print(card_line(), flush=True)
     dev = torch.device("cuda")
     root = args.other.resolve()
+    widths = {"this": touched_bytes(_kernels.CSRC.parents[1]),
+              "other": touched_bytes(root)}
     with ThreadPoolExecutor(2 * len(NAMES)) as pool:
         this = {n: pool.submit(_kernels.load, n) for n in NAMES}
         other = {n: pool.submit(build_other, root, n) for n in NAMES}
@@ -300,8 +331,10 @@ def main(argv=None) -> int:
                                routed.occluder_kw), "a2_kernel"),
             "A3": (banded_call(lib["occluders"], banded.occluder_args,
                                banded.occluder_kw), "a3_kernel"),
-            "C1": (_c1_call(lib["pulse"], comp.pulse_args, comp.pulse_kw),
-                   "c1_kernel"),
+            "C1": (_c1_call(lib["pulse"], comp.pulse_args, comp.pulse_kw,
+                            widths[ver]), "c1_kernel"),
+            "C2": (_c2_call(lib["pulse"], comp.pulse_args, comp.pulse_kw,
+                            widths[ver]), "c2_kernel"),
         }
     for name in calls["this"]:
         got = [t.clone() for t in calls["this"][name][0]()]

@@ -1,6 +1,7 @@
 """Kernels A1 (also folded over frames), A2, A3, A4a, A4b, C1, C2 and L1
 on the card against their plain torch versions (C1 and C2 also on the
-crafted beams of test_torch_pulse_windows.py).
+crafted beams of test_torch_pulse_windows.py, C2 also on pairs whose two
+beams diverge).
 
 These tests need an NVIDIA GPU and nvcc and skip elsewhere. They import no
 jax, so they also run where jax is not installed:
@@ -510,23 +511,82 @@ def test_cuda_folded_a1_matches_single_launches(cuda):
         assert torch.equal(a12d, want[0]) and torch.equal(ovf, want[1])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(CASES))
-@pytest.mark.parametrize("blk", [64, 512])
-def test_cuda_c2_matches_plain(cuda, case, blk):
-    """On the card: C2 equals its plain version (C1's) and C1 exactly."""
-    lay, calib, cfg = layout(case, device=cuda)
+def _compacted(case, cuda, k=None):
+    """Phase C's inputs of a card-test scene: A1, then the compaction."""
+    lay, calib, cfg = layout(case, device=cuda, k=k)
     a12d, ovf = find_occluders(*lay.occluder_args, **lay.occluder_kw)
-    comp = ts.compact_occluded(lay, a12d, ovf, ts.calib_to_torch(calib, cuda),
-                               cfg)
-    assert (comp.cap // blk) % 2 == 0
+    return ts.compact_occluded(lay, a12d, ovf,
+                               ts.calib_to_torch(calib, cuda), cfg)
+
+
+def _assert_c2_equals_plain_and_c1(args, kw, blk):
     n0 = pulse_peaks_pair.launches
-    got = pulse_peaks_pair(*comp.pulse_args, blk=blk, **comp.pulse_kw)
+    got = pulse_peaks_pair(*args, blk=blk, **kw)
     torch.cuda.synchronize()
     assert pulse_peaks_pair.launches == n0 + 1
-    for a, b, c in zip(got, pulse_plain(*comp.pulse_args, **comp.pulse_kw),
-                       pulse_peaks(*comp.pulse_args, **comp.pulse_kw)):
+    for a, b, c in zip(got, pulse_plain(*args, **kw),
+                       pulse_peaks(*args, **kw)):
         assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+# every scene at its own K, and the scene at K = 64 and K = 512 (C2's
+# large shared-memory launch)
+@pytest.mark.parametrize("case,k", [("dense", None), ("scene", None),
+                                    ("scene", 64), ("scene", 512)])
+@pytest.mark.parametrize("blk", [1, 64, 512])
+def test_cuda_c2_matches_plain(cuda, case, k, blk):
+    """On the card: C2 equals its plain version (C1's) and C1 exactly."""
+    comp = _compacted(case, cuda, k)
+    assert (comp.cap // blk) % 2 == 0
+    _assert_c2_equals_plain_and_c1(comp.pulse_args, comp.pulse_kw, blk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("padded", ["odd", "even"])
+@pytest.mark.parametrize("blk", [1, 64])
+def test_cuda_c2_unequal_pairs(cuda, case, padded, blk):
+    """On the card: C2 equals its plain version and C1 where a pair's two
+    beams diverge: every odd (or even) pulse block made all padding slots
+    (no valid occluder), so each warp runs a full beam beside an empty
+    one, and the compacted order's own occluded/padding boundary."""
+    comp = _compacted(case, cuda)
+    args = list(comp.pulse_args)
+    blocks = torch.arange(comp.cap, device=cuda) // blk
+    args[4] = args[4].masked_fill(blocks % 2 == (padded == "odd"), 0.0)
+    assert bool((args[4] > 0.5).any())
+    _assert_c2_equals_plain_and_c1(args, comp.pulse_kw, blk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["C1", "C2"])
+def test_cuda_phase_c_one_launch_bool_touched(cuda, kernel):
+    """On the card: C1 and C2 write touched as torch.bool themselves, so
+    a call launches its kernel and nothing else."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    comp = _compacted("scene", cuda)
+    args, kw = comp.pulse_args, comp.pulse_kw
+    if kernel == "C1":
+        def run():
+            return pulse_peaks(*args, **kw)
+    else:
+        def run():
+            return pulse_peaks_pair(*args, blk=64, **kw)
+    out = run()
+    torch.cuda.synchronize()
+    assert out[2].dtype == torch.bool
+    assert torch.equal(out[2], pulse_plain(*args, **kw)[2])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA}
+    assert names and all(f"{kernel.lower()}_kernel" in n for n in names)
 
 
 @pytest.mark.cuda

@@ -269,27 +269,29 @@ def test_folded_a1_plain_matches_pallas_fold():
         assert torch.equal(a12d, want[0]) and torch.equal(ovf, want[1])
 
 
-@pytest.mark.parametrize("pair", [False, True])
-def test_c1_plain_matches_pallas(phase_a, pair):
+@pytest.mark.parametrize("pair,blk", [(False, 64), (True, 64), (True, 128)],
+                         ids=["False", "True", "True-128"])
+def test_c1_plain_matches_pallas(phase_a, pair, blk):
     """C1's plain version against `_kernel`, and C2's (`pulse_peaks_pair`
-    on CPU tensors: the same plain version) against `_kernel_pair`."""
+    on CPU tensors: the same plain version) against `_kernel_pair`, at
+    pulse blocks of 64 and 128 beams."""
     lay, calib, cfg, a12d, ovf = phase_a
     comp = ts.compact_occluded(lay, a12d, ovf, ts.calib_to_torch(calib, "cpu"),
                                cfg)
     kw = comp.pulse_kw
     run = make_pallas_pulse_phase(
-        blk=64, k_occ=cfg.max_occluders, beam_rad=kw["beam_rad"],
+        blk=blk, k_occ=cfg.max_occluders, beam_rad=kw["beam_rad"],
         ipm=kw["ipm"], c_tau=kw["c_tau"], xsi_r1=kw["xsi_r1"],
         xsi_r2=kw["xsi_r2"], interpret=True, pair=pair,
     )
-    assert (comp.cap // 64) % 2 == 0
+    assert (comp.cap // blk) % 2 == 0
     want = [np.asarray(a).reshape(-1) for a in run(
         *(jnp.asarray(np.asarray(a)) for a in comp.pulse_args)
     )]
     n0 = pulse_peaks_pair.launches
     peak, idx, touched, remainder = (
         a.numpy() for a in (
-            pulse_peaks_pair(*comp.pulse_args, blk=64, **kw) if pair
+            pulse_peaks_pair(*comp.pulse_args, blk=blk, **kw) if pair
             else pulse_plain(*comp.pulse_args, **kw))
     )
     assert pulse_peaks_pair.launches == n0
