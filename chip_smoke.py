@@ -55,7 +55,23 @@ Phases, each printing one line of numbers:
      then run_snowfall_datagen on 16 synthetic scans with batch_fold,
      the same files as the default config;
   8. each kernel's device times (below), taken after every end-to-end
-     phase, one line each.
+     phase, one line each;
+  9. the PointPillars detector (run before phase 8, whose profiler
+     sessions would slow it) at the full width of PointPillarsConfig()
+     (432 x 496 pillar grid, 12,000 x 32 points, PFN 64, backbone
+     64/128/256 with 3/5/5 layers, 321,408 anchors, nms_pre_max 4,096,
+     nms_post_max 500) with seeded random weights, on phase 4's augmented
+     cloud (x, y, z, intensity / 255): voxelize equal to the CPU's byte for
+     byte, head maps within 1e-4 of the CPU's (with the TF32 flags on),
+     predictions equal up to flips that a decision of their own at a
+     boundary explains (matched as sets, see _flips); post_process on
+     seeded head maps where 6,000 anchors pass (two-stage top-k, a
+     4,096-candidate NMS) the same way; the infer CLI (python -m
+     lidar_snow_sim_tpu_torch.tools.infer ... --random-params --device
+     cuda); detect's time (median of 10 after 2 warm-ups) and its parts,
+     the NMS sweeps, the IoU block and the peak memory. The detector has
+     no kernel of its own (cuDNN convolutions and torch ops), so the
+     kernels' record below is unchanged.
 The line before the last is the kernels' JSON record: each kernel's
 launches on its path, max_abs_err, ms (CUDA events around one wrapper call,
 host enqueue included) and plain_ms, device_ms (the kernel's own duration
@@ -823,6 +839,289 @@ def batched_phase(pc, padded, bank, bank_t, calib, calib_t, cfg, lay, a12d,
     return out
 
 
+def _flips(got, want, scores, cfg) -> tuple:
+    """(flips, near, unexplained) of card predictions `got` against CPU
+    predictions `want`. A prediction of either run is a flip when the other
+    run kept none with its label and its box within 1e-4 (matched one to
+    one, in keep order). A flip is near a boundary when a decision about
+    that prediction lies within 1e-5 of its threshold: its score near
+    score_thresh or near the nms_pre_max-th anchor score (where more pass),
+    or its IoU with a box kept by either run near nms_thresh. A flip is
+    explained when it is near, or follows from an explained flip: it
+    overlaps one beyond nms_thresh - 1e-5 (suppression passed on), or its
+    run is at nms_post_max and an explained flip outranks it (the cap).
+    `unexplained` also counts matched predictions out of keep order."""
+    import torch
+
+    from lidar_snow_sim_tpu_torch.ops.rotated_iou import boxes_iou_bev
+
+    runs = []
+    for p in (got, want):
+        k = int(p.count)
+        runs.append((p.boxes[:k].cpu(), p.labels[:k].cpu(),
+                     p.scores[:k].cpu(), k))
+    (bg, lg, sg, kg), (bc, lc, sc, kc) = runs
+    pair = (lg[:, None] == lc[None, :]) & (
+        (bg[:, None, :] - bc[None, :, :]).abs().amax(-1) <= 1e-4)
+    used, match = set(), {}
+    for i in range(kg):
+        for j in torch.nonzero(pair[i]).flatten().tolist():
+            if j not in used:
+                used.add(j)
+                match[i] = j
+                break
+    out_of_order = sum(a >= b for a, b in zip(list(match.values()),
+                                               list(match.values())[1:]))
+    # every kept box of both runs: (box, score, run, rank)
+    boxes = torch.cat([bg, bc])
+    score = torch.cat([sg, sc])
+    run_of = [0] * kg + [1] * kc
+    rank = list(range(kg)) + list(range(kc))
+    flip = [i not in match for i in range(kg)] + \
+        [j not in used for j in range(kc)]
+    flips = sum(flip)
+    if not flips:
+        return 0, 0, out_of_order
+    s = scores.reshape(-1)
+    kth = None
+    if int((s > cfg.score_thresh).sum()) > cfg.nms_pre_max:
+        kth = torch.topk(s, cfg.nms_pre_max).values[-1]
+    iou = boxes_iou_bev(boxes[:, [0, 1, 3, 4, 6]], boxes[:, [0, 1, 3, 4, 6]])
+    iou.fill_diagonal_(0.0)
+    near_iou = ((iou - cfg.nms_thresh).abs() < 1e-5).any(1)
+    near = [
+        f and bool((score[i] - cfg.score_thresh).abs() < 1e-5
+                   or (kth is not None and (score[i] - kth).abs() < 1e-5)
+                   or near_iou[i])
+        for i, f in enumerate(flip)]
+    explained = list(near)
+    at_cap = (kg == cfg.nms_post_max, kc == cfg.nms_post_max)
+    changed = True
+    while changed:
+        changed = False
+        for i, f in enumerate(flip):
+            if not f or explained[i]:
+                continue
+            for e, ok in enumerate(explained):
+                if ok and (iou[i, e] > cfg.nms_thresh - 1e-5 or (
+                        at_cap[run_of[i]] and score[e] >= score[i])):
+                    explained[i] = changed = True
+                    break
+    return flips, sum(near), flips - sum(explained) + out_of_order
+
+
+def _hold(name, got, want, scores, cfg) -> tuple:
+    """Fail unless card predictions agree with the CPU's (count, labels and
+    boxes within 1e-4) up to flips that a decision within 1e-5 of its
+    threshold explains (see _flips); returns (flips, near)."""
+    flips, near, unexplained = _flips(got, want, scores, cfg)
+    if unexplained:
+        fail(f"{name}: {unexplained} of {flips} flipped predictions (and "
+             f"out-of-order ones) differ between the card and the CPU with "
+             f"no decision at a boundary; near {near}")
+    for c in ("points_dropped", "pillars_dropped", "nms_pre_overflow",
+              "topk_block_miss", "prefix_overflow"):
+        if int(getattr(got, c)) != int(getattr(want, c)):
+            fail(f"{name}: {c} {int(getattr(got, c))} on the card, "
+                 f"{int(getattr(want, c))} on the CPU")
+    return flips, near
+
+
+def detector_phase(cloud, dev, cfg=None) -> None:
+    """Phase 9: the PointPillars detector at the full width of
+    PointPillarsConfig() with seeded random weights, on the phase-4
+    augmented cloud as the infer CLI feeds it (x, y, z, intensity / 255).
+    The card against the port on the CPU: voxelize byte for byte, head maps
+    within 1e-4 (with the caller's TF32 flags on: the forward pass turns
+    them off for the call), detect's predictions up to flips that a
+    decision at a boundary explains (see _flips); then post_process on seeded head maps where 6,000 anchors pass
+    (two-stage top-k, a 4,096-candidate NMS) the same way; then the infer
+    CLI on the card. Times detect (median of 10 CUDA-event runs after 2
+    warm-ups), its four parts and the IoU matrix at nms_pre_max
+    candidates by rows a block, then the device busy time and launches of
+    detect, its post-process and the matrix (torch.profiler), and prints the NMS sweeps, the IoU
+    block and the peak memory beside the card's name and power limit."""
+    import contextlib
+    import io
+
+    import torch
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lidar_snow_sim_tpu_torch.models import pointpillars as tpp
+    from lidar_snow_sim_tpu_torch.ops.rotated_iou import (
+        IOU_BLOCK,
+        boxes_iou_bev,
+    )
+    from lidar_snow_sim_tpu_torch.tools import infer
+    from lidar_snow_sim_tpu_torch.tools.kernel_times import card_line
+
+    t_phase = time.time()
+    cfg = cfg or tpp.PointPillarsConfig()
+    h, w = cfg.feature_map_size
+    n_anch = h * w * cfg.num_anchors_per_loc
+    params = tpp.init_params(cfg, torch.Generator().manual_seed(0))
+    net = tpp.PointPillars(cfg, params, device=dev)
+    net_cpu = tpp.PointPillars(cfg, params, device="cpu")
+    points = cloud[:, :4].astype(np.float32)
+    points[:, 3] *= 1.0 / 255.0
+    valid = np.ones(len(points), bool)
+    pts_g, pts_c = torch.as_tensor(points, device=dev), torch.as_tensor(points)
+    val_g, val_c = torch.as_tensor(valid, device=dev), torch.as_tensor(valid)
+
+    vox_g = tpp.voxelize(pts_g, val_g, cfg)
+    vox_c = tpp.voxelize(pts_c, val_c, cfg)
+    for name in vox_c._fields:
+        a, b = getattr(vox_g, name).cpu(), getattr(vox_c, name)
+        if a.dtype != b.dtype or a.numpy().tobytes() != b.numpy().tobytes():
+            fail(f"detector: voxelize {name} differs between card and CPU")
+
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        maps_g = tpp.forward_features(pts_g, val_g, net)[:3]
+        if not (torch.backends.cuda.matmul.allow_tf32
+                and torch.backends.cudnn.allow_tf32):
+            fail("detector: the forward pass did not restore the TF32 flags")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flags[0]
+        torch.backends.cudnn.allow_tf32 = flags[1]
+    maps_c = tpp.forward_features(pts_c, val_c, net_cpu)[:3]
+    map_err = max(float((g.cpu() - c).abs().max())
+                  for g, c in zip(maps_g, maps_c))
+    if map_err > 1e-4 or not all(bool(torch.isfinite(m).all())
+                                 for m in maps_g):
+        fail(f"detector: head maps differ from the CPU by {map_err}")
+
+    preds = tpp.detect(points, valid, net, device=dev)
+    preds_c = tpp.detect(points, valid, net_cpu, device="cpu")
+    flips, near = _hold("detect", preds, preds_c,
+                  torch.sigmoid(maps_c[0].amax(-1)), cfg)
+    if preds.boxes.shape != (cfg.nms_post_max, 7) or not bool(
+            torch.isfinite(preds.boxes).all()):
+        fail(f"detector: boxes malformed {tuple(preds.boxes.shape)}")
+
+    # a loaded NMS: 6,000 anchors pass score_thresh, with logits spaced
+    # 6.7e-4 apart (no near-ties at the k-th score); the rest at -10
+    gen = torch.Generator().manual_seed(1)
+    a, ncls = cfg.num_anchors_per_loc, len(cfg.class_names)
+    n_pass = 6000
+    cls = torch.full((a, ncls, h * w), -10.0)
+    pick = torch.randperm(n_anch, generator=gen)[:n_pass]
+    cls[pick // (h * w), torch.randint(ncls, (n_pass,), generator=gen),
+        pick % (h * w)] = torch.linspace(-2.0, 2.0, n_pass)[
+        torch.randperm(n_pass, generator=gen)]
+    scores_loaded = torch.sigmoid(cls.amax(1))
+    cls = cls.reshape(a * ncls, h, w)
+    box = 0.1 * torch.randn(a * 7, h, w, generator=gen)
+    dir_ = torch.randn(a * cfg.num_dir_bins, h, w, generator=gen)
+    loaded_c = tpp.post_process(cls, box, dir_, net_cpu.anchors, cfg)
+    loaded = tpp.post_process(cls.to(dev), box.to(dev), dir_.to(dev),
+                              net.anchors, cfg)
+    loaded_flips, loaded_near = _hold("loaded NMS", loaded, loaded_c,
+                                      scores_loaded, cfg)
+    if int(loaded_c.nms_pre_overflow) + int(loaded_c.topk_block_miss) < \
+            n_pass - cfg.nms_pre_max:
+        fail("loaded NMS: fewer candidates than nms_pre_max passed")
+
+    # the infer CLI on the card, on the bench scan written to disk
+    with tempfile.TemporaryDirectory() as tmp:
+        scan = Path(tmp) / "scan.bin"
+        cloud.astype(np.float32).tofile(scan)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = infer.main([str(scan), "--random-params", "--device", dev.type,
+                             "--predictions", str(Path(tmp) / "preds.txt")])
+        full = json.loads(out.getvalue())
+        report = full["inference"]
+        if rc != 0 or report["input_points"] != full["after_masks"]:
+            fail(f"infer CLI: rc {rc} report {report}")
+
+    # times on the card
+    def parts():
+        with torch.no_grad():
+            vox = tpp.voxelize(pts_g, val_g, cfg)
+            feat = tpp.pillar_features(vox, cfg)
+            pfeat = tpp.pfn_forward(feat, net, cfg)
+            live = (vox.num_points > 0)[:, None]
+            spatial = tpp.scatter_bev(pfeat * live.to(pfeat.dtype), vox, cfg)
+            bev = tpp.backbone_forward(spatial, net, cfg)
+            maps = tpp.head_forward_chw(bev, net, cfg)
+        return vox, spatial, maps
+
+    vox, spatial, maps = parts()
+    split = {}
+    with torch.no_grad():
+        split["voxelize"] = time_ms(lambda: tpp.voxelize(pts_g, val_g, cfg))
+        split["pfn_scatter"] = time_ms(lambda: tpp.scatter_bev(
+            tpp.pfn_forward(tpp.pillar_features(vox, cfg), net, cfg)
+            * (vox.num_points > 0)[:, None].float(), vox, cfg))
+        split["backbone_head"] = time_ms(lambda: tpp.head_forward_chw(
+            tpp.backbone_forward(spatial, net, cfg), net, cfg))
+        split["post_process"] = time_ms(lambda: tpp.post_process(
+            maps[0][0], maps[1][0], maps[2][0], net.anchors, cfg))
+        split["post_process_loaded"] = time_ms(lambda: tpp.post_process(
+            cls.to(dev), box.to(dev), dir_.to(dev), net.anchors, cfg))
+    detect_ms = time_ms(lambda: tpp.detect(points, valid, net, device=dev))
+    # the IoU matrix alone at nms_pre_max candidates, by rows a block
+    g2 = torch.Generator().manual_seed(2)
+    k = cfg.nms_pre_max
+    cand = torch.cat([60 * torch.rand(k, 2, generator=g2),
+                      0.5 + 4 * torch.rand(k, 2, generator=g2),
+                      6.3 * torch.rand(k, 1, generator=g2) - 3.15], 1).to(dev)
+    iou_ms = {rows: round(time_ms(lambda: boxes_iou_bev(
+        cand, cand, block_rows=rows)), 4) for rows in (256, 512, 1024, 2048,
+                                                        4096)}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tpp.detect(points, valid, net, device=dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    # device busy time and launches, under torch.profiler (after every
+    # timing above: a profiler session slows the process's later launches)
+    busy = {}
+    for name, fn in (("detect", lambda: tpp.detect(points, valid, net,
+                                                   device=dev)),
+                     ("post_process", lambda: tpp.post_process(
+                         maps[0][0], maps[1][0], maps[2][0], net.anchors,
+                         cfg)),
+                     ("iou", lambda: boxes_iou_bev(cand, cand))):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy[name] = (round(sum(e.time_range.elapsed_us() for e in ks) / 1e3,
+                            4), len(ks))
+    print(f"detector: card {card_line()!r} grid {cfg.grid_size} pillars "
+          f"{int(vox_c.num_pillars)} of {cfg.max_pillars} x "
+          f"{cfg.max_points_per_pillar} points_dropped "
+          f"{int(vox_c.points_dropped)} pillars_dropped "
+          f"{int(vox_c.pillars_dropped)} anchors {n_anch} voxelize_equal True "
+          f"head_map_max_abs_err {map_err} count {int(preds.count)} "
+          f"cpu_count {int(preds_c.count)} flips {flips} near {near} "
+          f"nms_sweeps "
+          f"{preds.nms_sweeps} nms_pre_overflow {int(preds.nms_pre_overflow)}"
+          f" topk_block_miss {int(preds.topk_block_miss)} | loaded: passing "
+          f"{n_pass} count {int(loaded.count)} cpu_count "
+          f"{int(loaded_c.count)} flips {loaded_flips} near {loaded_near} "
+          f"nms_sweeps "
+          f"{loaded.nms_sweeps} nms_pre_overflow "
+          f"{int(loaded.nms_pre_overflow)} topk_block_miss "
+          f"{int(loaded.topk_block_miss)} | iou_block_pairs {IOU_BLOCK} "
+          f"rows_at_{cfg.nms_pre_max} {IOU_BLOCK // cfg.nms_pre_max} | "
+          f"detect_ms {detect_ms:.4f} split_ms "
+          f"{ {k: round(v, 4) for k, v in split.items()} } iou_ms_by_rows "
+          f"{iou_ms} device_busy_ms_and_launches {busy} peak_mib "
+          f"{peak / 2**20:.1f} base_mib {base / 2**20:.1f} infer_cli "
+          f"predictions {report['num_predictions']} phase_s "
+          f"{time.time() - t_phase:.1f}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1198,6 +1497,8 @@ def main() -> int:
     l1 = weather_phase(pc, sets, rr, occ, dev)
     batched = batched_phase(pc, padded, bank, bank_t, calib, calib_t, cfg,
                             lay, a12d, ovf, comp, out_p, dev)
+    # phase 9 runs before phase 8's profiler sessions, which would slow it
+    detector_phase(out, dev)
 
     occ_src = "lidar_snow_sim_tpu_torch/csrc/occluders.cu"
     tpu_occ = "lidar_snow_sim_tpu/ops/pallas_occluders.py"

@@ -15,7 +15,10 @@ phase C (`ops/pulse.py`, kernels C1 and C2) and LISA's Qback lookup
 plain torch versions. The entry points run on the card (device "cuda")
 unless the CPU is asked for, and raise where there is no card. Beside
 snowfall and wet ground, `models/` holds the viewer's weather baselines
-(LISA, fog, STF fog, DROR), which `tools/inspect.py` drives.
+(LISA, fog, STF fog, DROR), which `tools/inspect.py` drives, and the
+PointPillars detector's inference (`models/pointpillars.py`,
+`ops/rotated_iou.py`), which `tools/infer.py` drives; it has no kernel of
+its own (cuDNN convolutions and torch ops).
 
 This package imports torch and never jax.
 """

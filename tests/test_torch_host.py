@@ -150,6 +150,20 @@ def test_config_from_jax_round_trips_every_field(name):
             jcls().range_grid().tobytes()
 
 
+def test_pointpillars_config_matches_jax():
+    """The port's PointPillarsConfig has the JAX dataclass's fields and
+    defaults, and the same derived grid."""
+    from lidar_snow_sim_tpu.models import pointpillars as jpp
+    from lidar_snow_sim_tpu_torch.models import pointpillars as tpp
+
+    jcls, tcls = jpp.PointPillarsConfig, tpp.PointPillarsConfig
+    assert [(f.name, f.default) for f in dataclasses.fields(tcls)] == \
+        [(f.name, f.default) for f in dataclasses.fields(jcls)]
+    for prop in ("grid_size", "feature_map_size", "num_anchors_per_loc"):
+        assert getattr(tcls(), prop) == getattr(jcls(), prop)
+    assert tpp.param_shapes(tcls()) == jpp.param_shapes(jcls())
+
+
 def test_config_from_jax_raises_on_unknown_fields():
     @dataclasses.dataclass(frozen=True)
     class SnowfallConfig(jconfig.SnowfallConfig):
@@ -179,6 +193,8 @@ def _entry_points(tmp_path, bank):
     from lidar_snow_sim_tpu_torch.models.snowfall import SnowfallAugmenter
     from lidar_snow_sim_tpu_torch.models.wet_ground import WetGroundAugmenter
     from lidar_snow_sim_tpu_torch.parallel.datagen import run_snowfall_datagen
+    from lidar_snow_sim_tpu_torch.models import pointpillars as tpp
+    from lidar_snow_sim_tpu_torch.tools import infer
     from lidar_snow_sim_tpu_torch.tools import inspect as tinspect
     from lidar_snow_sim_tpu_torch.tools import precompute
 
@@ -188,6 +204,11 @@ def _entry_points(tmp_path, bank):
     calib = tcalib.load_hdl64_calib()
     cfg = tconfig.SnowfallConfig(assembly="dense", max_points=8192,
                                  channel_capacity=128, block_points=32)
+    det_cfg = tpp.PointPillarsConfig(
+        pfn_filters=(8,), layer_nums=(1, 1, 1), num_filters=(8, 8, 8),
+        num_upsample_filters=(8, 8, 8), max_pillars=64)
+    det_params = tpp.init_params(det_cfg, torch.Generator().manual_seed(0))
+    det_cpu = tpp.PointPillars(det_cfg, det_params, device="cpu")
     return {
         "api.augment": lambda: api.augment(pc, "none", 0.17,
                                            root_path=str(tmp_path)),
@@ -208,6 +229,9 @@ def _entry_points(tmp_path, bank):
         "precompute CLI": lambda: precompute.main([
             "--split", str(tmp_path / "none.txt"), "--lidar-dir",
             str(tmp_path), "--bank-dir", str(tmp_path)]),
+        "PointPillars": lambda: tpp.PointPillars(det_cfg, det_params),
+        "detect": lambda: tpp.detect(pc[:, :4], None, det_cpu),
+        "infer CLI": lambda: infer.main([str(scan), "--random-params"]),
     }
 
 
@@ -215,7 +239,8 @@ ENTRY_POINTS = ["api.augment", "api.ground_water_augmentation",
                 "SnowfallAugmenter", "WetGroundAugmenter", "LISA",
                 "FogAugmenter", "simulate_fog", "StfFogAugmenter",
                 "dynamic_radius_outlier_filter", "run_snowfall_datagen",
-                "inspect CLI", "precompute CLI"]
+                "inspect CLI", "precompute CLI", "PointPillars", "detect",
+                "infer CLI"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

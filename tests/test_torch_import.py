@@ -21,6 +21,7 @@ MODULES = [
     "lidar_snow_sim_tpu_torch.models.dror",
     "lidar_snow_sim_tpu_torch.models.fog",
     "lidar_snow_sim_tpu_torch.models.lisa",
+    "lidar_snow_sim_tpu_torch.models.pointpillars",
     "lidar_snow_sim_tpu_torch.models.snowfall",
     "lidar_snow_sim_tpu_torch.models.stf_fog",
     "lidar_snow_sim_tpu_torch.models.wet_ground",
@@ -32,12 +33,15 @@ MODULES = [
     "lidar_snow_sim_tpu_torch.ops.mie",
     "lidar_snow_sim_tpu_torch.ops.occluders",
     "lidar_snow_sim_tpu_torch.ops.pulse",
+    "lidar_snow_sim_tpu_torch.ops.rotated_iou",
     "lidar_snow_sim_tpu_torch.parallel.batched",
     "lidar_snow_sim_tpu_torch.parallel.datagen",
     "lidar_snow_sim_tpu_torch.sampling",
     "lidar_snow_sim_tpu_torch.sampling.banks",
     "lidar_snow_sim_tpu_torch.sampling.dart",
     "lidar_snow_sim_tpu_torch.sampling.distributions",
+    "lidar_snow_sim_tpu_torch.tools.convert_checkpoint",
+    "lidar_snow_sim_tpu_torch.tools.infer",
     "lidar_snow_sim_tpu_torch.tools.inspect",
     "lidar_snow_sim_tpu_torch.tools.precompute",
     "lidar_snow_sim_tpu_torch.tools.profile_weather",
