@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's snowfall main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's snowfall main path once on one NVIDIA GPU, then
+the detector's inference and training paths.
 
 Run from the repository root: python3 chip_smoke.py
 
@@ -71,7 +72,26 @@ Phases, each printing one line of numbers:
      cuda); detect's time (median of 10 after 2 warm-ups) and its parts,
      the NMS sweeps, the IoU block and the peak memory. The detector has
      no kernel of its own (cuDNN convolutions and torch ops), so the
-     kernels' record below is unchanged.
+     kernels' record below is unchanged;
+ 10. PointPillars training at the same full width with seeded random
+     weights (run before phase 8 too): the train CLI (python -m
+     lidar_snow_sim_tpu_torch.tools.train --synthetic 8 --batch 4 --device
+     cuda) in float32 and in bfloat16 with --augment, 4 steps straight and
+     2 + --resume 2 in processes of their own: every loss finite with
+     num_pos >= 1, the resumed checkpoint equal to the straight one byte
+     for byte (params, mu, nu); one float32 step on the card against the
+     CPU at batch 1 (labels equal off decisions within 1e-5 of their
+     threshold, loss 1e-4 relative, each gradient within 1e-3 of its
+     largest value or, where the CPU's own gradient moves more under 1e-7
+     weight perturbations, within twice that move; running stats 1e-4);
+     the trained params through the
+     infer CLI and its predictions through the evaluate CLI (card table ==
+     CPU table); the experiment tool on the card, whose snowify launches
+     A1 and C1. Each dtype's step time (CUDA events, median of 5 after 2
+     warm-ups), steps/s, device busy time, launches and busy share, target
+     assignment's share of the busy time (torch.profiler) and the peak
+     memory. Training reaches no Pallas kernel, so the kernels' record is
+     unchanged.
 The line before the last is the kernels' JSON record: each kernel's
 launches on its path, max_abs_err, ms (CUDA events around one wrapper call,
 host enqueue included) and plain_ms, device_ms (the kernel's own duration
@@ -91,6 +111,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import sys
 import tempfile
 import time
@@ -927,6 +948,61 @@ def _hold(name, got, want, scores, cfg) -> tuple:
     return flips, near
 
 
+def _near_assignment(anchors, gt_boxes, cfg, tol: float = 1e-5):
+    """(N,) bool: anchors with an assignment decision within `tol` of its
+    threshold, from this device's IoU: the anchor's best same-class IoU
+    near its class's matched or unmatched threshold, or its IoU with a gt
+    near that gt's best where the best is tied (another anchor within
+    `tol` of it too) or near 0 (which decides whether the gt force-matches
+    at all)."""
+    import torch
+
+    from lidar_snow_sim_tpu_torch.ops.rotated_iou import boxes_iou_bev
+
+    n = anchors.shape[0]
+    nrot = len(cfg.anchor_rotations)
+    cls_of = (torch.arange(n) % cfg.num_anchors_per_loc) // nrot
+    gcls = gt_boxes[:, 7].long()
+    same = (cls_of[:, None] == gcls[None, :] - 1) & (gcls[None, :] > 0)
+    iou = torch.where(same, boxes_iou_bev(anchors, gt_boxes[:, :7]), -1.0)
+    amax, gmax = iou.amax(1), iou.amax(0)
+    near = torch.zeros(n, dtype=torch.bool)
+    for thresholds in (cfg.anchor_match_thresholds,
+                       cfg.anchor_unmatch_thresholds):
+        near |= (amax - torch.tensor(thresholds)[cls_of]).abs() < tol
+    at_best = same & ((iou - gmax[None, :]).abs() < tol)
+    tied = (at_best.sum(0) > 1) | (gmax.abs() < tol)
+    near |= (at_best & tied[None, :]).any(1)
+    return near
+
+
+def _label_flips(got, want, near) -> tuple:
+    """(flips, unexplained) of labels `got` against `want`: an anchor
+    whose labels differ is explained where `near` (`_near_assignment`)."""
+    flip = got.cpu() != want.cpu()
+    return int(flip.sum()), int((flip & ~near.cpu()).sum())
+
+
+def _grad_gate(err: dict, noise: dict, tol: float = 1e-3,
+               factor: float = 2.0) -> list:
+    """Names of the gradients whose error `err[name]` (`_rel_err` against
+    the CPU) exceeds both `tol` and `factor` x `noise[name]`, the largest
+    change that 1e-7 relative perturbations of the weights make to the
+    CPU's own gradient: where a gradient is that sensitive (ReLU gates and
+    max ties flip, and the following BN's mean subtraction cancels most of
+    the sum), float32 rounding alone moves it past `tol`."""
+    return sorted(n for n, e in err.items()
+                  if e > tol and e > factor * noise[n])
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want| (0 where both are 0)."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    return err / scale if scale else err
+
+
 def detector_phase(cloud, dev, cfg=None) -> None:
     """Phase 9: the PointPillars detector at the full width of
     PointPillarsConfig() with seeded random weights, on the phase-4
@@ -1122,11 +1198,334 @@ def detector_phase(cloud, dev, cfg=None) -> None:
           f"{time.time() - t_phase:.1f}", flush=True)
 
 
+def _run_all(cmds: dict, cwd: Path, timeout: float = 600) -> dict:
+    """Start every command of {name: argv} at once; {name: stderr} once all
+    have ended. Fails on a non-zero exit; kills what is left on the way
+    out."""
+    import subprocess
+
+    procs = {}
+    try:
+        for name, argv in cmds.items():
+            procs[name] = subprocess.Popen(
+                argv, cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)
+        logs = {}
+        for name, p in procs.items():
+            out, err = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                fail(f"{name}: exit {p.returncode}\n{out[-2000:]}\n"
+                     f"{err[-4000:]}")
+            logs[name] = err
+        return logs
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _logged_steps(err: str) -> list:
+    """[(step, loss, num_pos)] from a train CLI's log."""
+    import re
+
+    return [(int(s), float(loss), float(pos)) for s, loss, pos in re.findall(
+        r"step (\d+)/\d+ loss=(\S+) .*? pos=(\S+) ", err)]
+
+
+def _busy(fn) -> tuple:
+    """(device busy ms, kernel launches) of fn() under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in ks) / 1e3, len(ks)
+
+
+def _step_on(net, where, pts, valid, gt, anchors) -> tuple:
+    """One batch-1 `forward_backward` on `where`: (labels, loss,
+    {name: grad}, running stats)."""
+    from lidar_snow_sim_tpu_torch.models.detector_train import (
+        forward_backward,
+    )
+
+    loss, _, stats, labels = forward_backward(
+        net, pts[None].to(where), valid[None].to(where), gt[None].to(where),
+        anchors.to(where))
+    return (labels[0], loss,
+            {n: p.grad for n, p in net.named_parameters()}, stats)
+
+
+def training_phase(cloud, dev) -> None:
+    """Phase 10: PointPillars training at the full width of
+    PointPillarsConfig() with seeded random weights. The train CLI
+    (python -m lidar_snow_sim_tpu_torch.tools.train --synthetic 8 --batch 4
+    --device cuda), float32 and then bfloat16 with --augment: 4 steps
+    straight, and 2 steps then --resume 2, as processes of their own.
+    Gates: every step's loss finite with num_pos >= 1; the resumed run's
+    checkpoint (params, mu, nu) equal to the straight run's byte for byte;
+    one float32 step on the card against the CPU at batch 1 (labels equal
+    but where a decision lies within 1e-5 of its threshold, loss within
+    1e-4 relative, each gradient within 1e-3 of its largest value or
+    within twice the CPU's own change under three 1e-7 weight
+    perturbations, `_grad_gate`, the running stats within 1e-4); the
+    bfloat16 run's
+    params_tpu.npz through
+    the infer CLI, and its predictions scored by the evaluate CLI against
+    themselves, on the card as on the CPU; the experiment tool on
+    the card, with kernels A1 and C1 launched by its snowify. Times each
+    dtype's step in this process as the CLI runs it (CUDA events, median
+    of 5 after 2 warm-ups), its device busy time and launches and those of
+    its target assignment (torch.profiler), and its peak memory."""
+    import contextlib
+    import io
+
+    import torch
+
+    from lidar_snow_sim_tpu_torch.models import detector_augment as taug
+    from lidar_snow_sim_tpu_torch.models import detector_train as tdt
+    from lidar_snow_sim_tpu_torch.models import pointpillars as tpp
+    from lidar_snow_sim_tpu_torch.ops.occluders import find_occluders
+    from lidar_snow_sim_tpu_torch.ops.pulse import pulse_peaks
+    from lidar_snow_sim_tpu_torch.tools import evaluate, experiment, infer
+    from lidar_snow_sim_tpu_torch.tools import train as ttrain
+    from lidar_snow_sim_tpu_torch.tools.kernel_times import card_line
+
+    t_phase = time.time()
+    root = Path(__file__).resolve().parent
+    steps, batch = 4, 4
+    base = [sys.executable, "-m", "lidar_snow_sim_tpu_torch.tools.train",
+            "--synthetic", "8", "--batch", str(batch), "--steps", str(steps),
+            "--device", dev.type, "--log-every", "1", "--save-every", "1000",
+            "--seed", "0"]
+    flags = {"float32": ["--dtype", "float32"],
+             "bfloat16": ["--dtype", "bfloat16", "--augment"]}
+    cfg0 = tpp.PointPillarsConfig()
+    h, w = cfg0.feature_map_size
+    n_anch = h * w * cfg0.num_anchors_per_loc
+
+    class Frames:   # the CLI's arguments that _collect_frames reads
+        synthetic, seed, max_points, max_gt = 8, 0, 65536, 64
+
+    frames = ttrain._collect_frames(Frames, cfg0)
+    anchors = torch.as_tensor(tpp.generate_anchors(cfg0)).reshape(-1, 7)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+
+        def run(name, dtype, *extra):
+            return [*base, *flags[dtype], *extra, "--out", str(tmp / name)]
+
+        t0 = time.time()
+        logs = _run_all({
+            f"{d}_{k}": run(f"{d}_{k}", d, *x) for d in flags
+            for k, x in (("full", ()), ("part", ("--limit-steps", "2")))},
+            root)
+        logs.update(_run_all({f"{d}_resume": run(f"{d}_part", d, "--resume")
+                              for d in flags}, root))
+        cli_s = time.time() - t0
+        for d in flags:
+            got = _logged_steps(logs[f"{d}_full"])
+            if [s for s, _, _ in got] != list(range(1, steps + 1)) or not all(
+                    np.isfinite(loss) and pos >= 1 for _, loss, pos in got):
+                fail(f"train {d}: steps, losses and positives {got}")
+            resumed = _logged_steps(logs[f"{d}_resume"])
+            if [s for s, _, _ in resumed] != [3, 4]:
+                fail(f"train {d}: the resumed run logged {resumed}")
+            with np.load(tmp / f"{d}_full" / "ckpt_0000004.npz") as a, \
+                    np.load(tmp / f"{d}_part" / "ckpt_0000004.npz") as b:
+                if sorted(a.files) != sorted(b.files):
+                    fail(f"train {d}: the checkpoints' keys differ")
+                differ = [k for k in a.files if k.startswith(
+                    ("params/", "mu/", "nu/", "step", "count"))
+                    and a[k].tobytes() != b[k].tobytes()]
+                if differ:
+                    fail(f"train {d}: --resume differs from the straight run "
+                         f"in {len(differ)} arrays, e.g. {differ[:3]}")
+            print(f"train CLI {d}: losses {[x[1] for x in got]} num_pos "
+                  f"{[x[2] for x in got]} resume_equal True", flush=True)
+
+        # the step as the CLI runs it, timed in this process
+        timing = {}
+        for d in flags:
+            cfg = dataclasses.replace(cfg0, compute_dtype=d)
+            step_fn, init = tdt.make_train_step(
+                cfg, anchors, ttrain.make_schedule(10, 0.003))
+            state = init(tpp.PointPillars(
+                cfg, tpp.init_params(cfg, torch.Generator().manual_seed(0)),
+                device=dev))
+
+            def make_batch(it):
+                idx = np.random.default_rng((0, it)).choice(
+                    len(frames), batch, replace=False)
+                pts = torch.as_tensor(np.stack([frames[i][0] for i in idx]),
+                                      device=dev)
+                gts = torch.as_tensor(np.stack([frames[i][1] for i in idx]),
+                                      device=dev)
+                if d == "bfloat16":
+                    gen = torch.Generator().manual_seed(ttrain.step_seed(0,
+                                                                         it))
+                    pts, gts = taug.world_augment(pts, gts, *taug.world_draws(
+                        gen, batch))
+                return pts, torch.ones(pts.shape[:2], dtype=torch.bool,
+                                       device=dev), gts
+
+            times = []
+            with ttrain.deterministic():
+                for it in range(7):
+                    args = make_batch(it)
+                    torch.cuda.synchronize()
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    state, metrics = step_fn(state, *args)
+                    end.record()
+                    end.synchronize()
+                    if it >= 2:
+                        times.append(start.elapsed_time(end))
+                if not np.isfinite(float(metrics["loss"])):
+                    fail(f"train {d}: a non-finite loss in the timed steps")
+                args = make_batch(7)
+                torch.cuda.reset_peak_memory_stats()
+                base_mem = torch.cuda.memory_allocated()
+                step_fn(state, *args)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+                busy = _busy(lambda: step_fn(state, *args))
+                with torch.no_grad():
+                    assign = _busy(lambda: tdt.assign_batch(
+                        anchors.to(dev), args[2], cfg))
+            step_ms = float(np.median(times))
+            timing[d] = dict(
+                step_ms=round(step_ms, 4),
+                steps_per_s=round(1000.0 / step_ms, 4),
+                device_busy_ms=round(busy[0], 4), launches=busy[1],
+                busy_share=round(busy[0] / step_ms, 4),
+                assign_busy_ms=round(assign[0], 4),
+                assign_launches=assign[1],
+                assign_share=round(assign[0] / busy[0], 4),
+                peak_mib=round(peak / 2**20, 1),
+                base_mib=round(base_mem / 2**20, 1))
+            print(f"train step {d}: card {card_line()!r} batch {batch} "
+                  f"anchors {n_anch} {timing[d]}", flush=True)
+            del state
+
+        # one float32 step, the card against the CPU, at batch 1
+        params = tpp.init_params(cfg0, torch.Generator().manual_seed(0))
+        pts, gt = (torch.as_tensor(x) for x in frames[0])
+        valid = torch.ones(len(pts), dtype=torch.bool)
+        got = _step_on(tpp.PointPillars(cfg0, params, device=dev), dev, pts,
+                       valid, gt, anchors)
+        want = _step_on(tpp.PointPillars(cfg0, params, device="cpu"), "cpu",
+                        pts, valid, gt, anchors)
+        # the CPU's own gradients under 1e-7 relative weight perturbations
+        noise = dict.fromkeys(want[2], 0.0)
+        for seed in (1, 2, 3):
+            gen = torch.Generator().manual_seed(seed)
+            moved = {k: v * (1 + 1e-7 * torch.randn(v.shape, generator=gen))
+                     for k, v in params.items()}
+            other = _step_on(tpp.PointPillars(cfg0, moved, device="cpu"),
+                             "cpu", pts, valid, gt, anchors)[2]
+            for n, g in other.items():
+                noise[n] = max(noise[n], _rel_err(g, want[2][n]))
+        near = _near_assignment(anchors, gt, cfg0, tol=1e-5)
+        flips, unexplained = _label_flips(got[0], want[0], near)
+        loss_err = _rel_err(got[1], want[1])
+        grad_err = {n: _rel_err(g, want[2][n]) for n, g in got[2].items()}
+        worst = max(grad_err, key=grad_err.get)
+        bad = _grad_gate(grad_err, noise)
+        stats_err = max(float((v.cpu() - want[3][k]).abs().max())
+                        for k, v in got[3].items())
+        over = [n for n, e in grad_err.items() if e > 1e-3]
+        to_noise = max((grad_err[n] / max(noise[n], 1e-30) for n in over),
+                       default=0.0)
+        if unexplained or loss_err > 1e-4 or bad or stats_err > 1e-4:
+            fail(f"train step card vs CPU: label flips {flips} unexplained "
+                 f"{unexplained}, loss {loss_err}, gradients over the gate "
+                 f"{[(n, grad_err[n], noise[n]) for n in bad]}, running "
+                 f"stats {stats_err}")
+        print(f"train step card vs cpu (float32, batch 1): positives "
+              f"{int((want[0] > 0).sum())} ignored {int((want[0] < 0).sum())}"
+              f" label_flips {flips} near {int(near.sum())} loss "
+              f"{float(got[1])} cpu {float(want[1])} loss_rel_err {loss_err}"
+              f" grad_max_rel_err {grad_err[worst]} ({worst}, cpu noise "
+              f"{noise[worst]}) grads_over_1e-3 {len(over)} of "
+              f"{len(grad_err)} cpu_noise_max {max(noise.values())} "
+              f"cpu_noise_over_1e-3 {sum(e > 1e-3 for e in noise.values())} "
+              f"max_err_to_noise_over_1e-3 {to_noise} "
+              f"running_stats_max_abs_err {stats_err}", flush=True)
+
+        # handoff: the trained params into the infer and evaluate CLIs
+        scan = tmp / "scan.bin"
+        cloud.astype(np.float32).tofile(scan)
+        preds = tmp / "preds.txt"
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = infer.main([str(scan), "--params",
+                             str(tmp / "bfloat16_full" / "params_tpu.npz"),
+                             "--device", dev.type, "--predictions",
+                             str(preds)])
+        n_pred = json.loads(out.getvalue())["inference"]["num_predictions"]
+        tables = {}
+        for where in (dev.type, "cpu"):
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                evaluate.main(["--predictions", str(preds), "--labels",
+                               str(preds), "--device", where, "--out",
+                               str(tmp / f"table_{where}.json")])
+            tables[where] = json.loads(
+                (tmp / f"table_{where}.json").read_text())
+        table = tables[dev.type]
+        aps = [v for c in table["ap"].values() for m in c.values()
+               for v in m.values()]
+        if rc != 0 or table["det_boxes"] != n_pred or \
+                json.dumps(table) != json.dumps(tables["cpu"]) or (
+                    n_pred and not any(np.isfinite(aps))):
+            fail(f"handoff: infer rc {rc}, {n_pred} predictions, tables "
+                 f"{tables}")
+        print(f"handoff: infer predictions {n_pred} scored against "
+              f"themselves, card table == cpu table, ap "
+              f"{ {c: v['3d'] for c, v in table['ap'].items()} }",
+              flush=True)
+
+        # the experiment tool on the card; its snowify runs A1 and C1
+        for fn in (find_occluders, pulse_peaks):
+            fn.launches = 0
+        t0 = time.time()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = experiment.main([
+                "--out", str(tmp / "exp.json"), "--work", str(tmp / "exp"),
+                "--train-frames", "4", "--eval-frames", "2", "--steps", "4",
+                "--finetune-steps", "2", "--batch", "2", "--device",
+                dev.type])
+        counts = {"A1": find_occluders.launches, "C1": pulse_peaks.launches}
+        art = json.loads((tmp / "exp.json").read_text())
+        if rc not in (0, 1) or min(counts.values()) < 1 or \
+                art["platform"] != dev.type or \
+                art["datagen"]["train"]["removed"] < 1:
+            fail(f"experiment: rc {rc} launches {counts} datagen "
+                 f"{art['datagen']}")
+        print(f"experiment: rc {rc} launches {counts} datagen "
+              f"{art['datagen']} ap {art['ap_R40_moderate']} s "
+              f"{time.time() - t0:.1f} | train CLI processes s {cli_s:.1f} "
+              f"phase_s {time.time() - t_phase:.1f}", flush=True)
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
+    # phase 10 trains with deterministic algorithms, which need this set
+    # before the process's first cuBLAS call (torch reads it once)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from lidar_snow_sim_tpu_torch import (
         SnowfallConfig,
         build_bank,
@@ -1497,8 +1896,10 @@ def main() -> int:
     l1 = weather_phase(pc, sets, rr, occ, dev)
     batched = batched_phase(pc, padded, bank, bank_t, calib, calib_t, cfg,
                             lay, a12d, ovf, comp, out_p, dev)
-    # phase 9 runs before phase 8's profiler sessions, which would slow it
+    # phases 9 and 10 run before phase 8's profiler sessions, which would
+    # slow them
     detector_phase(out, dev)
+    training_phase(out, dev)
 
     occ_src = "lidar_snow_sim_tpu_torch/csrc/occluders.cu"
     tpu_occ = "lidar_snow_sim_tpu/ops/pallas_occluders.py"

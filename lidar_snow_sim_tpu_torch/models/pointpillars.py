@@ -1,5 +1,5 @@
-"""PointPillars detector inference on tensors (counterpart of
-`lidar_snow_sim_tpu/models/pointpillars.py`).
+"""PointPillars detector inference and training forward on tensors
+(counterpart of `lidar_snow_sim_tpu/models/pointpillars.py`).
 
 The reference's live inference (`pointcloud_viewer.py:2388-2498`) runs an
 OpenPCDet PointPillars network from an experiment directory on the
@@ -17,7 +17,12 @@ displayed cloud and renders `pred_boxes/pred_labels/pred_scores` as a
   score threshold, top `nms_pre_max`, rotated NMS (`ops/rotated_iou.py`);
 - `detect` keeps everything on the device; its only host reads are the
   NMS fixpoint's convergence test (one a sweep) and, for the caller, the
-  final `count`.
+  final `count`;
+- `train_forward` is the batched training forward for
+  `models/detector_train.py`: batch-statistic BN (`_bn_train`, masked
+  over live pillars in the PFN), the head's maps flattened over the
+  anchors (`head_forward`), the new running stats returned, not written;
+  `encode_boxes` is pcdet's residual encoding of the targets.
 
 With `compute_dtype="float32"` the convolutions and the PFN's product run
 in true float32 whatever the caller's TF32 flags say (the flags are set
@@ -53,6 +58,7 @@ from lidar_snow_sim_tpu_torch.ops.f32 import div
 from lidar_snow_sim_tpu_torch.ops.rotated_iou import nms_rotated
 
 _BN_EPS = 1e-3  # pcdet uses BatchNorm(eps=1e-3, momentum=0.01) throughout
+_BN_MOMENTUM = 0.01
 _SENTINEL = 2**31 - 1  # voxel id of a point outside the grid
 
 
@@ -532,7 +538,7 @@ def voxelize(points: torch.Tensor, valid: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# network blocks (eval mode)
+# network blocks
 
 
 @contextlib.contextmanager
@@ -569,6 +575,49 @@ def _bn(x, norm: nn.Module, dim: int = 1):
     return (x - g(norm.running_mean)) * g(inv) * g(norm.weight) + g(norm.bias)
 
 
+def _bn_train(x, norm: nn.Module, dim: int = 1, mask=None):
+    """Training batch norm along `dim` (the JAX package's `_bn(train=True)`):
+    batch statistics in float32 over every other dim, weighted by `mask`
+    (broadcast to x) where given, normalized with the biased variance.
+    Returns (y, running_mean, running_var): the running stats after this
+    batch (momentum 0.01, running_var from the Bessel-corrected variance),
+    detached and not written into `norm`."""
+    dim = dim % x.ndim
+    red = tuple(i for i in range(x.ndim) if i != dim)
+    shape = [1] * x.ndim
+    shape[dim] = x.shape[dim]
+    xf = x.float()
+    if mask is None:
+        mean = torch.mean(xf, dim=red)
+        var = torch.mean(xf * xf, dim=red) - mean * mean
+        nf = float(np.prod([x.shape[i] for i in red]))
+        bessel = nf / max(nf - 1.0, 1.0)
+    else:
+        w = torch.broadcast_to(mask.float(), x.shape)
+        n = torch.clamp_min(torch.sum(w, dim=red), 1.0)
+        mean = torch.sum(xf * w, dim=red) / n
+        var = torch.sum(xf * xf * w, dim=red) / n - mean * mean
+        bessel = n / torch.clamp_min(n - 1.0, 1.0)
+    m = _BN_MOMENTUM
+    with torch.no_grad():
+        run_mean = (1 - m) * norm.running_mean + m * mean
+        run_var = (1 - m) * norm.running_var + m * var * bessel
+    inv = torch.rsqrt(var + _BN_EPS).to(x.dtype).view(shape)
+    y = (x - mean.to(x.dtype).view(shape)) * inv
+    return (y * norm.weight.to(x.dtype).view(shape)
+            + norm.bias.to(x.dtype).view(shape)), run_mean, run_var
+
+
+def _norm(x, norm: nn.Module, name: str, stats, dim: int = 1, mask=None):
+    """`_bn` where `stats` is None; else `_bn_train`, with the new running
+    stats put in `stats` under `name`'s state-dict keys."""
+    if stats is None:
+        return _bn(x, norm, dim)
+    y, stats[f"{name}.running_mean"], stats[f"{name}.running_var"] = \
+        _bn_train(x, norm, dim, mask)
+    return y
+
+
 def pillar_features(vox: VoxelizeResult, cfg: PointPillarsConfig):
     """PillarVFE's 10-feature encoding: [xyzi, cluster offset, center
     offset] with padded points zeroed (pcdet PillarVFE.forward)."""
@@ -593,15 +642,21 @@ def pillar_features(vox: VoxelizeResult, cfg: PointPillarsConfig):
     return feat * pmask
 
 
-def pfn_forward(feat, net: PointPillars, cfg: PointPillarsConfig):
-    """PFN in eval mode: linear -> BN -> ReLU -> max over the points.
-    (V, P, 10) -> (V, C); padded points take part in the max, as in
-    pcdet."""
+def pfn_forward(feat, net: PointPillars, cfg: PointPillarsConfig,
+                stats=None, live=None):
+    """PFN: linear -> BN -> ReLU -> max over the points. (..., V, P, 10) ->
+    (..., V, C); padded points take part in the max, as in pcdet. With a
+    `stats` dict the BN runs in train mode (see `_norm`), its statistics
+    weighted by the `live` (..., V) pillar mask where given: dead
+    fixed-shape slots must not dilute them. The max is `amax`, which
+    splits the gradient evenly among tied points, as JAX's does."""
     x = feat
-    for layer in net.vfe.pfn_layers:
+    mask = None if live is None else live[..., None, None]
+    for i, layer in enumerate(net.vfe.pfn_layers):
         x = torch.matmul(x, layer.linear.weight.to(x.dtype).t())
-        x = torch.relu(_bn(x, layer.norm, dim=-1))
-    return torch.amax(x, dim=-2)                          # (V, C)
+        x = torch.relu(_norm(x, layer.norm, f"vfe.pfn_layers.{i}.norm",
+                             stats, dim=-1, mask=mask))
+    return torch.amax(x, dim=-2)                          # (..., V, C)
 
 
 def scatter_bev(pfeat, vox: VoxelizeResult, cfg: PointPillarsConfig):
@@ -619,20 +674,24 @@ def scatter_bev(pfeat, vox: VoxelizeResult, cfg: PointPillarsConfig):
     return canvas[:-1].view(1, ny, nx, c).permute(0, 3, 1, 2)
 
 
-def backbone_forward(spatial, net: PointPillars, cfg: PointPillarsConfig):
+def backbone_forward(spatial, net: PointPillars, cfg: PointPillarsConfig,
+                     stats=None):
     """BaseBEVBackbone: stages of a stride-s 3x3 conv (pcdet's ZeroPad2d(1)
     + padding 0, i.e. padding 1) and n 3x3 convs, each stage upsampled to
     the feature-map stride and concatenated. (B, C, ny, nx) ->
-    (B, sum(num_upsample_filters), H, W)."""
+    (B, sum(num_upsample_filters), H, W). With a `stats` dict the BNs run
+    in train mode (see `_norm`)."""
     x = spatial
     ups = []
     for i, (n, s) in enumerate(zip(cfg.layer_nums, cfg.layer_strides)):
         blk = net.backbone_2d.blocks[i]
+        pre = f"backbone_2d.blocks.{i}"
         x = F.conv2d(x, blk[1].weight.to(x.dtype), stride=s, padding=1)
-        x = torch.relu(_bn(x, blk[2]))
+        x = torch.relu(_norm(x, blk[2], f"{pre}.2", stats))
         for j in range(n):
             x = F.conv2d(x, blk[3 * j + 4].weight.to(x.dtype), padding=1)
-            x = torch.relu(_bn(x, blk[3 * j + 5]))
+            x = torch.relu(_norm(x, blk[3 * j + 5], f"{pre}.{3 * j + 5}",
+                                 stats))
         u = cfg.upsample_strides[i]
         deblk = net.backbone_2d.deblocks[i]
         if u >= 1:
@@ -641,7 +700,8 @@ def backbone_forward(spatial, net: PointPillars, cfg: PointPillarsConfig):
         else:
             k = int(round(1 / u))
             y = F.conv2d(x, deblk[0].weight.to(x.dtype), stride=k)
-        ups.append(torch.relu(_bn(y, deblk[1])))
+        ups.append(torch.relu(_norm(y, deblk[1],
+                                    f"backbone_2d.deblocks.{i}.1", stats)))
     return torch.cat(ups, dim=1)
 
 
@@ -658,18 +718,16 @@ def head_forward_chw(feat, net: PointPillars, cfg: PointPillarsConfig):
 
 
 def head_forward(feat, net: PointPillars, cfg: PointPillarsConfig):
-    """The head's maps of the batch's first frame in pcdet's NCHW->NHWC
-    permute layout: (H, W, A, {ncls, 7, nbins})."""
-    b, _, h, w = feat.shape
-    a = cfg.num_anchors_per_loc
+    """The head's maps in pcdet's NCHW->NHWC permute layout, flattened over
+    the (H, W, A) anchors: (B, N_anchors, {ncls, 7, nbins}) float32."""
+    b = feat.shape[0]
     cls_c, box_c, dir_c = head_forward_chw(feat, net, cfg)
+    a = cfg.num_anchors_per_loc
 
-    def nhwc(y, c):
-        return y.permute(0, 2, 3, 1).reshape(b, h, w, a, c)
+    def flat(y):
+        return y.permute(0, 2, 3, 1).reshape(b, -1, y.shape[1] // a)
 
-    out = (nhwc(cls_c, len(cfg.class_names)), nhwc(box_c, 7),
-           nhwc(dir_c, cfg.num_dir_bins))
-    return tuple(y[0] for y in out)
+    return flat(cls_c), flat(box_c), flat(dir_c)
 
 
 # ---------------------------------------------------------------------------
@@ -711,6 +769,21 @@ def decode_boxes(box_preds, anchors):
     dzg = torch.exp(dzt) * dza
     rg = rt + ra
     return torch.cat([xg, yg, zg, dxg, dyg, dzg, rg], dim=-1)
+
+
+def encode_boxes(gt, anchors):
+    """pcdet ResidualCoder.encode_torch (dx/dy/dz floored at 1e-5)."""
+    xa, ya, za, dxa, dya, dza, ra = torch.split(anchors, 1, dim=-1)
+    xg, yg, zg, dxg, dyg, dzg, rg = torch.split(gt, 1, dim=-1)
+    dxg = torch.clamp_min(dxg, 1e-5)
+    dyg = torch.clamp_min(dyg, 1e-5)
+    dzg = torch.clamp_min(dzg, 1e-5)
+    diag = torch.sqrt(dxa * dxa + dya * dya)
+    return torch.cat([
+        (xg - xa) / diag, (yg - ya) / diag, (zg - za) / dza,
+        torch.log(dxg / dxa), torch.log(dyg / dya), torch.log(dzg / dza),
+        rg - ra,
+    ], dim=-1)
 
 
 def limit_period(val, offset, period):
@@ -763,8 +836,47 @@ def forward_features(points, valid, net: PointPillars):
     (H, W, A, c) layout, float32, and the VoxelizeResult."""
     with _true_float32():
         bev, vox = _features_bev(points, valid, net, net.cfg)
-        cls, box, dir_ = head_forward(bev, net, net.cfg)
+        maps = head_forward(bev, net, net.cfg)
+    h, w = net.cfg.feature_map_size
+    a = net.cfg.num_anchors_per_loc
+    cls, box, dir_ = (y[0].reshape(h, w, a, y.shape[-1]) for y in maps)
     return cls, box, dir_, vox
+
+
+def train_forward(points, valid, net: PointPillars, device="cuda"):
+    """Batched training forward with batch-statistic BN (the JAX package's
+    `detector_train.train_forward`).
+
+    points (B, N, 4), valid (B, N) bool (numpy or tensors), run on
+    `device` (default the card; raises where there is none), where `net`
+    must live. Each frame is
+    voxelized, its dead pillars (rank >= num_pillars) are masked out of the
+    PFN's statistics and zeroed before the scatter, then the batched
+    backbone and head run in `cfg.compute_dtype` (BN statistics in
+    float32). Returns (cls (B, N_anchors, ncls), box (B, N_anchors, 7),
+    dir (B, N_anchors, nbins), float32, and {state-dict name: tensor} of
+    the running stats after this batch). The stats are not written into
+    `net`: the caller commits them (`detector_train`). Call it inside
+    `_true_float32()` for IEEE float32 convolutions, the backward pass
+    included."""
+    where = _on_net_device(net, device)
+    points = torch.as_tensor(points, dtype=torch.float32, device=where)
+    valid = torch.as_tensor(valid, dtype=torch.bool, device=where)
+    cfg = net.cfg
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else \
+        torch.float32
+    voxs = [voxelize(p, v, cfg) for p, v in zip(points, valid)]
+    feat = torch.stack([pillar_features(v, cfg) for v in voxs])
+    num_pillars = torch.stack([v.num_pillars for v in voxs])
+    live = (torch.arange(cfg.max_pillars, device=points.device)[None, :]
+            < num_pillars[:, None])                       # (B, V)
+    stats: dict = {}
+    pfeat = pfn_forward(feat.to(dtype), net, cfg, stats=stats, live=live)
+    pfeat = pfeat * live[..., None].to(pfeat.dtype)
+    spatial = torch.cat([scatter_bev(f, v, cfg) for f, v in zip(pfeat, voxs)])
+    bev = backbone_forward(spatial, net, cfg, stats=stats)
+    cls, box, dir_ = head_forward(bev, net, cfg)
+    return cls, box, dir_, stats
 
 
 def post_process(cls_c, box_c, dir_c, anchors,
@@ -853,6 +965,17 @@ def post_process(cls_c, box_c, dir_c, anchors,
     )
 
 
+def _on_net_device(net: PointPillars, device) -> torch.device:
+    """The net's device, which must be `device` (resolved: a CUDA device
+    raises where there is no card)."""
+    dev = resolve_device(device)
+    where = net.device
+    if where.type != dev.type or (dev.index is not None
+                                  and where.index != dev.index):
+        raise ValueError(f"running on {dev}, but the net is on {where}")
+    return where
+
+
 @torch.no_grad()
 def detect(points, valid, net: PointPillars, anchors=None,
            device="cuda") -> Predictions:
@@ -861,11 +984,7 @@ def detect(points, valid, net: PointPillars, anchors=None,
     counters. Runs on `device` (default the card; raises where there is
     none), where `net` must live. `anchors` defaults to the net's grid.
     The viewer's (K, 9) array is `predictions_array` of the result."""
-    dev = resolve_device(device)
-    where = net.device
-    if where.type != dev.type or (dev.index is not None
-                                  and where.index != dev.index):
-        raise ValueError(f"detect on {dev}, but the net is on {where}")
+    where = _on_net_device(net, device)
     points = torch.as_tensor(points, dtype=torch.float32, device=where)
     valid = (torch.ones(points.shape[0], dtype=torch.bool, device=where)
              if valid is None else torch.as_tensor(valid, dtype=torch.bool,

@@ -25,6 +25,7 @@ chip_smoke.py reads every kernel's times through it, on its bench scene:
 
 from __future__ import annotations
 
+import os
 import subprocess
 import zlib
 from pathlib import Path
@@ -140,7 +141,8 @@ def bench_config():
 
 
 def bank_sets(cache_dir: Path, rate_mm_h=2.5, velocity=1.6, seed=42):
-    """The bench bank's 64 gunn particle sets, cached as an .npz."""
+    """The bench bank's 64 gunn particle sets (2.5 mm/h, 1.6 m/s, seed 42:
+    also the experiment tool's), cached as an .npz."""
     from lidar_snow_sim_tpu_torch import (
         compute_occupancy,
         dart_throwing_fast,
@@ -156,7 +158,10 @@ def bank_sets(cache_dir: Path, rate_mm_h=2.5, velocity=1.6, seed=42):
     rng = np.random.default_rng(seed)
     sets = [dart_throwing_fast(occ, rr, 80.0, rng, "gunn") for _ in range(64)]
     cache_dir.mkdir(parents=True, exist_ok=True)
-    np.savez_compressed(path, **{f"c{i}": s for i, s in enumerate(sets)})
+    # written aside and renamed, so a concurrent reader sees no partial file
+    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.npz")
+    np.savez_compressed(tmp, **{f"c{i}": s for i, s in enumerate(sets)})
+    os.replace(tmp, path)
     return sets, rr, occ
 
 

@@ -1,5 +1,6 @@
-"""chip_smoke.py's card-against-CPU gate for detector predictions
-(`_flips`), on crafted predictions on the CPU.
+"""chip_smoke.py's card-against-CPU gates, on crafted inputs on the CPU:
+phase 9's for detector predictions (`_flips`), phase 10's for assigned
+labels (`_near_assignment`, `_label_flips`) and gradients (`_rel_err`).
 
 A prediction that one run kept and the other did not is a flip. The gate
 excuses a flip only where a decision about that prediction lies within
@@ -9,6 +10,7 @@ predictions are compared as matched sets, so one flip does not shift the
 later rows, and matched rows must keep their order.
 """
 
+import dataclasses
 import runpy
 from pathlib import Path
 
@@ -83,3 +85,107 @@ def test_flip_gate(case, want):
     elif case == "out_of_order":
         card = _preds("DC", [0.5, 0.9])
     assert SMOKE["_flips"](card, cpu, scores, cfg) == want
+
+
+# ---------------------------------------------------------------------------
+# phase 10's gates: label flips at an assignment boundary, the gradient
+# tolerance
+
+SMALL = tpp.PointPillarsConfig(
+    class_names=("Car", "Pedestrian"),
+    point_cloud_range=(0.0, -8.0, -3.0, 16.0, 8.0, 1.0),
+    voxel_size=(0.5, 0.5, 4.0),
+    anchor_sizes=((3.9, 1.6, 1.56), (0.8, 0.6, 1.73)),
+    anchor_bottom_heights=(-1.78, -0.6),
+    anchor_match_thresholds=(0.6, 0.5),
+    anchor_unmatch_thresholds=(0.45, 0.35))
+ANCH = torch.as_tensor(tpp.generate_anchors(SMALL)).reshape(-1, 7)
+
+
+def _gt(*rows):
+    gt = torch.zeros(8, 8)
+    for i, r in enumerate(rows):
+        gt[i] = torch.tensor(r)
+    return gt
+
+
+# a car gt shifted off car anchor 400 by 0.28 of its length: anchor 400
+# lies in the ignore band, the gt's best anchor stands alone
+SHIFTED = (float(ANCH[400, 0]) + 0.28 * 3.9, *ANCH[400, 1:].tolist(), 1.0)
+
+
+@pytest.mark.parametrize("case,want", [
+    # the same labels: nothing to excuse
+    ("equal", (0, 0)),
+    # anchor 400 flips where no threshold is near its IoU
+    ("far", (1, 1)),
+    # ... and where the matched threshold sits 5e-6 above its IoU
+    ("match", (1, 0)),
+    # ... the unmatched threshold 5e-6 below it
+    ("unmatch", (1, 0)),
+    # the gt's best anchor flips: it stands alone (no tie), so it stands
+    ("lone_best", (1, 1)),
+    # a gt whose best IoU two anchors share: both flip, both are excused
+    ("tie", (2, 0)),
+    # a gt whose best is 0 (outside every same-class anchor): whether it
+    # force-matches at all is a boundary, so its anchors' flips are excused
+    ("best_zero", (1, 0)),
+])
+def test_label_flip_gate(case, want):
+    from lidar_snow_sim_tpu_torch.models.detector_train import assign_targets
+
+    cfg, gt = SMALL, _gt(SHIFTED)
+    iou = boxes_iou_bev(ANCH, gt[:1, :7])[:, 0]
+    a = 400
+    if case == "match":
+        cfg = dataclasses.replace(cfg, anchor_match_thresholds=(
+            float(iou[a]) + 5e-6, 0.5))
+    elif case == "unmatch":
+        cfg = dataclasses.replace(cfg, anchor_unmatch_thresholds=(
+            float(iou[a]) - 5e-6, 0.35))
+    elif case == "lone_best":
+        a = int(torch.argmax(iou))
+    elif case == "tie":
+        # a car box centred between two anchors of one row, at rotation 0:
+        # equal IoU with both by symmetry
+        x0, x1 = float(ANCH[400, 0]), float(ANCH[404, 0])
+        gt = _gt(((x0 + x1) / 2, *ANCH[400, 1:].tolist(), 1.0))
+        iou = boxes_iou_bev(ANCH, gt[:1, :7])[:, 0]
+        top = torch.nonzero(iou == iou.max()).flatten()
+        assert len(top) == 2
+    elif case == "best_zero":
+        gt = _gt((60.0, 40.0, -1.0, 3.9, 1.6, 1.56, 0.0, 1.0))
+        a = 0
+    want_labels = assign_targets(ANCH, gt, cfg)[0]
+    got = want_labels.clone()
+    if case == "tie":
+        got[top] = 1 - got[top]
+    elif case != "equal":
+        got[a] = 1 - got[a]
+    near = SMOKE["_near_assignment"](ANCH, gt, cfg, tol=1e-5)
+    assert SMOKE["_label_flips"](got, want_labels, near) == want
+
+
+def test_gradient_tolerance():
+    rel = SMOKE["_rel_err"]
+    g = torch.tensor([[0.5, -2.0], [1e-3, 0.0]], dtype=torch.float64)
+    assert rel(g, g) == 0.0
+    # relative to the largest |value| (2.0), not elementwise
+    assert rel(g + 0.5e-3 * 2.0, g) == pytest.approx(0.5e-3)
+    assert rel(g * (1 + 2e-3), g) == pytest.approx(2e-3)
+    assert rel(g.float(), g) < 1e-7
+    assert rel(torch.zeros(3), torch.zeros(3)) == 0.0
+    assert rel(torch.full((3,), 1e-4), torch.zeros(3)) == pytest.approx(1e-4)
+
+
+def test_gradient_gate():
+    """A gradient passes within 1e-3 of its largest value, or within twice
+    the CPU's own change under tiny weight perturbations where that change
+    is larger; anything else fails."""
+    gate = SMOKE["_grad_gate"]
+    err = {"head": 5e-4, "bn_bias": 0.04, "conv": 0.04, "wrong": 0.5}
+    noise = {"head": 1e-6, "bn_bias": 0.03, "conv": 0.01, "wrong": 0.02}
+    assert gate(err, noise) == ["conv", "wrong"]
+    assert gate({"a": 1e-3}, {"a": 0.0}) == []
+    assert gate({"a": 2e-3}, {"a": 1e-3}) == []
+    assert gate({"a": 2.1e-3}, {"a": 1e-3}) == ["a"]

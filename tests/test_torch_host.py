@@ -194,9 +194,10 @@ def _entry_points(tmp_path, bank):
     from lidar_snow_sim_tpu_torch.models.wet_ground import WetGroundAugmenter
     from lidar_snow_sim_tpu_torch.parallel.datagen import run_snowfall_datagen
     from lidar_snow_sim_tpu_torch.models import pointpillars as tpp
-    from lidar_snow_sim_tpu_torch.tools import infer
+    from lidar_snow_sim_tpu_torch.tools import evaluate, experiment, infer
     from lidar_snow_sim_tpu_torch.tools import inspect as tinspect
-    from lidar_snow_sim_tpu_torch.tools import precompute
+    from lidar_snow_sim_tpu_torch.tools import precompute, train
+    from lidar_snow_sim_tpu_torch.utils import eval_ap
 
     pc = tsyn.synthetic_scan(n_azimuth=20, seed=1)
     scan = tmp_path / "scan.bin"
@@ -232,6 +233,19 @@ def _entry_points(tmp_path, bank):
         "PointPillars": lambda: tpp.PointPillars(det_cfg, det_params),
         "detect": lambda: tpp.detect(pc[:, :4], None, det_cpu),
         "infer CLI": lambda: infer.main([str(scan), "--random-params"]),
+        "train_forward": lambda: tpp.train_forward(
+            pc[None, :, :4], np.ones((1, len(pc)), bool), det_cpu),
+        "train CLI": lambda: train.main([
+            "--synthetic", "2", "--steps", "1", "--batch", "1",
+            "--max-points", "256", "--out", str(tmp_path / "out")]),
+        "eval_ap.evaluate": lambda: eval_ap.evaluate(
+            [eval_ap.gt_frame(np.ones((1, 7)), ["Car"])],
+            [eval_ap.det_frame(np.ones((1, 7)), ["Car"], [0.5])]),
+        "evaluate CLI": lambda: evaluate.main([
+            "--predictions", str(scan), "--labels", str(scan)]),
+        "experiment CLI": lambda: experiment.main([
+            "--out", str(tmp_path / "out" / "e.json"), "--work",
+            str(tmp_path / "out")]),
     }
 
 
@@ -240,7 +254,8 @@ ENTRY_POINTS = ["api.augment", "api.ground_water_augmentation",
                 "FogAugmenter", "simulate_fog", "StfFogAugmenter",
                 "dynamic_radius_outlier_filter", "run_snowfall_datagen",
                 "inspect CLI", "precompute CLI", "PointPillars", "detect",
-                "infer CLI"]
+                "infer CLI", "train_forward", "train CLI", "eval_ap.evaluate",
+                "evaluate CLI", "experiment CLI"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -262,3 +277,116 @@ def test_resolve_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             resolve_device()
+
+
+def test_detector_augment_numpy_parts_bitwise():
+    """The copied host code of detector_augment: the BEV overlap test, the
+    interior-point test and the SAMPLE_GROUPS parser."""
+    from lidar_snow_sim_tpu.models import detector_augment as jaug
+    from lidar_snow_sim_tpu_torch.models import detector_augment as taug
+
+    rng = np.random.default_rng(0)
+
+    def boxes(n):
+        return np.column_stack([
+            rng.uniform(-10, 10, (n, 2)), rng.uniform(-1, 1, n),
+            rng.uniform(0.5, 5, (n, 3)), rng.uniform(-np.pi, np.pi, n),
+        ]).astype(np.float32)
+
+    a, b = boxes(40), boxes(30)
+    b[:5] = a[:5]                    # coincident boxes
+    _equal(taug._bev_intersects(a, b), jaug._bev_intersects(a, b))
+    _equal(taug._bev_intersects(a[:0], b), jaug._bev_intersects(a[:0], b))
+    pts = rng.uniform(-10, 10, (500, 4)).astype(np.float32)
+    for box in a[:8]:
+        _equal(taug._points_in_box(pts, box), jaug._points_in_box(pts, box))
+    spec = " Car:15, Pedestrian:10,,Cyclist:0 "
+    assert taug.parse_sample_groups(spec) == jaug.parse_sample_groups(spec)
+    assert taug.WorldAugmentConfig() == taug.WorldAugmentConfig(
+        **dataclasses.asdict(jaug.WorldAugmentConfig()))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_eval_ap_numpy_parts_bitwise(seed):
+    """The copied protocol of eval_ap: ignore states, both matchers, the
+    recall thresholds, AP on given overlaps, and the frame builders."""
+    from lidar_snow_sim_tpu.utils import eval_ap as jeval
+    from lidar_snow_sim_tpu_torch.utils import eval_ap as teval
+    from lidar_snow_sim_tpu_torch.utils.boxes import Box3D
+
+    rng = np.random.default_rng(seed)
+    names = ["Car", "Van", "Pedestrian", "Person_sitting", "Cyclist",
+             "DontCare"]
+    n_gt, n_dt = int(rng.integers(1, 12)), int(rng.integers(0, 16))
+    gt = jeval.gt_frame(rng.normal(0, 5, (n_gt, 7)),
+                        list(rng.choice(names, n_gt)),
+                        truncated=rng.uniform(0, 0.6, n_gt),
+                        occluded=rng.integers(0, 3, n_gt),
+                        bbox_height=rng.uniform(10, 60, n_gt))
+    dt = jeval.det_frame(rng.normal(0, 5, (n_dt, 7)),
+                         list(rng.choice(names[:5], n_dt)),
+                         rng.integers(0, 4, n_dt) / 4.0)
+    overlaps = rng.integers(0, 5, (n_gt, n_dt)) / 5.0
+    for cls in ("Car", "Pedestrian", "Cyclist"):
+        for diff in range(3):
+            want = jeval._clean_frame(gt, dt, cls, diff)
+            got = teval._clean_frame(gt, dt, cls, diff)
+            _equal(got[0], want[0])
+            _equal(got[1], want[1])
+            assert got[2] == want[2]
+            for fp in (False, True):
+                args = (overlaps, dt["scores"], want[0], want[1], 0.4,
+                        0.3 if fp else 0.0, fp)
+                for fn in ("_frame_statistics", "_frame_statistics_ref"):
+                    a = getattr(teval, fn)(*args)
+                    b = getattr(jeval, fn)(*args)
+                    assert a[:3] == b[:3] and list(a[3]) == list(b[3])
+            for mode in ("R40", "R11"):
+                kw = dict(difficulty=diff, recall_mode=mode,
+                          _overlaps=[overlaps])
+                a = teval.average_precision([gt], [dt], cls, **kw)
+                b = jeval.average_precision([gt], [dt], cls, **kw)
+                assert (np.isnan(a) and np.isnan(b)) or a == b
+    scores = rng.uniform(0, 1, 60)
+    _equal(teval._get_thresholds(scores, 50), jeval._get_thresholds(scores,
+                                                                     50))
+    anns = [{"identity": "Car", "truncated": 0.1, "occlusion": 1,
+             "bbox": (10.0, 20.0, 60.0, 65.0), "height": 1.6, "width": 1.8,
+             "length": 4.0, "posx_lidar": 5.0, "posy_lidar": 1.0,
+             "posz_lidar": -1.6, "rotz": 0.2}]
+    arr = np.column_stack([rng.normal(0, 5, (6, 7)), rng.integers(0, 5, 6),
+                           rng.uniform(0, 1, 6)])
+    bx = [Box3D(x=1.0, y=2.0, z=0.5, length=4.0, width=1.8, height=1.5,
+                yaw=0.3, identity="Car", score=0.7)]
+    for got, want in (
+            (teval.gt_frame_from_annotations(anns),
+             jeval.gt_frame_from_annotations(anns)),
+            (teval.det_frame_from_predictions(arr, ("Car", "Pedestrian")),
+             jeval.det_frame_from_predictions(arr, ("Car", "Pedestrian"))),
+            (teval.gt_frame_from_boxes(bx), jeval.gt_frame_from_boxes(bx)),
+            (teval.det_frame_from_boxes(bx), jeval.det_frame_from_boxes(bx))):
+        assert set(got) == set(want)
+        for k in want:
+            if isinstance(want[k], np.ndarray):
+                _equal(got[k], want[k])
+            else:
+                assert got[k] == want[k]
+    for const in ("MIN_HEIGHT", "MAX_OCCLUSION", "MAX_TRUNCATION",
+                  "DIFFICULTY_NAMES", "SIMILAR_CLASSES",
+                  "DEFAULT_IOU_THRESH"):
+        assert getattr(teval, const) == getattr(jeval, const)
+
+
+def test_stf_labels_transforms_bitwise():
+    """The copied stf_labels: quaternion and TF-record matrices (its
+    calib and label files are held in tests/test_torch_eval.py)."""
+    from lidar_snow_sim_tpu.utils import stf_labels as jstf
+    from lidar_snow_sim_tpu_torch.utils import stf_labels as tstf
+
+    rng = np.random.default_rng(2)
+    for q in rng.normal(0, 1, (20, 4)):
+        _equal(tstf._quat_to_mat(*q), jstf._quat_to_mat(*q))
+        tf = {"transform": {
+            "translation": dict(zip("xyz", rng.normal(0, 2, 3))),
+            "rotation": dict(zip("xyzw", q))}}
+        _equal(tstf._tf_to_mat(tf), jstf._tf_to_mat(tf))

@@ -18,6 +18,8 @@ MODULES = [
     "lidar_snow_sim_tpu_torch.camera",
     "lidar_snow_sim_tpu_torch.config",
     "lidar_snow_sim_tpu_torch.device",
+    "lidar_snow_sim_tpu_torch.models.detector_augment",
+    "lidar_snow_sim_tpu_torch.models.detector_train",
     "lidar_snow_sim_tpu_torch.models.dror",
     "lidar_snow_sim_tpu_torch.models.fog",
     "lidar_snow_sim_tpu_torch.models.lisa",
@@ -41,15 +43,20 @@ MODULES = [
     "lidar_snow_sim_tpu_torch.sampling.dart",
     "lidar_snow_sim_tpu_torch.sampling.distributions",
     "lidar_snow_sim_tpu_torch.tools.convert_checkpoint",
+    "lidar_snow_sim_tpu_torch.tools.evaluate",
+    "lidar_snow_sim_tpu_torch.tools.experiment",
     "lidar_snow_sim_tpu_torch.tools.infer",
     "lidar_snow_sim_tpu_torch.tools.inspect",
     "lidar_snow_sim_tpu_torch.tools.precompute",
     "lidar_snow_sim_tpu_torch.tools.profile_weather",
+    "lidar_snow_sim_tpu_torch.tools.train",
     "lidar_snow_sim_tpu_torch.utils",
     "lidar_snow_sim_tpu_torch.utils.boxes",
     "lidar_snow_sim_tpu_torch.utils.datasets",
+    "lidar_snow_sim_tpu_torch.utils.eval_ap",
     "lidar_snow_sim_tpu_torch.utils.pointcloud",
     "lidar_snow_sim_tpu_torch.utils.render",
+    "lidar_snow_sim_tpu_torch.utils.stf_labels",
     "lidar_snow_sim_tpu_torch.utils.synthetic",
 ]
 

@@ -206,3 +206,35 @@ def test_pair_spread_counts_pairs_and_neighbours():
     assert got["C1 neighbours"] == {"mean_abs_diff": 0.25,
                                     "share_differing": 0.25,
                                     "max_abs_diff": 1}
+
+
+def test_grad_noise_spread_and_step_on_the_cpu():
+    """scripts/grad_noise.py's pieces at a small config on the CPU: a step's
+    gradients repeat bit for bit, a 1e-7 weight perturbation moves them,
+    and spread() reports the worst gradient."""
+    import torch
+
+    from lidar_snow_sim_tpu_torch.models import pointpillars as tpp
+    from scripts import grad_noise
+
+    cfg = tpp.PointPillarsConfig(
+        point_cloud_range=(0.0, -8.0, -3.0, 16.0, 8.0, 1.0),
+        voxel_size=(0.5, 0.5, 4.0), max_points_per_pillar=8,
+        max_pillars=128, pfn_filters=(8,), layer_nums=(1, 1, 1),
+        num_filters=(8, 8, 8), num_upsample_filters=(8, 8, 8))
+    gen = torch.Generator().manual_seed(0)
+    pts = torch.rand(800, 4, generator=gen) * torch.tensor(
+        [16.0, 16.0, 4.0, 1.0]) + torch.tensor([0.0, -8.0, -3.0, 0.0])
+    gt = torch.zeros(4, 8)
+    gt[0] = torch.tensor([8.0, 0.0, -1.0, 3.9, 1.6, 1.56, 0.3, 1.0])
+    anchors = torch.as_tensor(tpp.generate_anchors(cfg)).reshape(-1, 7)
+    params = tpp.init_params(cfg, torch.Generator().manual_seed(0))
+    a = grad_noise.step_grads(cfg, params, pts, gt, anchors, "cpu")
+    b = grad_noise.step_grads(cfg, params, pts, gt, anchors, "cpu")
+    same = grad_noise.spread(a, b)
+    assert same["max_rel_err"] == 0.0 and same["over_1e-3"] == 0
+    assert same["of"] == len(a) == 36
+    moved = grad_noise.step_grads(cfg, grad_noise.perturbed(params, 1), pts,
+                                  gt, anchors, "cpu")
+    s = grad_noise.spread(moved, a)
+    assert 0.0 < s["max_rel_err"] and s["worst"] in a
