@@ -1,8 +1,19 @@
-"""Snowfall augmentation, dense assembly (counterpart of
-`lidar_snow_sim_tpu/models/snowfall.py`, `snowfall_augment_dense` on its
-Pallas branch).
+"""Snowfall augmentation (counterpart of
+`lidar_snow_sim_tpu/models/snowfall.py`): the window assembly
+(`snowfall_augment`, plain torch) and the dense assembly
+(`snowfall_augment_dense`, the JAX package's Pallas branch, on kernels).
 
-Per scan:
+`snowfall_augment` runs the assembly `cfg.assembly` names. The window
+assembly (models/snowfall.py:93-419) stable-sorts the points by channel,
+gathers each point's angular window of `window_size` bank columns plus its
+row's wide list, and runs the intersection test, the nearest-K occluders,
+the first-claim sweep and the waveform peak per chunk of `point_chunk`
+points (`ops/geometry.candidate_intervals`, `ops/sweep`, `ops/waveform`);
+its rows come back in that channel-sorted order. Its window_overflow
+counts the in-window particles beyond `window_size`, which no capacity
+growth resolves (the JAX package's rule).
+
+The dense assembly, per scan:
 
 1. ground plane (RANSAC, draws injected) -> incident angles -> adaptive
    noise polynomial over range (simulation.py:449-469);
@@ -59,8 +70,8 @@ fold its frames' A1 chunks into one launch (`run_phase_a_folded`, the
 
 Ignored knobs: use_pallas, pallas_interpret and chunk_group. The device
 decides instead: a CUDA tensor goes to the kernels, a CPU tensor to their
-plain versions. `assembly="window"` raises NotImplementedError (ROADMAP.md,
-Open items).
+plain versions. The window assembly has no kernel: the JAX package computes
+it in plain XLA.
 """
 
 from __future__ import annotations
@@ -90,7 +101,11 @@ from lidar_snow_sim_tpu_torch.ops.fitting import (
     ransac_draws,
     ransac_plane,
 )
-from lidar_snow_sim_tpu_torch.ops.geometry import beam_limits, norm3
+from lidar_snow_sim_tpu_torch.ops.geometry import (
+    beam_limits,
+    candidate_intervals,
+    norm3,
+)
 from lidar_snow_sim_tpu_torch.ops.laser import estimate_laser_parameters
 from lidar_snow_sim_tpu_torch.ops.occluders import (
     find_occluders,
@@ -102,6 +117,8 @@ from lidar_snow_sim_tpu_torch.ops.occluders import (
     point_features,
 )
 from lidar_snow_sim_tpu_torch.ops.pulse import pulse_peaks, pulse_peaks_pair
+from lidar_snow_sim_tpu_torch.ops.sweep import occlusion_sweep
+from lidar_snow_sim_tpu_torch.ops.waveform import waveform_peak, xsi
 
 logger = logging.getLogger(__name__)
 
@@ -121,21 +138,28 @@ class SnowfallResult(NamedTuple):
     num_attenuated: torch.Tensor   # int32
     num_removed: torch.Tensor      # int32
     avg_intensity_diff: torch.Tensor  # int32, truncated toward zero
-    window_overflow: torch.Tensor  # bank columns a slice failed to cover
+    window_overflow: torch.Tensor  # bank columns a slice (dense) or
+    # in-window particles a window_size window (window) failed to cover
     occluder_overflow: torch.Tensor  # hits beyond max_occluders
-    bump_overflow: torch.Tensor    # always 0: bumps == occluders here
+    bump_overflow: torch.Tensor    # nonzero ratios beyond max_bumps
+    # (always 0 on the dense assembly, whose bumps are its occluders)
     channel_overflow: torch.Tensor  # points beyond channel_capacity
     compact_overflow: torch.Tensor  # occluded beyond compact_capacity,
     # plus touched/moved beyond touch_capacity/scatter_capacity
 
 
 class BankTensors(NamedTuple):
-    """The ParticleBank arrays the dense assembly reads, on one device."""
+    """The ParticleBank arrays the assemblies read, on one device."""
 
     data_t: torch.Tensor   # (C, 8, K_ext) f32 property rows
     wide_t: torch.Tensor   # (C, 8, Wc) f32
     count: torch.Tensor    # (C,) int32 narrow count
     lut: torch.Tensor      # (C, LUT_BINS + 1) int64 azimuth -> column
+    # the window assembly's views of data_t and wide_t (the bank's data,
+    # angle and wide arrays, equal to them bit for bit)
+    data: torch.Tensor     # (C, K_ext, 4) x, y, r, dist
+    angle: torch.Tensor    # (C, K_ext) signed extended sort azimuth
+    wide: torch.Tensor     # (C, W, 4), W = the bank's wide capacity
 
 
 class CalibTensors(NamedTuple):
@@ -147,13 +171,18 @@ class CalibTensors(NamedTuple):
 
 
 def bank_to_torch(bank: ParticleBank, device) -> BankTensors:
+    data_t = torch.as_tensor(bank.data_t, dtype=torch.float32,
+                             device=device).contiguous()
+    wide_t = torch.as_tensor(bank.wide_t, dtype=torch.float32,
+                             device=device).contiguous()
     return BankTensors(
-        data_t=torch.as_tensor(bank.data_t, dtype=torch.float32,
-                               device=device).contiguous(),
-        wide_t=torch.as_tensor(bank.wide_t, dtype=torch.float32,
-                               device=device).contiguous(),
+        data_t=data_t,
+        wide_t=wide_t,
         count=torch.as_tensor(bank.count, dtype=torch.int32, device=device),
         lut=torch.as_tensor(bank.lut, dtype=torch.int64, device=device),
+        data=data_t[:, :4].transpose(1, 2),
+        angle=data_t[:, 6],
+        wide=wide_t[:, :4, :bank.wide.shape[1]].transpose(1, 2),
     )
 
 
@@ -180,15 +209,6 @@ def default_compact_capacity(cfg, num_lasers: int) -> int:
     return _cap_from_slots(slots, cfg.pulse_chunk)
 
 
-def check_supported(cfg: SnowfallConfig) -> None:
-    if cfg.assembly != "dense":
-        raise NotImplementedError(
-            f"assembly={cfg.assembly!r}: the window assembly is not ported "
-            "yet (ROADMAP.md, Open items 1, window assembly); use "
-            "assembly='dense', whose output equals it"
-        )
-
-
 def _plane_and_noise(xyz, intensity, mask, dist, draws, cfg, plane):
     """Ground plane -> incident angles -> adaptive noise polynomial at
     every point's range (simulation.py:449-469)."""
@@ -208,6 +228,219 @@ def _plane_and_noise(xyz, intensity, mask, dist, draws, cfg, plane):
     threshold = threshold * torch.cos(incident)
     noise_poly = masked_polyfit2(dist, threshold, ground)
     return polyval2(noise_poly, dist)
+
+
+def _batched_searchsorted(sorted_rows, rows, targets, length: int):
+    """First index i of sorted_rows[rows] with value >= target (side
+    'left'), by log2(length) + 1 bisection steps of one gather each, as the
+    JAX package computes it (a target above the row's last value can end at
+    length + 1)."""
+    lo = torch.zeros(targets.shape[0], dtype=torch.int64,
+                     device=targets.device)
+    hi = torch.full_like(lo, length)
+    for _ in range(int(np.ceil(np.log2(max(length, 2)))) + 1):
+        mid = (lo + hi) // 2
+        go_right = sorted_rows[rows, mid.clamp(0, length - 1)] < targets
+        lo, hi = (torch.where(go_right, mid + 1, lo),
+                  torch.where(go_right, hi, mid))
+    return lo
+
+
+def _occluder_phase(xyz, cand, cfg: SnowfallConfig):
+    """Intersection test and the nearest max_occluders occluders of P
+    beams against their (P, C, 4) candidates [x, y, r, dist]. Returns
+    (occ_a1, occ_a2, occ_dist, occ_valid), each (P, K) and sorted by
+    ascending range (the reference's claim priority), and occ_overflow
+    (P,), the hits beyond K."""
+    k_occ = cfg.max_occluders
+    if k_occ > cand.shape[1]:
+        raise ValueError(f"max_occluders {k_occ} exceeds the "
+                         f"{cand.shape[1]} candidates of a point")
+    d_orig = norm3(xyz)
+    right, left = beam_limits(xyz[:, 0], xyz[:, 1], cfg.beam_divergence_rad)
+    a1, a2, hit = candidate_intervals(
+        right, left, cand[:, :, 0], cand[:, :, 1], cand[:, :, 2],
+        cand[:, :, 3], torch.ones(cand.shape[:2], dtype=torch.bool,
+                                  device=cand.device), d_orig)
+    occ_overflow = (hit.sum(dim=1) - k_occ).clamp_min(0)
+    # lax.top_k's order: the nearest first, equal ranges by column
+    score = torch.where(hit, cand[:, :, 3], float("inf"))
+    top, idx = torch.sort(score, dim=1, stable=True)
+    top, idx = top[:, :k_occ], idx[:, :k_occ]
+    return (a1.gather(1, idx), a2.gather(1, idx), top,
+            top < float("inf"), occ_overflow)
+
+
+def _pulse_phase(xyz, intensity, point_valid, occ_a1, occ_a2, occ_dist,
+                 occ_valid, min_int, max_int, focal_slope, focal_offset,
+                 range_grid, cfg: SnowfallConfig):
+    """First-claim sweep, pulse re-simulation and the label decision of P
+    beams with their occluders (simulation.py:151-192). Returns (new_xyz,
+    new_intensity, label, the stats' intensity-difference sum, the valid
+    points' bump_overflow sum)."""
+    beam_rad = cfg.beam_divergence_rad
+    ipm = cfg.intervals_per_meter
+    c_tau = SPEED_OF_LIGHT * cfg.tau_h
+    d_orig = norm3(xyz)
+    right, left = beam_limits(xyz[:, 0], xyz[:, 1], beam_rad)
+
+    ratio, remainder, touched = occlusion_sweep(right, left, occ_a1, occ_a2,
+                                                occ_valid, beam_rad)
+    touched_any = touched.any(dim=1)
+
+    # the max_bumps largest nonzero ratios, in lax.top_k's order (ties by
+    # column)
+    bump_overflow = ((ratio > 0).sum(dim=1) - cfg.max_bumps).clamp_min(0)
+    bump_ratio, bump_idx = torch.sort(ratio, dim=1, descending=True,
+                                      stable=True)
+    bump_ratio = bump_ratio[:, :cfg.max_bumps]
+    bump_r = occ_dist.gather(1, bump_idx[:, :cfg.max_bumps])
+
+    # every amplitude, the hard target's included, takes the snowflake
+    # scale 0.9 * max_intensity (the reference's CA_P0 carry-over)
+    amp_scale = 0.9 * max_int
+    bump_amp = amp_scale[:, None] * bump_ratio * xsi(bump_r) / bump_r**2
+    bump_amp = torch.where(bump_ratio > 0, bump_amp, 0.0)
+    tgt_amp = amp_scale * remainder * xsi(d_orig) / d_orig**2
+    i_peak, peak_idx = waveform_peak(
+        torch.cat([bump_r, d_orig[:, None]], dim=1),
+        torch.cat([bump_amp, tgt_amp[:, None]], dim=1),
+        range_grid, ipm, cfg.tau_h)
+    d_max = div(peak_idx.to(torch.float32), ipm) - c_tau / 2
+
+    # focal-slope re-adjustment and clipping (simulation.py:155-156)
+    i_max = i_peak + max_int * focal_slope * torch.abs(
+        focal_offset - (1 - div(d_max, cfg.lidar_range)) ** 2
+    )
+    i_max = torch.clamp(i_max, min_int, max_int)
+    attenuated = torch.abs(d_max - d_orig) < cfg.range_tolerance
+    new_i = torch.floor(i_max)   # int() truncation: i_max >= min_int >= 0
+
+    label = torch.where(touched_any, torch.where(attenuated, 1.0, 2.0), 0.0)
+    scale = torch.where(touched_any & ~attenuated, d_max / d_orig, 1.0)
+    new_intensity = torch.where(
+        touched_any, torch.clamp(new_i, min_int, max_int), intensity)
+    diff = torch.where(touched_any & attenuated & point_valid,
+                       0.9 * max_int - new_i, 0.0)
+    return (xyz * scale[:, None], new_intensity, label, diff.sum(),
+            torch.where(point_valid, bump_overflow, 0).sum())
+
+
+def _per_point_kernel(xyz, intensity, point_valid, cand, n_window, min_int,
+                      max_int, focal_slope, focal_offset, range_grid,
+                      cfg: SnowfallConfig):
+    """Occluders and pulse re-simulation of one chunk of P points
+    (_occluder_phase, then _pulse_phase). Returns _pulse_phase's outputs,
+    then the valid points' occluder_overflow and window_overflow sums."""
+    occ_a1, occ_a2, occ_dist, occ_valid, occ_overflow = _occluder_phase(
+        xyz, cand, cfg)
+    out = _pulse_phase(xyz, intensity, point_valid, occ_a1, occ_a2,
+                       occ_dist, occ_valid, min_int, max_int, focal_slope,
+                       focal_offset, range_grid, cfg)
+    return (*out, torch.where(point_valid, occ_overflow, 0).sum(),
+            torch.where(point_valid,
+                        (n_window - cfg.window_size).clamp_min(0), 0).sum())
+
+
+def snowfall_augment(points, mask, bank: BankTensors, calib: CalibTensors,
+                     order, draws, cfg: SnowfallConfig,
+                     plane=None) -> SnowfallResult:
+    """Snowfall augmentation of one padded scan on the assembly that
+    `cfg.assembly` names.
+
+    Args as `snowfall_augment_dense`. "window" returns its rows in
+    channel-sorted order (a stable sort on the channel, padding last);
+    "dense" (`snowfall_augment_dense`) in the original order. On a scan
+    already stable-sorted by channel the two give the same output.
+    """
+    if cfg.assembly == "dense":
+        return snowfall_augment_dense(points, mask, bank, calib, order,
+                                      draws, cfg, plane=plane)
+    if cfg.assembly != "window":
+        raise ValueError(f"unknown assembly {cfg.assembly!r}")
+    n = points.shape[0]
+    p_chunk = cfg.point_chunk
+    if n % p_chunk:
+        raise ValueError(f"max_points {n} is not a multiple of point_chunk "
+                         f"{p_chunk}")
+    dev = points.device
+    n_ch = order.shape[0]
+
+    # 1. stable sort by channel, padding last
+    perm = torch.sort(torch.where(mask, points[:, 4], 1e9), stable=True
+                      ).indices
+    points, mask = points[perm], mask[perm]
+    xyz, intensity = points[:, :3], points[:, 3]
+    channel = points[:, 4].to(torch.int64).clamp(0, n_ch - 1)
+
+    # 2. plane -> incident angles -> adaptive noise polynomial
+    noise_at = _plane_and_noise(xyz, intensity, mask, norm3(xyz), draws, cfg,
+                                plane)
+
+    # 3. per-point channel tables and angular windows in the bank's signed
+    # sort azimuth
+    bank_row = order[channel]
+    min_int = calib.min_intensity[channel]
+    fs = calib.focal_slope[channel]
+    fo = calib.focal_offset[channel]
+    max_int = calib.max_intensity[channel]
+    center = torch.atan2(xyz[:, 1], xyz[:, 0])
+    delta = cfg.beam_divergence_rad / 2 + cfg.wide_threshold
+    k_ext = bank.angle.shape[1]
+    lo = _batched_searchsorted(bank.angle, bank_row, center - delta, k_ext)
+    n_window = _batched_searchsorted(bank.angle, bank_row, center + delta,
+                                     k_ext) - lo
+    range_grid = torch.as_tensor(cfg.range_grid(), device=dev)
+    cols = torch.arange(cfg.window_size, device=dev)
+
+    # 4. chunks of point_chunk points, as the JAX package's lax.map (a full
+    # (N, grid) waveform plane per bump would not fit)
+    outs = []
+    for c0 in range(0, n, p_chunk):
+        sl = slice(c0, c0 + p_chunk)
+        row, lo_c, ctr = bank_row[sl], lo[sl], center[sl]
+        widx = (lo_c[:, None] + cols).clamp(0, k_ext - 1)
+        wcand = bank.data[row[:, None], widx]                 # (P, S, 4)
+        wang = bank.angle[row[:, None], widx]
+        # entries outside the angular window (wraparound duplicates, the
+        # next particles) get an infinite range, so every test fails
+        in_win = (wang >= (ctr - delta)[:, None]) & (
+            wang <= (ctr + delta)[:, None])
+        wcand = torch.cat([wcand[:, :, :3], torch.where(
+            in_win, wcand[:, :, 3], 1e9)[:, :, None]], dim=2)
+        cand = torch.cat([wcand, bank.wide[row]], dim=1)
+        outs.append(_per_point_kernel(
+            xyz[sl], intensity[sl], mask[sl], cand, n_window[sl],
+            min_int[sl], max_int[sl], fs[sl], fo[sl], range_grid, cfg))
+    new_xyz, new_int, label = (torch.cat([o[i] for o in outs])
+                               for i in range(3))
+    diff_c, bump_of, occ_of, win_of = (torch.stack([o[i] for o in outs])
+                                       for i in range(3, 7))
+
+    # 5. rounded intensities, the noise-floor keep rule, stats
+    new_int = torch.round(new_int)
+    keep = mask & ((label == 2) | (new_int > noise_at))
+    num_removed = (mask & ~keep).sum()
+    num_attenuated = (keep & (label == 1)).sum()
+    diff_sum = diff_c.sum()
+    avg_diff = torch.where(
+        num_attenuated > 0,
+        (diff_sum / num_attenuated.clamp_min(1)).to(torch.int32), 0)
+    i32 = torch.int32
+    zero = torch.zeros((), dtype=i32, device=dev)
+    return SnowfallResult(
+        planes=torch.stack([new_xyz[:, 0], new_xyz[:, 1], new_xyz[:, 2],
+                            new_int, label]),
+        keep=keep,
+        num_attenuated=num_attenuated.to(i32),
+        num_removed=num_removed.to(i32),
+        avg_intensity_diff=avg_diff.to(i32),
+        window_overflow=win_of.sum().to(i32),
+        occluder_overflow=occ_of.sum().to(i32),
+        bump_overflow=bump_of.sum().to(i32),
+        channel_overflow=zero,
+        compact_overflow=zero,
+    )
 
 
 @dataclasses.dataclass
@@ -294,7 +527,6 @@ def dense_layout(points, mask, bank: BankTensors, order, draws,
                  cfg: SnowfallConfig, plane=None) -> DenseLayout:
     """Plane fit, noise floor and the phase-A layout of one padded scan
     (models/snowfall.py:468-885, Pallas branch)."""
-    check_supported(cfg)
     dev = points.device
     n = points.shape[0]
     n_ch = order.shape[0]
@@ -747,9 +979,12 @@ def finish_scan(lay: DenseLayout, a12d, ovf, window_overflow,
 def grown_config(cfg: SnowfallConfig, name: str, k_ext: int,
                  num_lasers: int):
     """The config with the capacity behind overflow counter `name`
-    doubled, or None when nothing can grow (the dense assembly's healers,
-    models/snowfall.py:1358-1402)."""
+    doubled, or None when nothing can grow (the JAX package's healers,
+    models/snowfall.py:1358-1402). The window assembly's window_overflow
+    grows nothing: its window_size is the bank's own."""
     if name == "window_overflow":
+        if cfg.assembly != "dense":
+            return None
         new = {}
         if cfg.band_width:
             nb = min(cfg.band_width * 2, (k_ext // 128) * 128)
@@ -787,12 +1022,15 @@ def grown_config(cfg: SnowfallConfig, name: str, k_ext: int,
 
 @dataclasses.dataclass
 class SnowfallAugmenter:
-    """Host wrapper: pads, runs the dense assembly on `device`, grows any
-    overflowed capacity and reruns, compacts. Mirrors the reference's
-    `augment(pc, ...) -> (stats, aug_pc)` contract.
+    """Host wrapper: pads, runs the assembly `cfg.assembly` names on
+    `device`, grows any overflowed capacity and reruns, compacts. Mirrors
+    the reference's `augment(pc, ...) -> (stats, aug_pc)` contract.
 
-    The default config is the dense assembly, whose output equals the
-    window assembly's (the JAX package's default) on every scan.
+    The default config is the dense assembly, on the kernels; its rows come
+    back in the original order. An explicit `SnowfallConfig()` runs the
+    window assembly, the JAX package's default, in plain torch, and returns
+    its rows in channel-sorted order; on a scan already stable-sorted by
+    channel the two outputs are equal.
     """
 
     bank: ParticleBank
@@ -802,7 +1040,6 @@ class SnowfallAugmenter:
     device: str | torch.device = "cuda"
 
     def __post_init__(self):
-        check_supported(self.cfg)
         self.device = resolve_device(self.device)
         self._bank = bank_to_torch(self.bank, self.device)
         self._calib = calib_to_torch(self.calib, self.device)
@@ -824,7 +1061,7 @@ class SnowfallAugmenter:
             ransac_draws(self.seed, self.cfg.ransac_trials).to(dev),
         )
         for _attempt in range(8):
-            res = snowfall_augment_dense(*args, self.cfg)
+            res = snowfall_augment(*args, self.cfg)
             counts = {n: int(getattr(res, n)) for n in OVERFLOW_COUNTERS}
             overflowed = [n for n, c in counts.items() if c]
             if not overflowed:

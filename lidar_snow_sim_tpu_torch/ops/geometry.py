@@ -34,3 +34,55 @@ def norm3(xyz: torch.Tensor) -> torch.Tensor:
     sqrt(x * x + y * y + z * z) in that order on every device."""
     x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
     return torch.sqrt(x * x + y * y + z * z)
+
+
+def _point_line_distance(px, py, theta):
+    """Distance of (px, py) to the line through the origin at angle theta."""
+    return torch.abs(px * torch.sin(theta) - py * torch.cos(theta))
+
+
+def _same_halfplane(theta, pang):
+    """Whether the ray at theta (not its opposite) points toward pang."""
+    return torch.cos(theta - pang) > 0
+
+
+def candidate_intervals(right, left, px, py, pr, pdist, pvalid,
+                        current_range):
+    """Intersection test and clipped occlusion intervals of P beams against
+    their C candidates each (the window assembly's, geometry.py:14-29 and
+    simulation.py:356-390).
+
+    Args:
+      right, left, current_range: (P,) wrapped beam limits and the hard
+        target's range
+      px, py, pr, pdist, pvalid: (P, C) candidate center, radius, range and
+        validity
+
+    Returns (a1, a2, intersects), each (P, C): the occlusion interval in
+    the wrapped convention (start > end iff it crosses 0/2pi), and whether
+    the particle intersects the beam, is closer than the target and valid.
+    A disk intersects the wedge iff its center lies inside, or it overlaps
+    an edge ray (center-to-line distance below r, center in the ray's
+    half-plane); its interval is the tangent rays center +- asin(r/d),
+    clipped to the edge it overlaps.
+    """
+    right, left = right[:, None], left[:, None]
+    pang = wrap_02pi(torch.atan2(py, px))
+    wrapped_beam = right > left
+
+    center_in = (right <= pang) & (pang <= left)
+    center_in |= wrapped_beam & (right - TWO_PI <= pang) & (pang <= left)
+    center_in |= wrapped_beam & (right <= pang) & (pang <= left + TWO_PI)
+
+    right_hit = (_point_line_distance(px, py, right) < pr) & \
+        _same_halfplane(right, pang)
+    left_hit = (_point_line_distance(px, py, left) < pr) & \
+        _same_halfplane(left, pang)
+
+    in_range = pdist < current_range[:, None]
+    intersects = (center_in | right_hit | left_hit) & in_range & pvalid
+
+    delta = torch.arcsin(torch.clamp(pr / pdist.clamp_min(1e-12), 0.0, 1.0))
+    a1 = torch.where(right_hit, right, wrap_02pi(pang - delta))
+    a2 = torch.where(left_hit, left, wrap_02pi(pang + delta))
+    return a1, a2, intersects

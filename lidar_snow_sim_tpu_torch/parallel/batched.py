@@ -8,7 +8,8 @@ core: each frame's preamble and phase-A layout; phase A folded into one A1
 launch over the batch when `batch_fold` is set and every frame's kernel is
 A1 (the JAX package's fold rule, pallas_occluders.py:1080-1128), else one
 launch per frame; then each frame's phases B, C and D, and wet ground. The
-packed in/out surface is the JAX package's.
+packed in/out surface is the JAX package's. Only the dense assembly is
+batched.
 """
 
 from __future__ import annotations
@@ -53,6 +54,10 @@ def _batched_core(points, mask, bank, calib, orders, snow_draws, wet_draws,
     snowfall output (replace=False keeps the snow labels). points (B, N, 5),
     mask (B, N), orders (B, C) and the draws are indexed by frame. Returns
     (B SnowfallResults, B WetGroundResults or None)."""
+    if snow_cfg.assembly != "dense":
+        raise NotImplementedError(
+            f"assembly={snow_cfg.assembly!r}: the batched step runs the "
+            "dense assembly only (ROADMAP.md, Open items)")
     frames = range(points.shape[0])
     lays = [dense_layout(points[b], mask[b], bank, orders[b], snow_draws[b],
                          snow_cfg) for b in frames]

@@ -27,7 +27,6 @@ from lidar_snow_sim_tpu_torch.models.snowfall import (
     OVERFLOW_COUNTERS,
     bank_to_torch,
     calib_to_torch,
-    check_supported,
     grown_config,
 )
 from lidar_snow_sim_tpu_torch.parallel.batched import datagen_packed_step
@@ -103,7 +102,6 @@ def run_snowfall_datagen(
     keeping more grows it to max_points. A `_manifest.json` with the run
     stats is written next to the outputs.
     """
-    check_supported(snow_cfg)
     dev = resolve_device(device)
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)

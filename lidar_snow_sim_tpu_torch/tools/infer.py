@@ -84,6 +84,36 @@ def load_engine(args, device="cuda"):
     return cfg, PointPillars(cfg, params, device=device)
 
 
+def prediction_boxes(arr, class_names) -> list:
+    """(K, 9) predictions [box7 | 1-based label | score] -> Box3D list
+    (identity "Unknown" for a label outside `class_names`)."""
+    from lidar_snow_sim_tpu_torch.utils.boxes import Box3D
+
+    return [
+        Box3D(
+            x=float(r[0]), y=float(r[1]), z=float(r[2]),
+            length=float(r[3]), width=float(r[4]), height=float(r[5]),
+            yaw=float(r[6]),
+            identity=(
+                class_names[int(r[7]) - 1]
+                if 0 < int(r[7]) <= len(class_names) else "Unknown"
+            ),
+            score=float(r[8]),
+        )
+        for r in arr
+    ]
+
+
+def class_counts(arr, class_names) -> dict:
+    """Predictions per class name of a (K, 9) array (labels 1-based; a
+    label outside `class_names` is left out)."""
+    return {
+        class_names[int(c) - 1]: int((arr[:, 7] == c).sum())
+        for c in np.unique(arr[:, 7]).astype(int)
+        if 0 < c <= len(class_names)
+    }
+
+
 def predictions_to_label_lines(arr, class_names) -> list:
     """(K, 9) predictions -> KITTI-style label lines (the convention
     `utils/boxes.py` parses back: z at box bottom, score last)."""
@@ -158,11 +188,7 @@ def main(argv=None):
         "nms_pre_overflow": int(preds.nms_pre_overflow),
         # the JAX package's nms_pre_overflow is the sum of the two
         "topk_block_miss": int(preds.topk_block_miss),
-        "classes": {
-            cfg.class_names[int(c) - 1]: int((arr[:, 7] == c).sum())
-            for c in np.unique(arr[:, 7]).astype(int)
-            if 0 < c <= len(cfg.class_names)
-        },
+        "classes": class_counts(arr, cfg.class_names),
     }
 
     if args.predictions:
@@ -181,24 +207,11 @@ def main(argv=None):
         matplotlib.use("Agg")
         import matplotlib.pyplot as plt
 
-        from lidar_snow_sim_tpu_torch.utils.boxes import Box3D, draw_boxes_bev
+        from lidar_snow_sim_tpu_torch.utils.boxes import draw_boxes_bev
         from lidar_snow_sim_tpu_torch.utils.render import bev_image
 
         img = bev_image(pc, color="label")
-        boxes = [
-            Box3D(
-                x=float(r[0]), y=float(r[1]), z=float(r[2]),
-                length=float(r[3]), width=float(r[4]), height=float(r[5]),
-                yaw=float(r[6]),
-                identity=(
-                    cfg.class_names[int(r[7]) - 1]
-                    if 0 < int(r[7]) <= len(cfg.class_names) else "Unknown"
-                ),
-                score=float(r[8]),
-            )
-            for r in arr
-        ]
-        draw_boxes_bev(img, boxes)
+        draw_boxes_bev(img, prediction_boxes(arr, cfg.class_names))
         plt.imsave(args.bev, img)
         report["inference"]["bev"] = str(Path(args.bev).resolve())
 

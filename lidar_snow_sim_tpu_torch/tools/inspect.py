@@ -179,8 +179,10 @@ def run_pipeline(args, ap):
         prefix = f"{args.mode}_{rr}_{occ}"   # the viewer's live prefix
         cap = 1 << int(np.ceil(np.log2(max(len(pc), 2))))
         pch = max(cap // 64, 256)
-        # the JAX CLI's capacities; the dense assembly, whose output equals
-        # the window assembly's, laid out as api.augment lays it out
+        # the JAX CLI's capacities on the dense assembly (the JAX CLI runs
+        # the window one: the same points and stats, in the input's row
+        # order), laid out as api.augment lays it out, so that snow runs
+        # kernels A1 and C1
         cfg = SnowfallConfig(
             max_points=cap, window_size=256, wide_capacity=128,
             max_occluders=64, max_bumps=32, point_chunk=2048,

@@ -19,6 +19,14 @@ call behind a write that empties the L2 cache:
   alone the two differ by the events' own few microseconds, unless the
   profiler's dropped records were not a fair sample.
 
+A CUPTI record cut short reads a device_ms well below the kernel's time:
+`covered_ms` then exceeds it by far (a wrapper's own extra kernels add a
+few percent to a few tens of percent). Where covered_ms is more than
+TRUNCATION_RATIO times device_ms, `kernel_times` takes both times once
+more; if the ratio is still over it, the record says
+"device_ms_truncated": true, keeps the short reading as
+"device_ms_short" and gives no device_ms (`settle`).
+
 chip_smoke.py reads every kernel's times through it, on its bench scene:
 `bench_config`, `bank_sets` and `bench_batch`.
 """
@@ -111,13 +119,42 @@ def covered_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
+TRUNCATION_RATIO = 2.0
+
+
+def _truncated(times: dict) -> bool:
+    return times["covered_ms"] > TRUNCATION_RATIO * times["device_ms"]
+
+
+def settle(take) -> dict:
+    """The times record of take() (a kernel_times record), taken once more
+    when its covered_ms exceeds TRUNCATION_RATIO times its device_ms (then
+    "retaken": true); still over it, the record is marked
+    "device_ms_truncated": true, its device_ms moved to "device_ms_short"
+    and set to None, so the short reading is not the kernel's time."""
+    times = take()
+    if not _truncated(times):
+        return times
+    times = dict(take(), retaken=True)
+    if _truncated(times):
+        times["device_ms_short"] = times["device_ms"]
+        times["device_ms"] = None
+        times["device_ms_truncated"] = True
+    return times
+
+
 def kernel_times(fn, kernel: str, reps: int = 10) -> dict:
     """Both device times of the kernel named `kernel`, one launched by
     each call of fn: {"device_ms", "covered_ms", "profiler_records":
-    [records kept, calls made]}."""
-    dev, kept, calls = device_ms(fn, kernel, reps)
-    return {"device_ms": dev, "covered_ms": covered_ms(fn, reps),
-            "profiler_records": [kept, calls]}
+    [records kept, calls made]}, settled against truncated CUPTI records
+    (`settle`)."""
+
+    def take():
+        dev, kept, calls = device_ms(fn, kernel, reps)
+        return {"device_ms": dev, "covered_ms": covered_ms(fn, reps),
+                "profiler_records": [kept, calls]}
+
+    return settle(take)
 
 
 def card_line() -> str:

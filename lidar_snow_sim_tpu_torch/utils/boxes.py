@@ -111,6 +111,37 @@ def read_label_file(path: str | Path,
 
 # prediction-class colors (the reference's DET_COLORS role,
 # `pointcloud_viewer.py:1453-1459`): index = PCDET_CLASS_LOOKUP value
+DET_COLORS = ((240, 225, 60), (60, 225, 240), (240, 60, 210))
+DET_FALLBACK_COLOR = (255, 255, 255)
+
+
+def boxes_from_array(arr: np.ndarray, class_names=None,
+                     scores=None) -> list[Box3D]:
+    """(G, >=7) ``[x y z dx dy dz yaw (cls) (score)]`` rows -> Box3D list
+    (z is the CENTER, the pcdet lidar-box convention — both `gt_boxes` in a
+    pcdet data_dict and `boxes_lidar` in a result pkl use it). Column 7,
+    when present and `class_names` given, selects the identity: prediction
+    arrays carry the 0-based `PCDET_CLASS_LOOKUP` index, pcdet gt_boxes the
+    1-based class id — pass the matching name tuple."""
+    arr = np.asarray(arr, np.float64)
+    out = []
+    for i, row in enumerate(arr):
+        ident = ""
+        if class_names is not None and arr.shape[1] > 7:
+            ci = int(row[7])
+            if 0 <= ci < len(class_names):
+                ident = class_names[ci]
+        score = float(row[8]) if arr.shape[1] > 8 else (
+            float(scores[i]) if scores is not None else 1.0
+        )
+        out.append(Box3D(
+            x=float(row[0]), y=float(row[1]), z=float(row[2]),
+            length=float(row[3]), width=float(row[4]), height=float(row[5]),
+            yaw=float(row[6]), identity=ident, score=score,
+        ))
+    return out
+
+
 def points_in_boxes(pts: np.ndarray, boxes: list[Box3D]) -> np.ndarray:
     """(N,) int: index of the first containing box, -1 outside all boxes."""
     out = np.full(len(pts), -1, dtype=np.int64)

@@ -1,6 +1,8 @@
 """chip_smoke.py's card-against-CPU gates, on crafted inputs on the CPU:
 phase 9's for detector predictions (`_flips`), phase 10's for assigned
-labels (`_near_assignment`, `_label_flips`) and gradients (`_rel_err`).
+labels (`_near_assignment`, `_label_flips`) and gradients (`_rel_err`);
+and phase 8's rule for truncated CUPTI records (tools/kernel_times.settle,
+merge_times) on made-up records.
 
 A prediction that one run kept and the other did not is a flip. The gate
 excuses a flip only where a decision about that prediction lies within
@@ -189,3 +191,54 @@ def test_gradient_gate():
     assert gate({"a": 1e-3}, {"a": 0.0}) == []
     assert gate({"a": 2e-3}, {"a": 1e-3}) == []
     assert gate({"a": 2.1e-3}, {"a": 1e-3}) == ["a"]
+
+
+def _takes(*pairs):
+    """A take() that returns the records (device_ms, covered_ms) in turn,
+    and the list of calls made."""
+    made = []
+
+    def take():
+        dev, cov = pairs[len(made)]
+        made.append(1)
+        return {"device_ms": dev, "covered_ms": cov,
+                "profiler_records": [10, 10]}
+    return take, made
+
+
+@pytest.mark.parametrize("pairs,want", [
+    # the table's ratios (1.03-1.28): taken once, kept
+    (((0.0141, 0.0145),), dict(device_ms=0.0141)),
+    (((0.0200, 0.0400),), dict(device_ms=0.0200)),        # exactly 2: kept
+    # a short record, then a fair one: retaken, the second kept
+    (((0.0268, 0.0583), (0.0560, 0.0590)),
+     dict(device_ms=0.0560, covered_ms=0.0590, retaken=True)),
+    # short twice: truncated, no device_ms
+    (((0.0268, 0.0583), (0.0250, 0.0580)),
+     dict(device_ms=None, device_ms_short=0.0250, covered_ms=0.0580,
+          retaken=True, device_ms_truncated=True)),
+])
+def test_truncated_records_are_retaken_then_marked(pairs, want):
+    from lidar_snow_sim_tpu_torch.tools.kernel_times import settle
+
+    take, made = _takes(*pairs)
+    got = settle(take)
+    assert len(made) == len(pairs)
+    assert {k: got[k] for k in want} == want
+    assert ("device_ms_truncated" in got) == ("device_ms_truncated" in want)
+
+
+def test_merge_times_holds_a_truncated_record_to_covered_ms():
+    """A truncated record merges with device_ms None, and its covered_ms
+    (not the short reading) is held to the bound."""
+    merge = SMOKE["merge_times"]
+    times = {"device_ms": None, "device_ms_short": 0.001, "covered_ms": 0.05,
+             "device_ms_truncated": True, "retaken": True}
+    entry = {"name": "A3", "bound_ms": 0.03, "_times": dict(times)}
+    merge([entry])
+    assert entry["device_ms"] is None and entry["device_ms_truncated"]
+    with pytest.raises(SystemExit):
+        merge([{"name": "A3", "bound_ms": 0.06, "_times": dict(times)}])
+    with pytest.raises(SystemExit):   # a plain record below its bound
+        merge([{"name": "L1", "bound_ms": 0.02, "_times": {
+            "device_ms": 0.01, "covered_ms": 0.03}}])

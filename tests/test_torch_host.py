@@ -7,6 +7,8 @@ Mie table from the same seeds; every array must be equal bit for bit.
 """
 
 import dataclasses
+import json
+import pickle
 
 import numpy as np
 import pytest
@@ -196,7 +198,7 @@ def _entry_points(tmp_path, bank):
     from lidar_snow_sim_tpu_torch.models import pointpillars as tpp
     from lidar_snow_sim_tpu_torch.tools import evaluate, experiment, infer
     from lidar_snow_sim_tpu_torch.tools import inspect as tinspect
-    from lidar_snow_sim_tpu_torch.tools import precompute, train
+    from lidar_snow_sim_tpu_torch.tools import precompute, train, viewer
     from lidar_snow_sim_tpu_torch.utils import eval_ap
 
     pc = tsyn.synthetic_scan(n_azimuth=20, seed=1)
@@ -246,6 +248,10 @@ def _entry_points(tmp_path, bank):
         "experiment CLI": lambda: experiment.main([
             "--out", str(tmp_path / "out" / "e.json"), "--work",
             str(tmp_path / "out")]),
+        "viewer CLI": lambda: viewer.main([
+            str(scan), "--out", str(tmp_path / "out" / "v.html")]),
+        "viewer --serve": lambda: viewer.main([str(scan), "--serve",
+                                               "--port", "0"]),
     }
 
 
@@ -255,7 +261,8 @@ ENTRY_POINTS = ["api.augment", "api.ground_water_augmentation",
                 "dynamic_radius_outlier_filter", "run_snowfall_datagen",
                 "inspect CLI", "precompute CLI", "PointPillars", "detect",
                 "infer CLI", "train_forward", "train CLI", "eval_ap.evaluate",
-                "evaluate CLI", "experiment CLI"]
+                "evaluate CLI", "experiment CLI", "viewer CLI",
+                "viewer --serve"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -390,3 +397,169 @@ def test_stf_labels_transforms_bitwise():
             "translation": dict(zip("xyz", rng.normal(0, 2, 3))),
             "rotation": dict(zip("xyzw", q))}}
         _equal(tstf._tf_to_mat(tf), jstf._tf_to_mat(tf))
+
+
+def test_stf_meta_bitwise(tmp_path):
+    """The copied stf_meta: temporal neighbours (padding, negative frames,
+    another separator), the meta filters over a directory of metas and the
+    road-wetness reader's silent failures."""
+    from lidar_snow_sim_tpu.utils import stf_meta as jmeta
+    from lidar_snow_sim_tpu_torch.utils import stf_meta as tmeta
+
+    for sid, kw in (("2018-02-06_14-21-12,00002", {}),
+                    ("2019-01-01,0099", dict(offsets=range(-3, 3))),
+                    ("d_00007", dict(sep="_"))):
+        assert tmeta.temporal_neighbors(sid, **kw) == \
+            jmeta.temporal_neighbors(sid, **kw)
+    ids = []
+    for i, (weather, env, day, tunnel) in enumerate([
+            ("snow", "urban", "day", False), ("clear", "highway", "night",
+                                              True),
+            ("snow", "highway", "night", False)]):
+        fid = f"2019,{i:05d}"
+        ids.append(fid)
+        meta = {"weather": {"snow": weather == "snow",
+                            "clear": weather == "clear"},
+                "daytime": {"day": day == "day", "night": day == "night"},
+                "meta": {"environment": {"urban": env == "urban",
+                                         "highway": env == "highway"},
+                         "infrastructure": {"tunnel": tunnel}}}
+        (tmp_path / f"{fid}.json").write_text(json.dumps(meta))
+    (tmp_path / "2019,00009.json").write_text(json.dumps({"weather": {}}))
+    ids += ["2019,00009", "2019,00404"]
+    for kw in (dict(), dict(weather="snow"), dict(environment="highway",
+                                                  daytime="night"),
+               dict(infrastructure="tunnel"), dict(weather="fog")):
+        assert tmeta.select_frames(tmp_path, ids, **kw) == \
+            jmeta.select_frames(tmp_path, ids, **kw)
+    (tmp_path / "wet.json").write_text(json.dumps(
+        {"water_thickness": "0.25", "surface_state_result": "wet"}))
+    (tmp_path / "bad.json").write_text("{")
+    for name in ("wet.json", "bad.json", "missing.json"):
+        assert tmeta.read_road_wetness(tmp_path / name) == \
+            jmeta.read_road_wetness(tmp_path / name)
+
+
+def _write_loader_inputs(tmp_path, rng):
+    """One file per container the loaders read, with their arguments."""
+    pts = rng.uniform(-30, 30, (50, 6)).astype(np.float32)
+    pts[:, 3] = rng.uniform(0, 1.2, 50)
+    pts[:5, 3] = [-0.5, 0.0, 1.0, 300.0, 2.0]        # clipped intensities
+    pts[:, :4].tofile(tmp_path / "k.bin")
+    pts[:, :5].tofile(tmp_path / "d.bin")
+    with open(tmp_path / "a.pkl", "wb") as f:
+        pickle.dump(pts[:, :4].astype(np.float64), f)
+    import gzip
+
+    with gzip.open(tmp_path / "a.pkl.gz", "wb") as f:
+        pickle.dump(pts[:, :3], f)
+    props = ["x", "y", "z", "intensity", "ring"]
+    header = ["ply", None, "element vertex 50",
+              *[f"property float {p}" for p in props[:4]],
+              "property uchar ring", "end_header"]
+    ring = rng.integers(0, 64, 50).astype(np.uint8)
+    header[1] = "format ascii 1.0"
+    body = "\n".join(" ".join(f"{v:.6f}" for v in row[:4]) + f" {r}"
+                     for row, r in zip(pts, ring))
+    (tmp_path / "a.ply").write_text("\n".join(header) + "\n" + body + "\n")
+    import struct
+
+    for name, fmt, end in (("le.ply", "binary_little_endian", "<"),
+                           ("be.ply", "binary_big_endian", ">")):
+        header[1] = f"format {fmt} 1.0"
+        data = b"".join(struct.pack(end + "ffffB", *row[:4], r)
+                        for row, r in zip(pts, ring))
+        (tmp_path / name).write_bytes(
+            ("\n".join(header) + "\n").encode() + data)
+    np.savez(tmp_path / "a.npz", points=pts[:, :3], reflectance=pts[:, 3],
+             lidar_id=ring)
+    np.savez(tmp_path / "b.npz", points=pts[:, :3])
+    return pts
+
+
+def test_datasets_loaders_bitwise(tmp_path):
+    """The copied utils.datasets: every container and dataset entry of
+    load_pointcloud, the result.pkl and pcdet data_dict readers."""
+    from lidar_snow_sim_tpu.utils import datasets as jds
+    from lidar_snow_sim_tpu_torch.utils import datasets as tds
+
+    rng = np.random.default_rng(4)
+    pts = _write_loader_inputs(tmp_path, rng)
+    assert tds.DATASET_FORMATS == jds.DATASET_FORMATS
+    assert tds.PCDET_CLASS_LOOKUP == jds.PCDET_CLASS_LOOKUP
+    for arr, scale in ((pts[:, :2], 1.0), (pts[:, :4], 255.0), (pts, 0.5)):
+        _equal(tds.normalize_pc(arr, scale), jds.normalize_pc(arr, scale))
+    calls = [
+        ("load_bin", (tmp_path / "k.bin",), dict(columns=4,
+                                                  intensity_scale=255.0)),
+        ("load_bin", (tmp_path / "d.bin",), {}),
+        ("load_pkl", (tmp_path / "a.pkl",), {}),
+        ("load_pkl", (tmp_path / "a.pkl.gz",), {}),
+        ("load_ply", (tmp_path / "a.ply",), {}),
+        ("load_ply", (tmp_path / "le.ply",), dict(keep_columns=(0, 1, 2))),
+        ("load_ply", (tmp_path / "be.ply",), {}),
+        ("load_npz", (tmp_path / "a.npz",), {}),
+        ("load_npz", (tmp_path / "b.npz",), {}),
+        ("load_pointcloud", (tmp_path / "k.bin", "KITTI"), {}),
+        ("load_pointcloud", (tmp_path / "d.bin", "DENSE"), {}),
+        ("load_pointcloud", (tmp_path / "a.ply", "Argoverse"), {}),
+        ("load_pointcloud", (tmp_path / "a.npz", "A2D2"), {}),
+        ("load_pointcloud", (tmp_path / "a.pkl", "PandaSet"), {}),
+        ("load_pointcloud", (tmp_path / "a.npz", "other"), {}),
+    ]
+    for name, args, kw in calls:
+        _equal(getattr(tds, name)(*args, **kw), getattr(jds, name)(*args,
+                                                                    **kw))
+    for mod in (tds, jds):
+        with pytest.raises(ValueError, match="unsupported"):
+            mod.load_pointcloud(tmp_path / "k.txt", "other")
+        with pytest.raises(ValueError, match="not a PLY"):
+            mod.load_ply(tmp_path / "k.bin")
+
+    result = [dict(frame_id=f"2019,{i:05d}",
+                   boxes_lidar=rng.normal(0, 5, (i, 7)),
+                   name=np.array(["Car", "Cyclist", "Tram"][:i]),
+                   score=rng.uniform(0, 1, i)) for i in (3, 0, 2)]
+    with open(tmp_path / "result.pkl", "wb") as f:
+        pickle.dump(result[::-1], f)
+    got, want = (m.load_result_pkl(tmp_path / "result.pkl")
+                 for m in (tds, jds))
+    assert [d["frame_id"] for d in got] == [d["frame_id"] for d in want]
+    for fid in ("2019,00003", "2019,00000", "2019,00002"):
+        _equal(tds.result_predictions(got, fid),
+               jds.result_predictions(want, fid))
+    with pytest.raises(KeyError):
+        tds.result_predictions(got, "2019,00001")
+
+    d = {"points": pts[:, :5], "gt_boxes": rng.normal(0, 3, (4, 8))}
+    with open(tmp_path / "dict.pkl", "wb") as f:
+        pickle.dump(d, f)
+    with open(tmp_path / "nogt.pkl", "wb") as f:
+        pickle.dump({"points": pts[:, :4]}, f)
+    for name in ("dict.pkl", "nogt.pkl"):
+        for a, b in zip(tds.load_pcdet_dict(tmp_path / name),
+                        jds.load_pcdet_dict(tmp_path / name)):
+            _equal(a, b)
+
+
+def test_boxes_from_array_bitwise():
+    """The copied boxes_from_array: prediction rows (0-based class, score
+    column), pcdet gt rows (1-based class) and bare 7-column rows."""
+    from lidar_snow_sim_tpu.utils import boxes as jboxes
+    from lidar_snow_sim_tpu_torch.utils import boxes as tboxes
+
+    rng = np.random.default_rng(5)
+    arr = rng.normal(0, 4, (6, 9)).astype(np.float32)
+    arr[:, 7] = [0, 1, 2, 3, -1, 1]
+    names = ("Car", "Pedestrian", "Cyclist")
+    cases = [(arr, dict(class_names=names)),
+             (arr[:, :8], dict(class_names=("",) + names)),
+             (arr[:, :7], dict(scores=rng.uniform(0, 1, 6))),
+             (arr[:, :7], {}), (arr[:0], dict(class_names=names))]
+    for a, kw in cases:
+        got = tboxes.boxes_from_array(a, **kw)
+        want = jboxes.boxes_from_array(a, **kw)
+        assert [dataclasses.astuple(b) for b in got] == \
+            [dataclasses.astuple(b) for b in want]
+    assert tboxes.DET_COLORS == jboxes.DET_COLORS
+    assert tboxes.DET_FALLBACK_COLOR == jboxes.DET_FALLBACK_COLOR

@@ -36,6 +36,8 @@ MODULES = [
     "lidar_snow_sim_tpu_torch.ops.occluders",
     "lidar_snow_sim_tpu_torch.ops.pulse",
     "lidar_snow_sim_tpu_torch.ops.rotated_iou",
+    "lidar_snow_sim_tpu_torch.ops.sweep",
+    "lidar_snow_sim_tpu_torch.ops.waveform",
     "lidar_snow_sim_tpu_torch.parallel.batched",
     "lidar_snow_sim_tpu_torch.parallel.datagen",
     "lidar_snow_sim_tpu_torch.sampling",
@@ -49,7 +51,9 @@ MODULES = [
     "lidar_snow_sim_tpu_torch.tools.inspect",
     "lidar_snow_sim_tpu_torch.tools.precompute",
     "lidar_snow_sim_tpu_torch.tools.profile_weather",
+    "lidar_snow_sim_tpu_torch.tools.serve",
     "lidar_snow_sim_tpu_torch.tools.train",
+    "lidar_snow_sim_tpu_torch.tools.viewer",
     "lidar_snow_sim_tpu_torch.utils",
     "lidar_snow_sim_tpu_torch.utils.boxes",
     "lidar_snow_sim_tpu_torch.utils.datasets",
@@ -57,6 +61,7 @@ MODULES = [
     "lidar_snow_sim_tpu_torch.utils.pointcloud",
     "lidar_snow_sim_tpu_torch.utils.render",
     "lidar_snow_sim_tpu_torch.utils.stf_labels",
+    "lidar_snow_sim_tpu_torch.utils.stf_meta",
     "lidar_snow_sim_tpu_torch.utils.synthetic",
 ]
 

@@ -315,16 +315,6 @@ def test_capacities_grow_to_the_comfortable_result():
     assert set(np.unique(out_t[:, 4])) <= {0.0, 1.0, 2.0}
 
 
-@pytest.mark.parametrize("change", [dict(assembly="window")])
-def test_unported_paths_raise(change):
-    pc, sets, base = _scene("fov")
-    bank = build_bank(sets, window_size=256, wide_capacity=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.SnowfallAugmenter(bank, load_hdl64_calib(),
-                             SnowfallConfig(**dict(base, **change)),
-                             device="cpu")
-
-
 # (scene, config change, kernel): A2 at three band widths, one not a
 # multiple of 128, and on the seam scenes; A3 needs a slice of at least two
 # bands, so its case widens the slice to 384 (+128)
@@ -463,10 +453,12 @@ def test_band_width_grows_to_the_comfortable_result():
      dict(route_band=384, slice_width=812)),
 ])
 def test_grown_config_band_width(cfg, name, want):
-    """grown_config's window_overflow branch (models/snowfall.py:1363-1374):
-    band_width doubles up to (k_ext // 128) * 128, slice_width up to k_ext;
-    None when neither can grow."""
-    got = ts.grown_config(SnowfallConfig(**cfg), name, 812, 64)
+    """grown_config's window_overflow branch (models/snowfall.py:1363-1374)
+    on the dense assembly: band_width doubles up to (k_ext // 128) * 128,
+    slice_width up to k_ext; None when neither can grow. (The window
+    assembly grows nothing: tests/test_torch_window.py.)"""
+    got = ts.grown_config(SnowfallConfig(**cfg, assembly="dense"), name, 812,
+                          64)
     if want is None:
         assert got is None
     else:
