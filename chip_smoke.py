@@ -54,7 +54,9 @@ Phases, each printing one line of numbers:
      default, launches counted around one batch (A1 once with batch_fold,
      A4a / A4b / C2 16 times with their knobs), scans/s over 3 batches;
      then run_snowfall_datagen on 16 synthetic scans with batch_fold,
-     the same files as the default config;
+     the same files as the default config; then batched_step on a window
+     config (assembly="window") over 2 frames, equal byte for byte to
+     snowfall_augment run frame by frame;
   8. each kernel's device times (below), taken after every end-to-end
      phase, one line each;
   9. the PointPillars detector (run before phase 8, whose profiler
@@ -102,7 +104,23 @@ Phases, each printing one line of numbers:
      the card at the JAX inspect CLI's capacities: equal to the dense
      assembly byte for byte on the channel-sorted bench scan, within the
      parity contract of the CPU's, its scan time, launches and busy share
-     beside the dense path's (window_phase).
+     beside the dense path's (window_phase);
+ 13. the card-vs-oracle parity tool (tools/parity_gpu, before phase 8 too)
+     on the JAX parity tool's scene (5,727 points): the window, dense (A1,
+     C1) and span-routed dense (A2 in both modes, C1) assemblies, each
+     classified against the port's NumPy oracle: ok, oracle stats (29,
+     847, 194), no overflow, 0 unexplained mismatches and a mismatch rate
+     under 0.002 for each, A1, A2 and C1 launched (parity_phase);
+ 14. the reference grid (before phase 8 too): the port's gen_banks in a
+     subprocess per combo, native sampler only, for gunn's five precompute
+     (rate, velocity) pairs and sekhon's lightest (384 files, deleted at
+     the end); the precompute CLI on the card over those six combos on
+     four 870-azimuth scans at --batch 4 (A1 and C1 launched, labels in
+     {0, 1, 2}); one frame of gunn's lightest combo on the card against
+     the CPU with the run's grown config, order and draws (the parity
+     contract), its kept rows equal to the CLI's file; per combo the
+     sampler's seconds, particles a channel, the grown slice width and
+     scans/s (grid_phase).
 The line before the last is the kernels' JSON record: each kernel's
 launches on its path, max_abs_err, ms (CUDA events around one wrapper call,
 host enqueue included) and plain_ms, device_ms (the kernel's own duration
@@ -847,6 +865,28 @@ def batched_phase(pc, padded, bank, bank_t, calib, calib_t, cfg, lay, a12d,
           f"{stats.capacity_growths} wall_s default {walls['default']:.2f} "
           f"batch_fold {walls['batch_fold']:.2f} equal_files True",
           flush=True)
+
+    # (d) the window assembly on the batched step: 2 frames equal to
+    # snowfall_augment (window) run frame by frame, byte for byte
+    from lidar_snow_sim_tpu_torch.models.snowfall import snowfall_augment
+
+    wcfg = dataclasses.replace(cfg, assembly="window")
+    t0 = time.time()
+    got = batched_step(points[:2], mask[:2], bank_t, calib_t, orders_t[:2],
+                       (draws[:2], None), wcfg)[0]
+    for f in range(2):
+        want = snowfall_augment(points[f], mask[f], bank_t, calib_t,
+                                orders_t[f], draws[f], wcfg)
+        for name, a, b in zip(SnowfallResult._fields, got, want):
+            if not torch.equal(a[f], b):
+                fail(f"window batched_step frame {f}: {name} differs from "
+                     "snowfall_augment")
+    counters = [int(getattr(got, n).sum()) for n in OVERFLOW_COUNTERS]
+    stats0 = tuple(int(getattr(got, n)[0]) for n in (
+        "num_attenuated", "num_removed", "avg_intensity_diff"))
+    print(f"batched window: frames 2 equal_to_snowfall_augment True "
+          f"counters {counters} stats_frame0 {stats0} "
+          f"s {time.time() - t0:.1f}", flush=True)
 
     src = "lidar_snow_sim_tpu_torch/csrc/occluders.cu"
     out = {
@@ -1776,18 +1816,9 @@ def window_phase(pc, sets, calib, dev) -> None:
     plane = {d: (w.to(d), h.to(d)) for d in (dev.type, "cpu")}
     res = {d: ts.snowfall_augment(*args_on(d, cfgs["window"]),
                                   plane=plane[d]) for d in (dev.type, "cpu")}
-    g, c = res[dev.type], res["cpu"]
-    for name in ts.OVERFLOW_COUNTERS:
-        if int(getattr(g, name)) != int(getattr(c, name)):
-            fail(f"window card vs CPU: {name} differs")
     n = len(srt)
-    gp, cp = g.planes.cpu().numpy()[:, :n], c.planes.numpy()[:, :n]
-    off = (gp[3:] != cp[3:]).any(axis=0) | (
-        g.keep.cpu().numpy()[:n] != c.keep.numpy()[:n])
-    xyz_err = float(np.abs(gp[:3] - cp[:3])[:, ~off].max())
-    if off.mean() >= 0.002 or xyz_err > 1e-4:
-        fail(f"window card vs CPU: {int(off.sum())} of {n} points differ, "
-             f"xyz err {xyz_err}")
+    differ, xyz_err = _card_cpu_parity("window card vs CPU", res[dev.type],
+                                       res["cpu"], n)
 
     timing = {}
     for name, cfg in cfgs.items():
@@ -1802,8 +1833,287 @@ def window_phase(pc, sets, calib, dev) -> None:
     print(f"window: card {card_line()!r} points {n} cap {cap} stats "
           f"{outs['window'][0]} rows {len(outs['window'][1])} "
           f"equal_to_dense True grown {grown} vs_cpu_differing "
-          f"{int(off.sum())} "
+          f"{differ} "
           f"xyz_max_abs_err {xyz_err} {timing} phase_s "
+          f"{time.time() - t_phase:.1f}", flush=True)
+
+
+PARITY_STATS = dict(num_attenuated=29, num_removed=847,
+                    avg_intensity_diff=194)   # PARITY_TPU.json's, the oracle's
+PARITY_VARIANTS = ("window", "dense_pallas", "dense_pallas_routed")
+
+
+def _parity_gate(report: dict, launches: dict) -> list:
+    """Phase 13's gates on a tools/parity_gpu report and the launches
+    counted around its run: ok, the oracle's stats, the three variants each
+    with no overflow, 0 unexplained mismatches and a rate under 0.002, and
+    A1, A2 and C1 launched. Returns the failures (none when all hold)."""
+    bad = []
+    if report.get("ok") is not True:
+        bad.append("the report is not ok")
+    if report.get("oracle_stats") != PARITY_STATS:
+        bad.append(f"oracle_stats {report.get('oracle_stats')}")
+    variants = report.get("assemblies", {})
+    if tuple(variants) != PARITY_VARIANTS:
+        bad.append(f"variants {list(variants)}")
+    for name, a in variants.items():
+        if any(a["overflows"].values()):
+            bad.append(f"{name}: overflows {a['overflows']}")
+        if a["num_unexplained"] != 0 or not a["mismatch_rate"] < 0.002:
+            bad.append(f"{name}: {a['num_unexplained']} unexplained, "
+                       f"mismatch rate {a['mismatch_rate']}")
+    for kernel in ("A1", "A2", "C1"):
+        if launches.get(kernel, 0) < 1:
+            bad.append(f"{kernel} never launched")
+    return bad
+
+
+def parity_phase(dev) -> None:
+    """Phase 13: tools/parity_gpu on the card (the JAX parity tool's scene,
+    5,727 points; window, dense on A1 and C1, span-routed dense on A2 in
+    both modes and C1) into a temporary report, the launch counters zeroed
+    before and read after; every gate of _parity_gate. Prints each
+    variant's mismatch counts with the card's name and power limit."""
+    from lidar_snow_sim_tpu_torch.ops.occluders import (
+        find_occluders,
+        find_occluders_routed,
+    )
+    from lidar_snow_sim_tpu_torch.ops.pulse import pulse_peaks
+    from lidar_snow_sim_tpu_torch.tools import parity_gpu
+
+    t_phase = time.time()
+    counted = {"A1": find_occluders, "A2": find_occluders_routed,
+               "C1": pulse_peaks}
+    for fn in counted.values():
+        fn.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "PARITY_GPU.json"
+        rc = parity_gpu.main([str(out), "--device", dev.type])
+        report = json.loads(out.read_text())
+    launches = {k: fn.launches for k, fn in counted.items()}
+    bad = _parity_gate(report, launches)
+    if rc != 0 or bad:
+        fail(f"parity phase: exit {rc}, {bad}")
+    counts = {name: {"mismatches": a["num_mismatches"],
+                     "unexplained": a["num_unexplained"],
+                     "rate": a["mismatch_rate"]}
+              for name, a in report["assemblies"].items()}
+    print(f"parity: card {report['card']!r} torch {report['torch']} points "
+          f"{report['points']} oracle_stats "
+          f"{tuple(report['oracle_stats'].values())} {counts} launches "
+          f"{launches} phase_s {time.time() - t_phase:.1f}", flush=True)
+
+
+def _grid_combos() -> list:
+    """(mode, snowfall rate, terminal velocity) of phase 14: gunn's five
+    precompute pairs and sekhon's lightest rainfall rate only, the choice of
+    tests/test_reference_grid.py:54-59."""
+    from lidar_snow_sim_tpu_torch.sampling.distributions import (
+        snowfall_rate_to_rainfall_rate,
+    )
+    from lidar_snow_sim_tpu_torch.tools.precompute import (
+        SNOWFALL_RATES,
+        TERMINAL_VELOCITIES,
+    )
+
+    pairs = list(zip(SNOWFALL_RATES, TERMINAL_VELOCITIES))
+    lightest = min(pairs, key=lambda p: snowfall_rate_to_rainfall_rate(*p))
+    return [("gunn", s, v) for s, v in pairs] + [("sekhon", *lightest)]
+
+
+def _card_cpu_parity(name, g, c, n: int) -> tuple:
+    """Hold a SnowfallResult from the card against the CPU's on the same
+    inputs (the parity contract): every overflow counter equal; labels,
+    intensities and keep equal on >= 99.8% of the n points, xyz within
+    1e-4 elsewhere. Returns (points that differ, largest xyz error)."""
+    from lidar_snow_sim_tpu_torch.models.snowfall import OVERFLOW_COUNTERS
+
+    for counter in OVERFLOW_COUNTERS:
+        if int(getattr(g, counter)) != int(getattr(c, counter)):
+            fail(f"{name}: {counter} differs between the card and the CPU")
+    gp = np.asarray(g.planes.cpu())[:, :n]
+    cp = np.asarray(c.planes.cpu())[:, :n]
+    off = (gp[3:] != cp[3:]).any(axis=0) | (
+        np.asarray(g.keep.cpu())[:n] != np.asarray(c.keep.cpu())[:n])
+    xyz = np.abs(gp[:3] - cp[:3])[:, ~off]
+    xyz_err = float(xyz.max()) if xyz.size else 0.0
+    if off.mean() >= 0.002 or xyz_err > 1e-4:
+        fail(f"{name}: {int(off.sum())} of {n} points differ between the "
+             f"card and the CPU, xyz err {xyz_err}")
+    return int(off.sum()), xyz_err
+
+
+def grid_phase(calib, dev) -> None:
+    """Phase 14: the reference grid. (a) The port's gen_banks in a
+    subprocess per (mode, rate, velocity) of _grid_combos, 64 lines each
+    (384 files, the native sampler only); (b) the precompute CLI on the
+    card over those six combos: four synthetic_scan(870) scans and a split
+    naming them, --batch 4, the CLI's other defaults (65,536 points, dense,
+    capacities that self-tune, the camera FOV filter), the launch counters
+    zeroed before; every frame written, labels in {0, 1, 2}, A1 and C1
+    launched; (c) the first frame of gunn's lightest combo (the most
+    particles) through batched_step on the card and on the CPU with the
+    run's grown config, its datagen order and draws and the same bank:
+    the parity contract, and the card's kept rows equal to the CLI's file.
+    Prints the sampler's seconds, the mean particles a channel, the grown
+    slice width and the scans/s of each combo beside the card's name and
+    power limit. The bank files are deleted at the end."""
+    import contextlib
+    import io
+    import subprocess
+
+    import torch
+
+    from lidar_snow_sim_tpu_torch import native, synthetic_scan
+    from lidar_snow_sim_tpu_torch.camera import camera_fov_mask
+    from lidar_snow_sim_tpu_torch.config import SnowfallConfig
+    from lidar_snow_sim_tpu_torch.models.snowfall import (
+        SnowfallResult,
+        bank_to_torch,
+        calib_to_torch,
+    )
+    from lidar_snow_sim_tpu_torch.ops.occluders import find_occluders
+    from lidar_snow_sim_tpu_torch.ops.pulse import pulse_peaks
+    from lidar_snow_sim_tpu_torch.parallel.batched import (
+        batched_step,
+        frame_draws,
+    )
+    from lidar_snow_sim_tpu_torch.parallel.datagen import frame_order_seed
+    from lidar_snow_sim_tpu_torch.sampling.banks import load_bank_files
+    from lidar_snow_sim_tpu_torch.sampling.distributions import (
+        compute_occupancy,
+        snowfall_rate_to_rainfall_rate,
+    )
+    from lidar_snow_sim_tpu_torch.tools import precompute
+    from lidar_snow_sim_tpu_torch.tools.kernel_times import card_line
+
+    t_phase = time.time()
+    combos = _grid_combos()
+    root = Path(__file__).resolve().parent
+    t0 = time.time()
+    native.build()
+    build_s = time.time() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        banks = tmp / "banks"
+        sampler_s = {}
+        for mode, s, v in combos:
+            t0 = time.time()
+            proc = subprocess.run(
+                [sys.executable, "-m", "lidar_snow_sim_tpu_torch.tools."
+                 "gen_banks", "--out-dir", str(banks), "--rates", str(s),
+                 "--velocities", str(v), "--modes", mode, "--lines", "64",
+                 "--workers", "8"],
+                cwd=root, capture_output=True, text=True, timeout=300)
+            last = proc.stdout.strip().splitlines()[-1:]
+            if proc.returncode != 0 or not last or \
+                    "by the native sampler, 0 numpy-fallback files" \
+                    not in last[0]:
+                fail(f"gen_banks {mode} {s} {v}: exit {proc.returncode} "
+                     f"{proc.stdout[-500:]} {proc.stderr[-1500:]}")
+            sampler_s[f"{mode}_{s}_{v}"] = (
+                float(last[0].rsplit(", ", 1)[1].rstrip("s")),
+                round(time.time() - t0, 2))
+        n_files = len(list(banks.glob("*.npy")))
+        if n_files != 64 * len(combos):
+            fail(f"gen_banks wrote {n_files} files, not {64 * len(combos)}")
+        bank_mb = sum(f.stat().st_size for f in banks.glob("*.npy")) / 1e6
+
+        lidar = tmp / "lidar_hdl64_strongest"
+        lidar.mkdir()
+        lines = []
+        for k in range(4):
+            synthetic_scan(n_azimuth=870, seed=k, calib=calib).tofile(
+                lidar / f"scene_{k:05d}.bin")
+            lines.append(f"scene,{k:05d}")
+        (tmp / "split.txt").write_text("\n".join(lines) + "\n")
+        common = ["--split", str(tmp / "split.txt"), "--lidar-dir",
+                  str(lidar), "--bank-dir", str(banks), "--out-root",
+                  str(tmp / "out"), "--batch", "4", "--device", dev.type]
+        for fn in (find_occluders, pulse_peaks):
+            fn.launches = 0
+        t0 = time.time()
+        for mode in ("gunn", "sekhon"):
+            pairs = [(s, v) for m, s, v in combos if m == mode]
+            argv = [*common, "--modes", mode,
+                    "--rates", *(str(s) for s, _ in pairs),
+                    "--velocities", *(str(v) for _, v in pairs)]
+            with contextlib.redirect_stdout(io.StringIO()):
+                if precompute.main(argv) != 0:
+                    fail(f"precompute {mode} returned non-zero")
+        datagen_s = time.time() - t0
+        launches = {"A1": find_occluders.launches, "C1": pulse_peaks.launches}
+        if min(launches.values()) < 1:
+            fail(f"grid datagen: a kernel never launched: {launches}")
+
+        report = {}
+        for mode, s, v in combos:
+            rr = snowfall_rate_to_rainfall_rate(s, v)
+            occ = compute_occupancy(s, v)
+            out_dir = (tmp / "out" / "snowfall_simulation" / mode
+                       / f"{lidar.name}_rainrate_{int(rr)}")
+            manifest = json.loads((out_dir / "_manifest.json").read_text())
+            st = manifest["stats"]
+            if st["frames_done"] != 4:
+                fail(f"grid {mode} {s}: {st['frames_done']} frames written")
+            for b in sorted(out_dir.glob("*.bin")):
+                rows = np.fromfile(b, np.float32).reshape(-1, 5)
+                if not np.isfinite(rows).all() or \
+                        not set(np.unique(rows[:, 4])) <= {0.0, 1.0, 2.0}:
+                    fail(f"grid {mode} {s}: {b.name} malformed")
+            parts = [len(np.load(f, mmap_mode="r")) for f in
+                     banks.glob(f"{mode}_{rr}_{occ}_*.npy")]
+            report[f"{mode}_{s}_{v}"] = dict(
+                sampler_s=sampler_s[f"{mode}_{s}_{v}"][0],
+                particles=round(float(np.mean(parts)), 1),
+                slice_width=manifest["config"]["slice_width"],
+                growths=st["capacity_growths"],
+                scans_per_s=round(st["frames_done"] / st["wall_s"], 3))
+
+        # (c) gunn's lightest combo, one frame, card against the CPU
+        mode, s, v = combos[0]
+        rr = snowfall_rate_to_rainfall_rate(s, v)
+        occ = compute_occupancy(s, v)
+        out_dir = (tmp / "out" / "snowfall_simulation" / mode
+                   / f"{lidar.name}_rainrate_{int(rr)}")
+        cfg = SnowfallConfig(**json.loads(
+            (out_dir / "_manifest.json").read_text())["config"])
+        bank = load_bank_files(banks, f"{mode}_{rr}_{occ}",
+                               window_size=cfg.window_size,
+                               wide_threshold=cfg.wide_threshold,
+                               wide_capacity=cfg.wide_capacity)
+        sid = precompute.reference_sample_order(tmp / "split.txt")[0]
+        scan = np.fromfile(lidar / f"{sid}.bin", np.float32).reshape(-1, 5)
+        scan = scan[camera_fov_mask(scan[:, :3], None).numpy()]
+        order, seed = frame_order_seed(0, sid, calib.num_lasers)
+        draws = frame_draws(seed, cfg, None)[0]
+        # the datagen's padding: zero rows past the scan
+        points = np.zeros((1, cfg.max_points, 5), np.float32)
+        points[0, :len(scan)] = scan
+        res = {}
+        for d in (dev.type, "cpu"):
+            out = batched_step(
+                torch.as_tensor(points, device=d),
+                torch.arange(cfg.max_points, device=d)[None] < len(scan),
+                bank_to_torch(bank, d), calib_to_torch(calib, d),
+                torch.as_tensor(order[None], device=d),
+                (draws[None].to(d), None), cfg)[0]
+            res[d] = SnowfallResult(*(x[0] for x in out))
+        differ, xyz_err = _card_cpu_parity("grid frame", res[dev.type],
+                                           res["cpu"], len(scan))
+        g = res[dev.type]
+        keep = g.keep.cpu().numpy()
+        kept = g.planes.cpu().numpy()[:, keep].T.copy()
+        kept[:, 3] = np.round(kept[:, 3])
+        written = np.fromfile(out_dir / f"{sid}.bin", np.float32)
+        if kept.astype(np.float32).tobytes() != written.tobytes():
+            fail(f"grid frame {sid}: the card's kept rows differ from the "
+                 "CLI's file")
+    print(f"grid: card {card_line()!r} native_build_s {build_s:.1f} files "
+          f"{n_files} bank_mb {bank_mb:.1f} datagen_s {datagen_s:.1f} "
+          f"launches {launches} combos {report} frame {sid} "
+          f"({mode} {s} mm/h, {len(scan)} points) vs_cpu_differing {differ} "
+          f"xyz_max_abs_err {xyz_err} equal_to_cli_file True phase_s "
           f"{time.time() - t_phase:.1f}", flush=True)
 
 
@@ -2068,22 +2378,12 @@ def main() -> int:
                    torch.tensor(-1.55, device=d)),
         )
     g, c = results["cuda"], results["cpu"]
-    for name in OVERFLOW_COUNTERS:
-        if int(getattr(g, name)) != int(getattr(c, name)):
-            fail(f"GPU and CPU disagree on {name}")
-    n = len(small)
-    gp, cp = g.planes.cpu().numpy()[:, :n], c.planes.numpy()[:, :n]
-    off = (gp[3:] != cp[3:]).any(axis=0) | (
-        g.keep.cpu().numpy()[:n] != c.keep.numpy()[:n]
-    )
-    xyz_err = float(np.abs(gp[:3] - cp[:3])[:, ~off].max())
     # transcendentals (atan2, sin, cos, arccos) round differently on the
     # two devices, so a decision on a boundary may flip: the parity
     # contract of tests/test_snowfall_parity.py allows < 0.2% of points
-    if off.mean() >= 0.002 or xyz_err > 1e-4:
-        fail(f"GPU vs CPU: {off.sum()} of {n} points differ, "
-             f"xyz err {xyz_err}")
-    print(f"gpu_vs_cpu: points {n} differing {int(off.sum())} "
+    n = len(small)
+    differ, xyz_err = _card_cpu_parity("GPU vs CPU", g, c, n)
+    print(f"gpu_vs_cpu: points {n} differing {differ} "
           f"xyz_max_abs_err {xyz_err} stats_gpu "
           f"{(int(g.num_attenuated), int(g.num_removed))} stats_cpu "
           f"{(int(c.num_attenuated), int(c.num_removed))}", flush=True)
@@ -2191,6 +2491,8 @@ def main() -> int:
     training_phase(out, dev)
     server_phase(pc, sets, rr, occ, dev)
     window_phase(pc, sets, calib, dev)
+    parity_phase(dev)
+    grid_phase(calib, dev)
 
     occ_src = "lidar_snow_sim_tpu_torch/csrc/occluders.cu"
     tpu_occ = "lidar_snow_sim_tpu/ops/pallas_occluders.py"

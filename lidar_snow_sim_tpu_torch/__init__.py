@@ -18,7 +18,10 @@ snowfall and wet ground, `models/` holds the viewer's weather baselines
 (LISA, fog, STF fog, DROR), which `tools/inspect.py` drives, and the
 PointPillars detector's inference (`models/pointpillars.py`,
 `ops/rotated_iou.py`), which `tools/infer.py` drives; it has no kernel of
-its own (cuDNN convolutions and torch ops).
+its own (cuDNN convolutions and torch ops). `oracle/` is the NumPy
+reference semantics (a copy of the JAX package's), which
+`tools/parity_gpu.py` holds the card's output against; `native.py` binds
+the repo's `native/` C++ (the bank sampler of `tools/gen_banks.py`).
 
 This package imports torch and never jax.
 """

@@ -7,9 +7,11 @@ a frame batch. `batched_step` and `datagen_packed_step` run one batched
 core: each frame's preamble and phase-A layout; phase A folded into one A1
 launch over the batch when `batch_fold` is set and every frame's kernel is
 A1 (the JAX package's fold rule, pallas_occluders.py:1080-1128), else one
-launch per frame; then each frame's phases B, C and D, and wet ground. The
-packed in/out surface is the JAX package's. Only the dense assembly is
-batched.
+launch per frame; then each frame's phases B, C and D, and wet ground. A
+window config (`assembly="window"`, plain torch as the JAX package's is
+plain XLA) runs `snowfall_augment` frame by frame, each frame's rows
+stable-sorted by channel with the padding last, as the JAX `batched_step`
+gives them. The packed in/out surface is the JAX package's.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from lidar_snow_sim_tpu_torch.models.snowfall import (
     finish_scan,
     run_phase_a,
     run_phase_a_folded,
+    snowfall_augment,
 )
 from lidar_snow_sim_tpu_torch.models.wet_ground import (
     WetGroundResult,
@@ -54,19 +57,19 @@ def _batched_core(points, mask, bank, calib, orders, snow_draws, wet_draws,
     snowfall output (replace=False keeps the snow labels). points (B, N, 5),
     mask (B, N), orders (B, C) and the draws are indexed by frame. Returns
     (B SnowfallResults, B WetGroundResults or None)."""
-    if snow_cfg.assembly != "dense":
-        raise NotImplementedError(
-            f"assembly={snow_cfg.assembly!r}: the batched step runs the "
-            "dense assembly only (ROADMAP.md, Open items)")
     frames = range(points.shape[0])
-    lays = [dense_layout(points[b], mask[b], bank, orders[b], snow_draws[b],
-                         snow_cfg) for b in frames]
-    if snow_cfg.batch_fold and all(lay.kernel == "A1" for lay in lays):
-        phase_a = run_phase_a_folded(lays)
+    if snow_cfg.assembly == "dense":
+        lays = [dense_layout(points[b], mask[b], bank, orders[b],
+                             snow_draws[b], snow_cfg) for b in frames]
+        if snow_cfg.batch_fold and all(lay.kernel == "A1" for lay in lays):
+            phase_a = run_phase_a_folded(lays)
+        else:
+            phase_a = [run_phase_a(lay) for lay in lays]
+        snows = [finish_scan(lay, *pa, calib, snow_cfg)
+                 for lay, pa in zip(lays, phase_a)]
     else:
-        phase_a = [run_phase_a(lay) for lay in lays]
-    snows = [finish_scan(lay, *pa, calib, snow_cfg)
-             for lay, pa in zip(lays, phase_a)]
+        snows = [snowfall_augment(points[b], mask[b], bank, calib, orders[b],
+                                  snow_draws[b], snow_cfg) for b in frames]
     if wet_cfg is None:
         return snows, None
     return snows, [wet_ground_augment(s.planes, s.keep, wet_draws[b], wet_cfg)

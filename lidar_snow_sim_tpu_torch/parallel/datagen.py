@@ -17,7 +17,7 @@ import logging
 import time
 import zlib
 from pathlib import Path
-from typing import Callable, Sequence
+from typing import Callable, Iterable, Sequence
 
 import numpy as np
 import torch
@@ -74,6 +74,16 @@ def _unpack_rows(planes: np.ndarray, wet: bool) -> np.ndarray:
     return out
 
 
+def frame_order_seed(seed: int, sid: str, num_lasers: int,
+                     shuffle_channels: bool = True):
+    """(channel order, RANSAC seed) of frame `sid`: a pure function of the
+    run's seed and the sample id."""
+    r = np.random.default_rng([seed, zlib.crc32(sid.encode())])
+    order = (r.permutation(num_lasers) if shuffle_channels
+             else np.arange(num_lasers))
+    return order, int(r.integers(2**31))
+
+
 def run_snowfall_datagen(
     sample_ids: Sequence[str],
     load_fn: Callable[[str], np.ndarray],
@@ -100,7 +110,8 @@ def run_snowfall_datagen(
     id), so outputs do not depend on batch boundaries or resumes.
     `out_frac` sizes the returned rows as a fraction of max_points; a frame
     keeping more grows it to max_points. A `_manifest.json` with the run
-    stats is written next to the outputs.
+    stats and the config the run ended with (its grown capacities) is
+    written next to the outputs.
     """
     dev = resolve_device(device)
     out_dir = Path(out_dir)
@@ -153,10 +164,8 @@ def run_snowfall_datagen(
                 meta[j, 0] = len(pc)
             else:
                 pts[j], chan[j] = pts[0], chan[0]
-            r = np.random.default_rng([seed, zlib.crc32(sid.encode())])
-            order = (r.permutation(calib.num_lasers) if shuffle_channels
-                     else np.arange(calib.num_lasers))
-            meta[j, 2] = int(r.integers(2**31))   # seed_lo; seed_hi = 0
+            order, meta[j, 2] = frame_order_seed(   # seed_lo; seed_hi = 0
+                seed, sid, calib.num_lasers, shuffle_channels)
             meta[j, 3:] = order
         return (torch.from_numpy(pts).to(dev), torch.from_numpy(chan).to(dev),
                 torch.from_numpy(meta))
@@ -246,9 +255,28 @@ def run_snowfall_datagen(
                 "seed": seed,
                 "wet_ground": wet,
                 "device": str(dev),
+                "config": dataclasses.asdict(snow_cfg),
             },
             indent=2,
         ))
     except OSError as e:
         logger.warning("could not write manifest: %s", e)
     return stats
+
+
+def iter_reference_grid(
+    modes: Iterable[str] = ("gunn", "sekhon"),
+    snowfall_rates=(0.5, 1.0, 2.0, 2.5, 1.5),
+    terminal_velocities=(2.0, 1.6, 2.0, 1.6, 0.6),
+):
+    """The reference datagen grid: (mode, rainfall_rate, occupancy) combos
+    (precompute.py:20-21,53-60)."""
+    from lidar_snow_sim_tpu_torch.sampling.distributions import (
+        compute_occupancy,
+        snowfall_rate_to_rainfall_rate,
+    )
+
+    for mode in modes:
+        for s, v in zip(snowfall_rates, terminal_velocities):
+            yield (mode, snowfall_rate_to_rainfall_rate(s, v),
+                   compute_occupancy(s, v))

@@ -1,8 +1,10 @@
 """chip_smoke.py's card-against-CPU gates, on crafted inputs on the CPU:
 phase 9's for detector predictions (`_flips`), phase 10's for assigned
 labels (`_near_assignment`, `_label_flips`) and gradients (`_rel_err`);
-and phase 8's rule for truncated CUPTI records (tools/kernel_times.settle,
-merge_times) on made-up records.
+phase 8's rule for truncated CUPTI records (tools/kernel_times.settle,
+merge_times) on made-up records; phase 13's gates on made-up parity reports
+(`_parity_gate`), phase 14's combos (`_grid_combos`) and its card-against-
+CPU rule for one frame (`_card_cpu_parity`) on made-up results.
 
 A prediction that one run kept and the other did not is a flip. The gate
 excuses a flip only where a decision about that prediction lies within
@@ -242,3 +244,108 @@ def test_merge_times_holds_a_truncated_record_to_covered_ms():
     with pytest.raises(SystemExit):   # a plain record below its bound
         merge([{"name": "L1", "bound_ms": 0.02, "_times": {
             "device_ms": 0.01, "covered_ms": 0.03}}])
+
+
+def _report(**change):
+    """A made-up tools/parity_gpu report that passes every gate, with the
+    variants' fields in `change` replaced (variant -> {field: value})."""
+    zero = dict(window=0, occluder=0, bump=0, channel=0, compact=0)
+    variants = {name: dict(overflows=dict(zero), num_mismatches=1,
+                           num_unexplained=0, mismatch_rate=0.000175)
+                for name in SMOKE["PARITY_VARIANTS"]}
+    for name, fields in change.items():
+        variants[name].update(fields)
+    return dict(ok=True, oracle_stats=dict(SMOKE["PARITY_STATS"]),
+                assemblies=variants)
+
+
+LAUNCHED = dict(A1=1, A2=1, C1=2)
+
+
+@pytest.mark.parametrize("report,launches,want", [
+    (_report(), LAUNCHED, []),
+    (dict(_report(), ok=False), LAUNCHED, ["not ok"]),
+    (dict(_report(), oracle_stats=dict(num_attenuated=29, num_removed=846,
+                                       avg_intensity_diff=194)),
+     LAUNCHED, ["oracle_stats"]),
+    (_report(window=dict(overflows=dict(window=1, occluder=0, bump=0,
+                                        channel=0, compact=0))),
+     LAUNCHED, ["window: overflows"]),
+    (_report(dense_pallas=dict(num_unexplained=1)), LAUNCHED,
+     ["dense_pallas: 1 unexplained"]),
+    (_report(dense_pallas_routed=dict(mismatch_rate=0.002)), LAUNCHED,
+     ["dense_pallas_routed: 0 unexplained, mismatch rate 0.002"]),
+    (_report(), dict(LAUNCHED, A2=0), ["A2 never launched"]),
+    (_report(), dict(A1=1), ["A2 never launched", "C1 never launched"]),
+    ({k: v for k, v in _report().items() if k != "assemblies"}, LAUNCHED,
+     ["variants []"]),
+])
+def test_parity_gate(report, launches, want):
+    bad = SMOKE["_parity_gate"](report, launches)
+    assert len(bad) == len(want)
+    for got, w in zip(bad, want):
+        assert w in got
+
+
+def test_grid_combos_are_the_reference_grids_choice():
+    """gunn's five precompute pairs and sekhon's lightest rainfall rate
+    (tests/test_reference_grid.py:54-59): 6 combos, 384 bank files."""
+    from lidar_snow_sim_tpu_torch.parallel.datagen import iter_reference_grid
+    from lidar_snow_sim_tpu_torch.sampling.distributions import (
+        snowfall_rate_to_rainfall_rate as rainfall,
+    )
+
+    combos = SMOKE["_grid_combos"]()
+    assert combos == [("gunn", 0.5, 2.0), ("gunn", 1.0, 1.6),
+                      ("gunn", 2.0, 2.0), ("gunn", 2.5, 1.6),
+                      ("gunn", 1.5, 0.6), ("sekhon", 0.5, 2.0)]
+    grid = list(iter_reference_grid())
+    lightest = min(rr for _, rr, _ in grid)
+    assert [(m, rainfall(s, v)) for m, s, v in combos] == \
+        [(m, rr) for m, rr, _ in grid
+         if m == "gunn" or rr == lightest]
+
+
+def _result(labels, keep, xyz=None, **counters):
+    from lidar_snow_sim_tpu_torch.models.snowfall import (
+        OVERFLOW_COUNTERS,
+        SnowfallResult,
+    )
+
+    n = len(labels)
+    planes = torch.zeros(5, n)
+    if xyz is not None:
+        planes[:3] = torch.as_tensor(xyz, dtype=torch.float32)
+    planes[3] = 10.0
+    planes[4] = torch.as_tensor(labels, dtype=torch.float32)
+    vals = {c: torch.tensor(counters.get(c, 0)) for c in OVERFLOW_COUNTERS}
+    z = torch.tensor(0)
+    return SnowfallResult(planes=planes, keep=torch.as_tensor(keep),
+                          num_attenuated=z, num_removed=z,
+                          avg_intensity_diff=z, **vals)
+
+
+def test_card_cpu_parity_rule():
+    """Equal results pass; one flip in 1,000 points passes (the parity
+    contract's 0.2%), counted; two in 1,000 fail, as do unequal counters
+    and an xyz error over 1e-4 off the flipped points."""
+    n = 1000
+    labels = [0] * n
+    keep = [True] * n
+    ok = _result(labels, keep)
+    assert SMOKE["_card_cpu_parity"]("t", ok, ok, n) == (0, 0.0)
+    one = _result([1] + labels[1:], keep)
+    assert SMOKE["_card_cpu_parity"]("t", one, ok, n) == (1, 0.0)
+    with pytest.raises(SystemExit):
+        SMOKE["_card_cpu_parity"]("t", _result([1, 2] + labels[2:], keep),
+                                  ok, n)
+    with pytest.raises(SystemExit):
+        SMOKE["_card_cpu_parity"](
+            "t", _result(labels, keep, compact_overflow=1), ok, n)
+    xyz = torch.zeros(3, n)
+    xyz[0, 5] = 2e-4
+    with pytest.raises(SystemExit):
+        SMOKE["_card_cpu_parity"]("t", _result(labels, keep, xyz), ok, n)
+    xyz[0, 5] = 5e-5
+    assert SMOKE["_card_cpu_parity"]("t", _result(labels, keep, xyz), ok,
+                                     n)[1] == pytest.approx(5e-5)

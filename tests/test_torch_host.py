@@ -198,7 +198,8 @@ def _entry_points(tmp_path, bank):
     from lidar_snow_sim_tpu_torch.models import pointpillars as tpp
     from lidar_snow_sim_tpu_torch.tools import evaluate, experiment, infer
     from lidar_snow_sim_tpu_torch.tools import inspect as tinspect
-    from lidar_snow_sim_tpu_torch.tools import precompute, train, viewer
+    from lidar_snow_sim_tpu_torch.tools import parity_gpu, precompute, train
+    from lidar_snow_sim_tpu_torch.tools import viewer
     from lidar_snow_sim_tpu_torch.utils import eval_ap
 
     pc = tsyn.synthetic_scan(n_azimuth=20, seed=1)
@@ -252,6 +253,8 @@ def _entry_points(tmp_path, bank):
             str(scan), "--out", str(tmp_path / "out" / "v.html")]),
         "viewer --serve": lambda: viewer.main([str(scan), "--serve",
                                                "--port", "0"]),
+        "parity_gpu CLI": lambda: parity_gpu.main([
+            str(tmp_path / "out" / "PARITY_GPU.json")]),
     }
 
 
@@ -262,7 +265,7 @@ ENTRY_POINTS = ["api.augment", "api.ground_water_augmentation",
                 "inspect CLI", "precompute CLI", "PointPillars", "detect",
                 "infer CLI", "train_forward", "train CLI", "eval_ap.evaluate",
                 "evaluate CLI", "experiment CLI", "viewer CLI",
-                "viewer --serve"]
+                "viewer --serve", "parity_gpu CLI"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -563,3 +566,149 @@ def test_boxes_from_array_bitwise():
             [dataclasses.astuple(b) for b in want]
     assert tboxes.DET_COLORS == jboxes.DET_COLORS
     assert tboxes.DET_FALLBACK_COLOR == jboxes.DET_FALLBACK_COLOR
+
+
+# ---- host utilities: the cases of tests/test_utils_aux.py:80-162
+
+def test_planes_io_bitwise(tmp_path):
+    """transform_results_to_camera_extrinsics, save_plane and write_csv:
+    the JAX package's cases and a rotated projection, the files equal byte
+    for byte."""
+    from lidar_snow_sim_tpu.utils import planes_io as jpl
+    from lidar_snow_sim_tpu_torch.utils import planes_io as tpl
+
+    rot = np.array([[0.0, -1.0, 0.0, 0.1], [0.0, 0.0, -1.0, -0.2],
+                    [1.0, 0.0, 0.0, 0.3], [0.0, 0.0, 0.0, 1.0]])
+    for pm in (np.eye(4), rot, rot[:3]):
+        got = tpl.transform_results_to_camera_extrinsics(
+            pm, [0.01, -0.02, 1.0], -1.55)
+        want = jpl.transform_results_to_camera_extrinsics(
+            pm, [0.01, -0.02, 1.0], -1.55)
+        _equal(got[0], want[0])
+        assert got[1] == want[1]
+    w, hp = tpl.transform_results_to_camera_extrinsics(
+        np.eye(4), [0.0, 0.0, 1.0], -1.55)
+    np.testing.assert_allclose(w, [0, 0, 1])
+    assert abs(hp - (-1.55)) < 1e-12
+    for mod, name in ((tpl, "port"), (jpl, "jax")):
+        mod.save_plane(tmp_path / name, "plane.txt", [0, 0, 1], -1.55,
+                       np.eye(4))
+        mod.save_plane(tmp_path / name, "rot.txt", [0.01, -0.02, 1.0], -1.7,
+                       rot)
+        mod.write_csv("t", [1, 2], [3.5, 4.5], label_file="lbl",
+                      folder=str(tmp_path / name / "stats"))
+    for rel in ("plane.txt", "rot.txt", "stats/lbl_t.csv"):
+        assert (tmp_path / "port" / rel).read_bytes() == \
+            (tmp_path / "jax" / rel).read_bytes()
+    lines = (tmp_path / "port" / "plane.txt").read_text().splitlines()
+    assert lines[0] == "# Plane"
+    np.testing.assert_allclose([float(v) for v in lines[3].split()],
+                               [0, 0, 1, -1.55], atol=1e-12)
+    csv = (tmp_path / "port" / "stats" / "lbl_t.csv").read_text()
+    assert csv.splitlines()[1].split(",") == ["1", "3.5"]
+
+
+def test_incidence_range_distribution_bitwise():
+    from lidar_snow_sim_tpu.sampling import empirical as jemp
+    from lidar_snow_sim_tpu_torch.sampling import empirical as temp
+
+    f = temp.incidence_range_empirical_distribution
+    g = jemp.incidence_range_empirical_distribution
+    one = np.array([[10.0, 0.0, 1.0]])
+    ranges, dirs = f(one, R_0=80.0, n_directions=8)
+    assert dirs[0] == 0.0 and abs(ranges[0] - 9.0) < 1e-9
+    np.testing.assert_allclose(ranges[1:], 80.0)
+    field = _sets(tdart, 3)[0]
+    cases = [((one, 80.0, 8), {}), ((np.zeros((0, 3)), 50.0, 4), {}),
+             ((field, 80.0, 360), {}),
+             ((field, 80.0, 100), dict(sample_regular_directions=False))]
+    for args, kw in cases:
+        got = f(*args, **kw, rng=np.random.default_rng(1))
+        want = g(*args, **kw, rng=np.random.default_rng(1))
+        for a, b in zip(got, want):
+            _equal(a, b)
+
+
+def test_ground_stats_bitwise():
+    """ground_plane_intensity_stats on a synthetic scan (with the port's
+    oracle RANSAC inside) and its bail-out (fewer than min_ground_points
+    ground points): equal arrays, all None on the bail-out."""
+    from lidar_snow_sim_tpu.utils import ground_stats as jgs
+    from lidar_snow_sim_tpu_torch.utils import ground_stats as tgs
+
+    pc = tsyn.synthetic_scan(n_azimuth=220, seed=0)
+    for kw in ({}, dict(delta=0.2, trajectory_half_width=3.0, seed=2)):
+        got = tgs.ground_plane_intensity_stats(pc, **kw)
+        want = jgs.ground_plane_intensity_stats(pc, **kw)
+        assert got._fields == want._fields
+        for a, b in zip(got, want):
+            _equal(a, b)
+        assert got.cumsum is not None and len(got.filled_idx) > 5
+    bail = tgs.ground_plane_intensity_stats(pc[:500])
+    assert bail == jgs.ground_plane_intensity_stats(pc[:500])
+    assert bail == tgs.GroundIntensityStats(None, None, None, None, None)
+
+
+def test_splits_bitwise(tmp_path):
+    """read_split and reorder_second_half_first equal the JAX package's;
+    the precompute CLI's own reference_sample_order is their composition;
+    utils exports read_split as the JAX package's utils does."""
+    from lidar_snow_sim_tpu.utils import splits as jsp
+    from lidar_snow_sim_tpu_torch import utils as tutils
+    from lidar_snow_sim_tpu_torch.utils import splits as tsp
+
+    assert tutils.read_split is tsp.read_split
+    for n in (0, 1, 4, 7):
+        split = tmp_path / f"s{n}.txt"
+        split.write_text("".join(
+            f"2019-0{i % 3 + 1}-11_18-41-27,{(7 * i) % 13:05d}\n"
+            for i in range(n)) + "\n")
+        ids = tsp.read_split(split)
+        assert ids == jsp.read_split(split)
+        assert tsp.reorder_second_half_first(ids) == \
+            jsp.reorder_second_half_first(ids)
+        assert reference_sample_order(split) == \
+            tsp.reorder_second_half_first(ids)
+
+
+def test_stage_profiler_matches_jax():
+    """The JAX package's StageProfiler case on the port's copy; both
+    classes give reports of the same shape and counters on the same
+    stages."""
+    import time
+
+    from lidar_snow_sim_tpu.utils.profiling import StageProfiler as JaxProf
+    from lidar_snow_sim_tpu_torch.utils.profiling import StageProfiler
+
+    reports = []
+    for cls in (StageProfiler, JaxProf):
+        p = cls()
+        with p.stage("load"):
+            time.sleep(0.01)
+        with p.stage("load"):
+            time.sleep(0.01)
+        p.count("scans", 4)
+        r = p.report()
+        assert r["stages"]["load"]["calls"] == 2
+        assert r["stages"]["load"]["s"] >= 0.02
+        assert r["counters"]["scans"] == 4
+        assert p.rate("scans") > 0
+        assert p.rate("scans", per_stage="load") > p.rate("scans")
+        assert json.loads(str(p))["counters"] == {"scans": 4.0}
+        reports.append(r)
+    assert reports[0].keys() == reports[1].keys()
+    assert reports[0]["stages"].keys() == reports[1]["stages"].keys()
+
+
+def test_device_trace_writes_a_trace_on_the_cpu(tmp_path):
+    """device_trace without a card writes a Chrome trace of the CPU's
+    activity that holds the annotated region."""
+    from lidar_snow_sim_tpu_torch.utils.profiling import annotate, device_trace
+
+    with device_trace(str(tmp_path / "trace")):
+        with annotate("port_region"):
+            torch.ones(64).cumsum(0)
+    files = list((tmp_path / "trace").glob("*.json"))
+    assert len(files) == 1
+    events = json.loads(files[0].read_text())["traceEvents"]
+    assert any(e.get("name") == "port_region" for e in events)

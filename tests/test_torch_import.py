@@ -27,6 +27,7 @@ MODULES = [
     "lidar_snow_sim_tpu_torch.models.snowfall",
     "lidar_snow_sim_tpu_torch.models.stf_fog",
     "lidar_snow_sim_tpu_torch.models.wet_ground",
+    "lidar_snow_sim_tpu_torch.native",
     "lidar_snow_sim_tpu_torch.ops.fitting",
     "lidar_snow_sim_tpu_torch.ops.fresnel",
     "lidar_snow_sim_tpu_torch.ops.geometry",
@@ -38,17 +39,26 @@ MODULES = [
     "lidar_snow_sim_tpu_torch.ops.rotated_iou",
     "lidar_snow_sim_tpu_torch.ops.sweep",
     "lidar_snow_sim_tpu_torch.ops.waveform",
+    "lidar_snow_sim_tpu_torch.oracle",
+    "lidar_snow_sim_tpu_torch.oracle.detector",
+    "lidar_snow_sim_tpu_torch.oracle.fitting",
+    "lidar_snow_sim_tpu_torch.oracle.parity",
+    "lidar_snow_sim_tpu_torch.oracle.snowfall",
+    "lidar_snow_sim_tpu_torch.oracle.wet_ground",
     "lidar_snow_sim_tpu_torch.parallel.batched",
     "lidar_snow_sim_tpu_torch.parallel.datagen",
     "lidar_snow_sim_tpu_torch.sampling",
     "lidar_snow_sim_tpu_torch.sampling.banks",
     "lidar_snow_sim_tpu_torch.sampling.dart",
     "lidar_snow_sim_tpu_torch.sampling.distributions",
+    "lidar_snow_sim_tpu_torch.sampling.empirical",
     "lidar_snow_sim_tpu_torch.tools.convert_checkpoint",
     "lidar_snow_sim_tpu_torch.tools.evaluate",
     "lidar_snow_sim_tpu_torch.tools.experiment",
+    "lidar_snow_sim_tpu_torch.tools.gen_banks",
     "lidar_snow_sim_tpu_torch.tools.infer",
     "lidar_snow_sim_tpu_torch.tools.inspect",
+    "lidar_snow_sim_tpu_torch.tools.parity_gpu",
     "lidar_snow_sim_tpu_torch.tools.precompute",
     "lidar_snow_sim_tpu_torch.tools.profile_weather",
     "lidar_snow_sim_tpu_torch.tools.serve",
@@ -58,8 +68,12 @@ MODULES = [
     "lidar_snow_sim_tpu_torch.utils.boxes",
     "lidar_snow_sim_tpu_torch.utils.datasets",
     "lidar_snow_sim_tpu_torch.utils.eval_ap",
+    "lidar_snow_sim_tpu_torch.utils.ground_stats",
+    "lidar_snow_sim_tpu_torch.utils.planes_io",
     "lidar_snow_sim_tpu_torch.utils.pointcloud",
+    "lidar_snow_sim_tpu_torch.utils.profiling",
     "lidar_snow_sim_tpu_torch.utils.render",
+    "lidar_snow_sim_tpu_torch.utils.splits",
     "lidar_snow_sim_tpu_torch.utils.stf_labels",
     "lidar_snow_sim_tpu_torch.utils.stf_meta",
     "lidar_snow_sim_tpu_torch.utils.synthetic",

@@ -20,10 +20,14 @@ injected, under the parity contract of tests/test_snowfall_parity.py:
 115-186 (`_assert_parity`): equal counters, labels, intensities and keep
 flags except on decision boundaries on under 0.2% of points, xyz within
 1e-6. On a channel-sorted scan with zero overflows the port's window and
-dense assemblies give the same output bit for bit.
+dense assemblies give the same output bit for bit. The batched step and the
+datagen run a window config frame by frame: `batched_step` against the JAX
+package's on 2 frames (the same contract), `datagen_packed_step` equal to
+`batched_step` byte for byte.
 """
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -59,7 +63,7 @@ from lidar_snow_sim_tpu_torch.models import snowfall as ts
 from lidar_snow_sim_tpu_torch.ops import geometry as tgeo
 from lidar_snow_sim_tpu_torch.ops import sweep as tsweep
 from lidar_snow_sim_tpu_torch.ops import waveform as twave
-from test_torch_snowfall import COUNTERS, PLANE, _assert_parity, _scene
+from test_torch_snowfall import COUNTERS, PLANE, _assert_parity, _batch, _scene
 
 BEAM_RAD = SnowfallConfig().beam_divergence_rad
 WINDOW = dict(max_points=8192, window_size=256, wide_capacity=64,
@@ -461,12 +465,131 @@ def test_bank_views_equal_the_bank_arrays():
         assert got.tobytes() == getattr(bank, name).tobytes(), name
 
 
-def test_batched_step_takes_the_dense_assembly_only():
-    """The batched step (and so the datagen) runs the dense assembly only:
-    a window config raises rather than run another assembly."""
+@pytest.fixture(scope="module")
+def window_batch():
+    """2 frames of the "fov" scene (unsorted, so the channel sort shows),
+    the second with the reversed channel order, the JAX package's PRNG keys
+    and the port's RANSAC draws made from them (test_torch_snowfall._batch),
+    and the JAX `batched_step` on a window config."""
+    from lidar_snow_sim_tpu.parallel.batched import (
+        batched_step as jax_batched_step,
+    )
+
+    pc, sets, _, points, mask, orders, keys, draws = _batch("fov")
+    cfg = SnowfallConfig(**WINDOW)
+    bank = build_bank(sets, window_size=256, wide_capacity=64)
+    want = jax.device_get(jax.jit(
+        jax_batched_step, static_argnames=("snow_cfg", "wet_cfg"),
+    )(
+        jnp.asarray(points), jnp.asarray(mask),
+        jax.device_put(JaxParticleBank(*bank)),
+        calib_device_arrays(load_hdl64_calib()),
+        jnp.asarray(orders, jnp.int32), keys,
+        JaxSnowfallConfig(**dataclasses.asdict(cfg)), None,
+    )[0])
+    return pc, sets, bank, cfg, points, mask, orders, draws, want
+
+
+def _frame(res, f):
+    """Frame f of a batched result, as numpy arrays in a namespace."""
+    return types.SimpleNamespace(**{
+        name: np.asarray(getattr(res, name))[f] for name in res._fields})
+
+
+def test_window_batched_step_matches_jax(window_batch):
+    """The port's batched_step on a window config against the JAX
+    package's, frame by frame, on the JAX draws: rows stable-sorted by
+    channel with the padding last, under the parity contract with equal
+    counters."""
+    from lidar_snow_sim_tpu_torch.parallel.batched import batched_step
+
+    pc, sets, bank, cfg, points, mask, orders, draws, want = window_batch
+    calib = load_hdl64_calib()
+    got, wet = batched_step(
+        torch.as_tensor(points), torch.as_tensor(mask),
+        ts.bank_to_torch(bank, "cpu"), ts.calib_to_torch(calib, "cpu"),
+        torch.as_tensor(orders), (torch.as_tensor(draws), None), cfg)
+    assert wet is None
+    srt = pc[np.argsort(pc[:, 4], kind="stable")]
+    n = len(pc)
+    padded = pad_cloud(srt, cfg.max_points)
+    pts, msk = torch.as_tensor(padded.points), torch.as_tensor(padded.mask)
+    for f in range(2):
+        rt = ts.SnowfallResult(*(x[f] for x in got))
+        assert all(int(getattr(rt, c)) == 0 for c in COUNTERS)
+        labels = rt.planes[4, :n].numpy()
+        assert (labels > 0).sum() > 10
+        # non-snow rows keep their input xyz, in the channel-sorted order
+        still = labels == 0
+        np.testing.assert_array_equal(rt.planes[:3, :n].numpy()[:, still],
+                                      srt[still, :3].T)
+        assert not rt.keep[n:].any()
+        noise_at = ts._plane_and_noise(
+            pts[:, :3], pts[:, 3], msk, tgeo.norm3(pts[:, :3]),
+            torch.as_tensor(draws[f]), cfg, None).numpy()
+        _assert_parity(srt, sets, orders[f], _frame(want, f), rt, noise_at)
+    assert not torch.equal(got.planes[0], got.planes[1])
+
+
+def test_window_datagen_packed_step_matches_batched_step(window_batch,
+                                                         monkeypatch):
+    """datagen_packed_step on a window config, its frames seeded so that
+    their draws are the JAX draws of the test above: the kept rows,
+    compacted to the front and packed, equal the batched_step's byte for
+    byte, and its counters the JAX batched_step's."""
     from lidar_snow_sim_tpu_torch.parallel import batched
 
-    with pytest.raises(NotImplementedError, match="dense"):
-        batched._batched_core(torch.zeros((1, 8, 5)), None, None, None,
-                              None, None, None, SnowfallConfig(**WINDOW),
-                              None)
+    pc, sets, bank, cfg, points, mask, orders, draws, want = window_batch
+    monkeypatch.setattr(
+        batched, "frame_draws",
+        lambda seed, snow_cfg, wet_cfg: (torch.as_tensor(draws[seed]), None))
+    calib = load_hdl64_calib()
+    bank_t, calib_t = ts.bank_to_torch(bank, "cpu"), ts.calib_to_torch(
+        calib, "cpu")
+    n = len(pc)
+    meta = np.zeros((2, batched.IN_META_WIDTH), np.int32)
+    meta[:, 0] = n
+    meta[:, 2] = [0, 1]          # frame f draws draws[f]
+    meta[:, 3:] = orders
+    planes_c, out_meta = batched.datagen_packed_step(
+        torch.as_tensor(points[:, :, :4]),
+        torch.as_tensor(points[:, :, 4]).to(torch.uint8),
+        torch.as_tensor(meta), bank_t, calib_t, cfg)
+    ref, _ = batched.batched_step(
+        torch.as_tensor(points), torch.as_tensor(mask), bank_t, calib_t,
+        torch.as_tensor(orders), (torch.as_tensor(draws), None), cfg)
+    for f in range(2):
+        keep = ref.keep[f]
+        rows = ref.planes[f][:, keep]
+        k = int(keep.sum())
+        assert int(out_meta[f, 0]) == k
+        assert torch.equal(planes_c[f, :3, :k], rows[:3])
+        packed = planes_c[f, 3, :k].view(torch.int32)
+        assert torch.equal(packed >> 2, torch.round(rows[3]).int())
+        assert torch.equal(packed & 3, rows[4].int())
+        jf = _frame(want, f)
+        assert out_meta[f, 1:9].tolist() == [
+            int(getattr(jf, name)) for name in (
+                "num_attenuated", "num_removed", "avg_intensity_diff",
+                *COUNTERS)]
+        assert out_meta[f, 9:].tolist() == [0, 0, 0, 0]
+
+
+def test_window_datagen_runs_and_resumes(tmp_path):
+    """run_snowfall_datagen takes a window config: every frame written,
+    labels in {0, 1, 2}, nothing grown, and a rerun skips them all."""
+    from lidar_snow_sim_tpu_torch.parallel.datagen import run_snowfall_datagen
+
+    pc, sets, cfg = _sorted_scene("fov")
+    bank = build_bank(sets, window_size=256, wide_capacity=64)
+    scans = {f"f{i}": pc[i::2] for i in range(3)}
+    run = lambda: run_snowfall_datagen(   # noqa: E731
+        list(scans), scans.__getitem__, tmp_path, bank,
+        load_hdl64_calib(), cfg, batch=2, device="cpu")
+    stats = run()
+    assert (stats.frames_done, stats.capacity_growths) == (3, 0)
+    for sid, scan in scans.items():
+        out = np.fromfile(tmp_path / f"{sid}.bin", np.float32).reshape(-1, 5)
+        assert 0 < len(out) <= len(scan)
+        assert set(np.unique(out[:, 4])) <= {0.0, 1.0, 2.0}
+    assert run().frames_skipped == 3
