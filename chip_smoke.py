@@ -120,7 +120,22 @@ Phases, each printing one line of numbers:
      the CPU with the run's grown config, order and draws (the parity
      contract), its kept rows equal to the CLI's file; per combo the
      sampler's seconds, particles a channel, the grown slice width and
-     scans/s (grid_phase).
+     scans/s (grid_phase);
+ 15. the multi-device paths (before phase 8 too), on two cards where
+     there are two, else on the one card twice: make_sharded_step on the
+     bench scene at batch 4 equal to batched_step byte for byte, A1 and C1
+     launched once a frame on each shard; run_snowfall_datagen(mesh=...)
+     writing the files of a run without one; in two spawned ranks (NCCL on
+     a card each, gloo on one card) all_hosts_stats summing made-up
+     counters above 2^24 exactly, and a full-width float32 data-parallel
+     train step at batch 4 against the one-process step (loss and running
+     stats 1e-4, `_grad_gate` against the card's own gradient moves);
+     then tools/dryrun_multichip at n = 2 (multi_gpu_phase);
+ 16. the measuring tools (before phase 8 too): ab snow base route256 and
+     ab lisa base at chains of 1 and 3 steps (every arm overflow 0, step
+     time above 0, A1, A2, C1 and L1 launched), profile_bench --model
+     snow naming a1_kernel and c1_kernel, datagen_bench --frames 8
+     --batch 4 with every key of the JAX tool's report (tools_phase).
 The line before the last is the kernels' JSON record: each kernel's
 launches on its path, max_abs_err, ms (CUDA events around one wrapper call,
 host enqueue included) and plain_ms, device_ms (the kernel's own duration
@@ -2117,6 +2132,516 @@ def grid_phase(calib, dev) -> None:
           f"{time.time() - t_phase:.1f}", flush=True)
 
 
+def _mesh_devices(n: int = 2) -> list:
+    """n distinct cards where there are n, else the one card n times."""
+    import torch
+
+    if torch.cuda.device_count() >= n:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [torch.device("cuda", 0)] * n
+
+
+def _shard_launch_gate(calls: dict, shards: int, frames: int) -> list:
+    """Phase 15's launch gate: `calls` maps each kernel (A1, C1) to the
+    shards that launched it, with their counts. Every shard must launch
+    each kernel, once a frame: `shards` shards, `frames` launches in
+    all."""
+    bad = []
+    for name, per_thread in calls.items():
+        if len(per_thread) != shards or sum(per_thread.values()) != frames \
+                or min(per_thread.values(), default=0) < 1:
+            bad.append(f"{name} launched {dict(per_thread)} over "
+                       f"{shards} shards of {frames} frames")
+    return bad
+
+
+def _stats_gate(merged: list, locals_: list, fields) -> list:
+    """Phase 15's all_hosts_stats gate: every rank's merged counters equal
+    the sum of the ranks' local ones, exactly; the wall time stays
+    local."""
+    bad = []
+    for rank, m in enumerate(merged):
+        for f in fields:
+            want = sum(loc[f] for loc in locals_)
+            if m[f] != want:
+                bad.append(f"rank {rank} {f} {m[f]} != {want}")
+        if m["wall_s"] != locals_[rank]["wall_s"]:
+            bad.append(f"rank {rank} wall_s {m['wall_s']} is not its own")
+    return bad
+
+
+def _stats_rank(rank, device, local: dict) -> dict:
+    """A rank of phase 15's all_hosts_stats check: its made-up local
+    counters (rank-dependent, one above 2^24) merged over the ranks."""
+    import dataclasses as dc
+
+    from lidar_snow_sim_tpu_torch.parallel.datagen import DatagenStats
+    from lidar_snow_sim_tpu_torch.parallel.distributed import all_hosts_stats
+
+    return dc.asdict(all_hosts_stats(DatagenStats(
+        **_stats_local(local, rank))))
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _dp_step_rank(rank, device, world: int, frames: list, cfg, seed: int,
+                  perturb: float = 0.0, sums: bool = False):
+    """One float32 train step (Adam at 3e-3) of `cfg` (phase 15: the full
+    width) over world ranks (data-parallel when world > 1) on this rank's
+    share of `frames`, on `device`: rank 0's (metrics, gradients, running
+    stats) as numpy. With `perturb`, the weights are moved by that
+    relative amount (seeded), and with `sums` one process takes the BN
+    statistics from reduced sums as the ranks do (`_bn_train`'s `reduce`,
+    here the identity), to measure how far rounding alone moves the
+    gradients."""
+    import torch
+
+    from lidar_snow_sim_tpu_torch.models import detector_train as tdt
+    from lidar_snow_sim_tpu_torch.models import pointpillars as tpp
+
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    params = tpp.init_params(cfg, torch.Generator().manual_seed(0))
+    if perturb:
+        gen = torch.Generator().manual_seed(seed)
+        params = {k: v * (1 + perturb * torch.randn(v.shape, generator=gen))
+                  if v.is_floating_point() else v for k, v in params.items()}
+    step, init = tdt.make_train_step(cfg, tpp.generate_anchors(cfg),
+                                     lambda it: 3e-3,
+                                     data_parallel=world > 1)
+    per = len(frames) // world
+    mine = frames[rank * per:(rank + 1) * per]
+    pts, gts = (torch.as_tensor(np.stack([f[i] for f in mine]),
+                                device=device) for i in (0, 1))
+    valid = torch.ones(pts.shape[:2], dtype=torch.bool, device=device)
+    if sums:
+        net = tpp.PointPillars(cfg, params, device=device)
+        anchors = torch.as_tensor(tpp.generate_anchors(cfg)).reshape(-1, 7)
+        _, metrics, stats, _ = tdt.forward_backward(
+            net, pts, valid, gts, anchors.to(device), reduce=lambda t: t)
+        _sync(device)
+        return ({k: float(v) for k, v in metrics.items()},
+                {k: p.grad.detach().cpu().numpy()
+                 for k, p in net.named_parameters()},
+                {k: v.detach().cpu().numpy() for k, v in stats.items()})
+    state, metrics = step(init(tpp.PointPillars(cfg, params, device=device)),
+                          pts, valid, gts)
+    _sync(device)
+    if rank != 0:
+        return None
+    stats = {k: v.detach().cpu().numpy() for k, v in
+             state.net.state_dict().items() if "running" in k}
+    return ({k: float(v) for k, v in metrics.items()},
+            {k: p.grad.detach().cpu().numpy()
+             for k, p in state.net.named_parameters()}, stats)
+
+
+def _phase15_rank(rank, device, local: dict, frames: list, cfg) -> tuple:
+    """Phase 15's two-rank process: the stats merge, then the data-parallel
+    train step and the same step under three 1e-7 weight perturbations
+    (rank 0's gradients: the data-parallel side's own sensitivity), with
+    the rank's wall time of each step (the first builds the process's
+    cuDNN state)."""
+    merged = _stats_rank(rank, device, local)
+    steps_s, outs = [], []
+    for kw in [dict(seed=0)] + [dict(seed=s, perturb=1e-7)
+                                for s in (1, 2, 3)]:
+        _sync(device)
+        t0 = time.perf_counter()
+        outs.append(_dp_step_rank(rank, device, 2, frames, cfg, **kw))
+        steps_s.append(time.perf_counter() - t0)
+    return merged, outs[0], steps_s, [m and m[1] for m in outs[1:]]
+
+
+def multi_gpu_phase(pc, sets, calib, dev) -> None:
+    """Phase 15: the multi-device paths, on two cards where there are two,
+    else on the one card twice. `make_sharded_step` on the bench scene at
+    batch 4 (bench_batch's orders and seeds) over a (2, 1) mesh equal to
+    `batched_step` byte for byte, with A1 and C1 launched once a frame
+    on each shard; `run_snowfall_datagen(mesh=...)` over 4 scans writing
+    the files of a run without one; in one two-rank process
+    group, `all_hosts_stats` summing made-up counters (one above 2^24)
+    exactly, and a full-width float32 data-parallel train step at batch 4
+    (2 frames a rank) against the one-process step: loss within 1e-4
+    relative, running stats within 1e-4, each gradient within 1e-3 of its
+    largest value or twice the larger move that rounding alone makes on
+    the card, of the one-process step's (three 1e-7 weight perturbations,
+    statistics taken from sums) and of the data-parallel step's (the same
+    perturbations) (`_grad_gate`); then the port's
+    `tools/dryrun_multichip` at n = 2."""
+    import collections
+    import itertools
+    import threading
+
+    import torch
+
+    from lidar_snow_sim_tpu_torch import build_bank, pad_cloud, synthetic_scan
+    from lidar_snow_sim_tpu_torch.models import snowfall as tsnow
+    from lidar_snow_sim_tpu_torch.models.snowfall import (
+        bank_to_torch,
+        calib_to_torch,
+    )
+    from lidar_snow_sim_tpu_torch.ops.occluders import find_occluders
+    from lidar_snow_sim_tpu_torch.ops.pulse import pulse_peaks
+    from lidar_snow_sim_tpu_torch.parallel import batched as tbatched
+    from lidar_snow_sim_tpu_torch.parallel import distributed
+    from lidar_snow_sim_tpu_torch.parallel.batched import (
+        batched_step,
+        frame_draws,
+        make_sharded_step,
+    )
+    from lidar_snow_sim_tpu_torch.parallel.datagen import (
+        DatagenStats,
+        run_snowfall_datagen,
+    )
+    from lidar_snow_sim_tpu_torch.parallel.mesh import make_mesh
+    from lidar_snow_sim_tpu_torch.tools import train as ttrain
+    from lidar_snow_sim_tpu_torch.tools.dryrun_multichip import (
+        dryrun_multichip,
+    )
+    from lidar_snow_sim_tpu_torch.tools.kernel_times import (
+        bench_batch,
+        bench_config,
+        card_line,
+    )
+
+    t_phase = time.time()
+    card = card_line()
+    devices = _mesh_devices(2)
+    mesh = make_mesh(2, 1, devices=devices)
+    cfg = bench_config()
+    bank = build_bank(sets, window_size=cfg.window_size,
+                      wide_threshold=cfg.wide_threshold,
+                      wide_capacity=cfg.wide_capacity)
+    bank_t, calib_t = bank_to_torch(bank, dev), calib_to_torch(calib, dev)
+    b = 4
+    orders, seeds = bench_batch(b)
+    padded = pad_cloud(pc, cfg.max_points)
+    points = torch.as_tensor(np.stack([padded.points] * b), device=dev)
+    mask = torch.as_tensor(np.stack([padded.mask] * b), device=dev)
+    orders_t = torch.as_tensor(np.stack(orders), device=dev)
+    draws = (torch.stack([frame_draws(s, cfg, None)[0] for s in seeds])
+             .to(dev), None)
+    want, _ = batched_step(points, mask, bank_t, calib_t, orders_t, draws,
+                           cfg)
+    step = make_sharded_step(mesh, cfg)
+    step(points, mask, bank_t, calib_t, orders_t, draws)   # copies, builds
+    torch.cuda.synchronize()
+
+    # which shard launched each kernel: each shard's batched_step call
+    # marks the host thread it runs on with the shard's number
+    calls = {"A1": collections.Counter(), "C1": collections.Counter()}
+    shard = threading.local()
+    shards = itertools.count()
+    threads = set()
+    orig = {"find_occluders": tsnow.find_occluders,
+            "pulse_peaks": tsnow.pulse_peaks,
+            "batched_step": tbatched.batched_step}
+
+    def marking(*args, **kw):
+        shard.id = next(shards)
+        threads.add(threading.get_ident())
+        return orig["batched_step"](*args, **kw)
+
+    def recording(name, fn):
+        def wrapper(*args, **kw):
+            calls[name][shard.id] += 1
+            return fn(*args, **kw)
+        return wrapper
+
+    for fn in (find_occluders, pulse_peaks):
+        fn.launches = 0
+    tsnow.find_occluders = recording("A1", orig["find_occluders"])
+    tsnow.pulse_peaks = recording("C1", orig["pulse_peaks"])
+    tbatched.batched_step = marking
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, _ = step(points, mask, bank_t, calib_t, orders_t, draws)
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t0
+    finally:
+        tsnow.find_occluders = orig["find_occluders"]
+        tsnow.pulse_peaks = orig["pulse_peaks"]
+        tbatched.batched_step = orig["batched_step"]
+    launches = {"A1": find_occluders.launches, "C1": pulse_peaks.launches}
+    bad = _shard_launch_gate(calls, len(devices), b)
+    if launches != {"A1": b, "C1": b}:
+        bad.append(f"launch counters {launches}")
+    differ = [f for f in tsnow.SnowfallResult._fields
+              if not torch.equal(getattr(got, f).cpu(),
+                                 getattr(want, f).cpu())]
+    if bad or differ:
+        fail(f"sharded step: {bad} fields differing {differ}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batched_step(points, mask, bank_t, calib_t, orders_t, draws, cfg)
+    torch.cuda.synchronize()
+    unsharded_s = time.perf_counter() - t0
+    print(f"sharded step: card {card!r} devices {[str(d) for d in devices]}"
+          f" batch {b} equal_to_unsharded True launches {launches} "
+          f"host_threads {len(threads)} "
+          f"per_shard A1 {sorted(calls['A1'].values())} C1 "
+          f"{sorted(calls['C1'].values())} scans_per_s sharded "
+          f"{b / sharded_s:.4f} unsharded {b / unsharded_s:.4f}", flush=True)
+
+    # mesh datagen: the same files as a run without a mesh
+    scans = {f"m{i}": synthetic_scan(n_azimuth=870, seed=i, calib=calib)
+             for i in range(4)}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        runs = {}
+        for name, kw in (("plain", dict(device=dev)), ("mesh",
+                                                        dict(mesh=mesh))):
+            t0 = time.time()
+            stats = run_snowfall_datagen(
+                sorted(scans), scans.__getitem__, tmp / name, bank, calib,
+                cfg, batch=4, **kw)
+            runs[name] = (stats, time.time() - t0)
+        manifest = json.loads((tmp / "mesh" / "_manifest.json").read_text())
+        same = all((tmp / "plain" / f"{s}.bin").read_bytes()
+                   == (tmp / "mesh" / f"{s}.bin").read_bytes()
+                   for s in scans)
+        if not same or runs["mesh"][0].frames_done != 4 or \
+                manifest.get("mesh") != mesh.shape:
+            fail(f"mesh datagen: files equal {same}, {runs['mesh'][0]}, "
+                 f"manifest mesh {manifest.get('mesh')}")
+    print(f"mesh datagen: card {card!r} frames 4 files_equal True mesh "
+          f"{mesh.shape} s plain {runs['plain'][1]:.2f} mesh "
+          f"{runs['mesh'][1]:.2f} growths {runs['mesh'][0].capacity_growths}",
+          flush=True)
+
+    # two ranks: the stats merge, then the full-width data-parallel step
+    class Frames:   # the train CLI's arguments that _collect_frames reads
+        synthetic, seed, max_points, max_gt = 8, 0, 65536, 64
+
+    det_cfg = _dp_config()
+    frames = ttrain._collect_frames(Frames, det_cfg)[:4]
+    local = dataclasses.asdict(DatagenStats(
+        frames_done=3, frames_skipped=1, frames_failed=0,
+        points_in=2**24 + 1, points_out=2**24 - 3, attenuated=7,
+        removed=5, wall_s=0.0))
+    local.pop("batches")
+    t0 = time.time()
+    ranks = distributed.spawn_ranks(_phase15_rank, devices, local, frames,
+                                    det_cfg)
+    ranks_s = time.time() - t0
+    fields = ("frames_done", "frames_skipped", "frames_failed", "points_in",
+              "points_out", "attenuated", "removed")
+    locals_ = [_stats_local(local, r) for r in range(2)]
+    bad = _stats_gate([r[0] for r in ranks], locals_, fields)
+    if bad:
+        fail(f"all_hosts_stats: {bad}")
+    dp_m, dp_g, dp_stats = ranks[0][1]
+    _sync(dev)
+    t0 = time.perf_counter()
+    ref_m, ref_g, ref_stats = _dp_step_rank(0, dev, 1, frames, det_cfg, 0)
+    one_s = time.perf_counter() - t0
+    # how far rounding alone moves each side's gradients: the one-process
+    # step under three 1e-7 weight perturbations and with the statistics
+    # taken from sums as the ranks take them (the reduction order alone),
+    # and the data-parallel step under the same perturbations (its
+    # convolutions run at half the batch: other algorithms, other
+    # rounding)
+    noise_1p = dict.fromkeys(ref_g, 0.0)
+    variants = [dict(seed=s, perturb=1e-7) for s in (1, 2, 3)] + [
+        dict(seed=0, sums=True)]
+    for kw in variants:
+        other = _dp_step_rank(0, dev, 1, frames, det_cfg, **kw)[1]
+        for n, g in other.items():
+            noise_1p[n] = max(noise_1p[n], _rel_err(
+                torch.as_tensor(g), torch.as_tensor(ref_g[n])))
+    noise_dp = {n: max(_rel_err(torch.as_tensor(m[n]),
+                                torch.as_tensor(dp_g[n]))
+                       for m in ranks[0][3]) for n in dp_g}
+    noise = {n: max(noise_1p[n], noise_dp[n]) for n in ref_g}
+    err = {n: _rel_err(torch.as_tensor(g), torch.as_tensor(ref_g[n]))
+           for n, g in dp_g.items()}
+    loss_err = abs(dp_m["loss"] - ref_m["loss"]) / abs(ref_m["loss"])
+    stats_err = max(float(np.abs(v - ref_stats[k]).max())
+                    for k, v in dp_stats.items())
+    bad = _grad_gate(err, noise)
+    worst = max(err, key=err.get)
+    over = [n for n, e in err.items() if e > 1e-3]
+    to_noise = max((err[n] / max(noise[n], 1e-30) for n in over),
+                   default=0.0)
+    if bad or loss_err > 1e-4 or stats_err > 1e-4:
+        fail(f"data-parallel step: loss {loss_err}, running stats "
+             f"{stats_err}, gradients over the gate "
+             f"{[(n, err[n], noise[n]) for n in bad]}; over 1e-3 "
+             f"{[(n, err[n], noise_1p[n], noise_dp[n]) for n in over]}")
+    print(f"two ranks: card {card!r} backend "
+          f"{distributed.backend_for(devices)} all_hosts_stats "
+          f"points_in {ranks[0][0]['points_in']} (exact int64) | "
+          f"data-parallel step float32 batch 4, 2 frames a rank: loss "
+          f"{dp_m['loss']} one-process {ref_m['loss']} loss_rel_err "
+          f"{loss_err} grad_max_rel_err {err[worst]} ({worst}, card noise "
+          f"{noise[worst]}) grads_over_1e-3 {len(over)} of {len(err)} "
+          f"max_err_to_noise_over_1e-3 {to_noise} card_noise_max one-process "
+          f"{max(noise_1p.values())} data-parallel "
+          f"{max(noise_dp.values())} err_to_one_process_noise_max "
+          f"{max((err[n] / max(noise_1p[n], 1e-30) for n in over),
+                 default=0.0)}"
+          f" running_stats_max_abs_err {stats_err} "
+          f"rank_steps_s {[[round(t, 4) for t in r[2]] for r in ranks]} "
+          f"one_process_step_s {one_s:.4f} processes_s {ranks_s:.1f}",
+          flush=True)
+
+    t0 = time.time()
+    for line in dryrun_multichip(2, devices):
+        print(f"{line} | card {card!r}", flush=True)
+    print(f"multi-gpu: card {card!r} dryrun_s {time.time() - t0:.1f} "
+          f"phase_s {time.time() - t_phase:.1f}", flush=True)
+
+
+def _dp_config():
+    """Phase 15's detector: the full width of PointPillarsConfig()."""
+    from lidar_snow_sim_tpu_torch.models.pointpillars import (
+        PointPillarsConfig,
+    )
+
+    return PointPillarsConfig()
+
+
+def _stats_local(local: dict, rank: int) -> dict:
+    """The local counters `_stats_rank` gives rank `rank`."""
+    return {k: v * (rank + 1) if isinstance(v, int) else float(rank)
+            for k, v in local.items()}
+
+
+AB_KEYS = ("step_ms", "scans_per_sec", "spread_ms", "overflow")
+DATAGEN_BENCH_KEYS = (
+    "metric", "value", "unit", "frames", "wall_s", "steady_scans_per_sec",
+    "steady_median_scans_per_sec", "steady_frames", "compile_batches_s",
+    "tunnel", "transfer_bound_ceiling_scans_per_sec",
+    "transfer_bytes_per_frame", "mean_points_per_scan", "batch", "backend",
+    "wet", "manifest_stats", "scene_setup_s", "bank_setup_s",
+    "device_resident_scans_per_sec", "device_step_ms_per_frame",
+    "measured_loop_overhead_pct", "pcie8gbps_overhead_pct_of_device_step",
+    "resume_walk_s",
+)
+
+
+def _ab_gate(report: dict, arms) -> list:
+    """Phase 16's gate on an `ab` report: every asked arm present, with
+    all its keys, overflow 0 and a step time above 0."""
+    bad = []
+    for arm in arms:
+        r = report.get(arm)
+        if r is None or any(k not in r for k in AB_KEYS):
+            bad.append(f"{arm}: {r}")
+        elif r["overflow"] != 0 or not r["step_ms"] > 0:
+            bad.append(f"{arm}: overflow {r['overflow']} step_ms "
+                       f"{r['step_ms']}")
+    return bad
+
+
+def _profile_gate(text: str, kernels=("a1_kernel", "c1_kernel")) -> list:
+    """Phase 16's gate on profile_bench's output: each kernel named."""
+    return [k for k in kernels if k not in text]
+
+
+def _datagen_bench_gate(report: dict, frames: int) -> list:
+    """Phase 16's gate on datagen_bench's report: every key of the JAX
+    tool's present, `frames` frames done, the rates above 0."""
+    bad = [f"missing {k}" for k in DATAGEN_BENCH_KEYS if k not in report]
+    if report.get("frames") != frames:
+        bad.append(f"frames {report.get('frames')} != {frames}")
+    for k in ("value", "device_resident_scans_per_sec"):
+        if not (report.get(k) or 0) > 0:
+            bad.append(f"{k} {report.get(k)}")
+    return bad
+
+
+def _last_json(text: str) -> dict:
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def tools_phase(dev) -> None:
+    """Phase 16: the measuring tools on the card. `ab snow base route256`
+    and `ab lisa base` at short chains (1 and 3 steps, 2 reps): every arm
+    with overflow 0 and a step time above 0, A1 and A2 and C1 (snow) and
+    L1 (lisa) launched; `profile_bench --model snow --iters 1 --top 10`
+    naming A1 and C1; `datagen_bench --frames 8 --batch 4` with 8 frames
+    done and every key of the JAX tool's report."""
+    import contextlib
+    import io
+
+    from lidar_snow_sim_tpu_torch.ops.lut_lookup import lut_lookup_pairs
+    from lidar_snow_sim_tpu_torch.ops.occluders import (
+        find_occluders,
+        find_occluders_routed,
+    )
+    from lidar_snow_sim_tpu_torch.ops.pulse import pulse_peaks
+    from lidar_snow_sim_tpu_torch.tools import ab, datagen_bench
+    from lidar_snow_sim_tpu_torch.tools import profile_bench
+    from lidar_snow_sim_tpu_torch.tools.kernel_times import card_line
+
+    t_phase = time.time()
+    card = card_line()
+    counted = {"A1": find_occluders, "A2": find_occluders_routed,
+               "C1": pulse_peaks, "L1": lut_lookup_pairs}
+    chains = ["--short", "1", "--long", "3", "--reps", "2"]
+    for model, arms, kernels in (("snow", ("base", "route256"),
+                                  ("A1", "A2", "C1")),
+                                 ("lisa", ("base",), ("L1",))):
+        for fn in counted.values():
+            fn.launches = 0
+        out = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(out):
+            rc = ab.main([model, *arms, *chains])
+        report = _last_json(out.getvalue())
+        launches = {k: counted[k].launches for k in kernels}
+        bad = _ab_gate(report["arms"], arms)
+        if rc != 0 or bad or min(launches.values()) < 1:
+            fail(f"ab {model}: rc {rc} {bad} launches {launches}")
+        arms_ms = {a: {k: round(v, 4) for k, v in r.items()}
+                   for a, r in report["arms"].items()}
+        print(f"ab {model}: card {card!r} {arms_ms} launches {launches} s "
+              f"{time.time() - t0:.1f}", flush=True)
+
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        rc = profile_bench.main(["--model", "snow", "--iters", "1",
+                                 "--top", "10"])
+    text = out.getvalue()
+    missing = _profile_gate(text)
+    if rc != 0 or missing:
+        fail(f"profile_bench: rc {rc}, not named {missing}:\n{text}")
+    kernel_rows = text.split("port kernels:")[-1].strip().splitlines()
+    head = [ln for ln in text.splitlines() if ln.startswith("model ")]
+    print(f"profile_bench snow: card {card!r} {head[0] if head else ''} "
+          f"kernels {[' '.join(r.split()) for r in kernel_rows]} s "
+          f"{time.time() - t0:.1f}", flush=True)
+
+    out = io.StringIO()
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(out):
+        rc = datagen_bench.main(["--frames", "8", "--batch", "4",
+                                 "--root", tmp])
+    report = _last_json(out.getvalue())
+    bad = _datagen_bench_gate(report, 8)
+    if rc != 0 or bad:
+        fail(f"datagen_bench: rc {rc} {bad}")
+    keep = ("value", "steady_scans_per_sec", "steady_median_scans_per_sec",
+            "steady_frames", "compile_batches_s", "tunnel",
+            "transfer_bound_ceiling_scans_per_sec",
+            "device_resident_scans_per_sec", "device_step_ms_per_frame",
+            "measured_loop_overhead_pct", "resume_walk_s", "backend")
+    print(f"datagen_bench: frames 8 batch 4 "
+          f"{ {k: report[k] for k in keep} } growths "
+          f"{report['manifest_stats']['capacity_growths']} s "
+          f"{time.time() - t0:.1f} | phase_s {time.time() - t_phase:.1f}",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2493,6 +3018,8 @@ def main() -> int:
     window_phase(pc, sets, calib, dev)
     parity_phase(dev)
     grid_phase(calib, dev)
+    multi_gpu_phase(pc, sets, calib, dev)
+    tools_phase(dev)
 
     occ_src = "lidar_snow_sim_tpu_torch/csrc/occluders.cu"
     tpu_occ = "lidar_snow_sim_tpu/ops/pallas_occluders.py"

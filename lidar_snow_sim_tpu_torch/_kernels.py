@@ -166,3 +166,14 @@ def check(err: int, what: str) -> None:
     """Raise on a nonzero cudaError_t returned by a launch."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def launch(device, entry, *args) -> int:
+    """Call the C entry point `entry` with `device` current: its `<<<>>>`
+    launch and `cudaFuncSetAttribute` act on the calling thread's current
+    device, which on a second card need not be the tensors' own. Returns
+    the entry's cudaError_t."""
+    import torch
+
+    with torch.cuda.device(device):
+        return entry(*args)

@@ -15,7 +15,12 @@ LR schedule and the train step (counterpart of
 - `forward_backward`: train-mode forward (`pointpillars.train_forward`),
   assignment, loss and `loss.backward()`; `make_train_step` adds a
   `torch.optim.Adam` step at `schedule(step)`, then commits the BN running
-  stats. The running stats are buffers, so Adam never sees them.
+  stats. The running stats are buffers, so Adam never sees them. With
+  `data_parallel=True` each rank of the default process group takes its
+  slice of the batch: the BN statistics are summed over the ranks
+  (differentiably), and the gradients and the metrics are averaged, which
+  gives the one-process step on the whole batch because every rank's
+  loss divides by its own, equal, share of the batch.
 - `onecycle_schedule`: `optax.cosine_onecycle_schedule` as a plain
   function of the step.
 
@@ -41,6 +46,7 @@ from lidar_snow_sim_tpu_torch.models.pointpillars import (
     train_forward,
 )
 from lidar_snow_sim_tpu_torch.ops.f32 import div
+from lidar_snow_sim_tpu_torch.parallel import distributed
 from lidar_snow_sim_tpu_torch.ops.rotated_iou import boxes_iou_bev
 
 
@@ -226,16 +232,19 @@ def make_adam(net: PointPillars, lr: float = 3e-3) -> torch.optim.Adam:
                             eps=1e-8)
 
 
-def forward_backward(net: PointPillars, points, valid, gt_boxes, anchors):
+def forward_backward(net: PointPillars, points, valid, gt_boxes, anchors,
+                     reduce=None):
     """One batch through the training forward (true float32 convolutions
     where the config computes in float32), target assignment, the loss
     and `loss.backward()` on the net's device; the gradients accumulate in
-    the parameters' `.grad`. anchors: (N, 7) on that device. Returns
-    (loss, metrics, running stats after the batch, labels)."""
+    the parameters' `.grad`. anchors: (N, 7) on that device. `reduce` goes
+    to `train_forward`. Returns (loss, metrics, running stats after the
+    batch, labels)."""
     cfg = net.cfg
     with _true_float32():
         cls, box, dir_, stats = train_forward(points, valid, net,
-                                              device=net.device)
+                                              device=net.device,
+                                              reduce=reduce)
         with torch.no_grad():
             labels, reg_t, reg_w = assign_batch(anchors, gt_boxes, cfg)
         loss, metrics = detection_loss(cls, box, dir_, labels, reg_t,
@@ -244,7 +253,8 @@ def forward_backward(net: PointPillars, points, valid, gt_boxes, anchors):
     return loss.detach(), metrics, stats, labels
 
 
-def make_train_step(cfg: PointPillarsConfig, anchors, schedule=None):
+def make_train_step(cfg: PointPillarsConfig, anchors, schedule=None,
+                    data_parallel: bool = False, make_optimizer=make_adam):
     """(step, init_state) after the JAX package's `make_train_step`.
 
     anchors: (H, W, A, 7) from `generate_anchors` (numpy or tensor);
@@ -252,7 +262,12 @@ def make_train_step(cfg: PointPillarsConfig, anchors, schedule=None):
     valid, gt_boxes)` runs one step on the net's device (`forward_backward`,
     Adam, then the running stats are committed) and returns (state,
     metrics); step `it` uses `schedule(it)`, as optax reads its count
-    before incrementing it.
+    before incrementing it. `make_optimizer(net, lr)` builds the optimizer
+    (default Adam, `make_adam`), as the JAX package's step takes an optax
+    optimizer. With `data_parallel`, this process is one rank
+    of the default process group and its arguments are the rank's equal
+    share of the batch (see the module docstring); the metrics are the
+    whole batch's.
     """
     schedule = schedule or (lambda it: 3e-3)
     flat = torch.as_tensor(anchors, dtype=torch.float32).reshape(-1, 7)
@@ -266,7 +281,11 @@ def make_train_step(cfg: PointPillarsConfig, anchors, schedule=None):
             group["lr"] = schedule(state.step)
         state.optimizer.zero_grad(set_to_none=True)
         _, metrics, stats, _ = forward_backward(
-            net, points, valid, gt_boxes, on_device[net.device])
+            net, points, valid, gt_boxes, on_device[net.device],
+            reduce=distributed.all_reduce_sum if data_parallel else None)
+        if data_parallel:
+            distributed.average_gradients(net.parameters())
+            metrics = distributed.mean_over_ranks(metrics)
         state.optimizer.step()
         with torch.no_grad():
             for name, value in stats.items():
@@ -275,6 +294,6 @@ def make_train_step(cfg: PointPillarsConfig, anchors, schedule=None):
         return state, metrics
 
     def init_state(net: PointPillars) -> TrainState:
-        return TrainState(net, make_adam(net, schedule(0)))
+        return TrainState(net, make_optimizer(net, schedule(0)))
 
     return step, init_state

@@ -575,19 +575,34 @@ def _bn(x, norm: nn.Module, dim: int = 1):
     return (x - g(norm.running_mean)) * g(inv) * g(norm.weight) + g(norm.bias)
 
 
-def _bn_train(x, norm: nn.Module, dim: int = 1, mask=None):
+def _bn_train(x, norm: nn.Module, dim: int = 1, mask=None, reduce=None):
     """Training batch norm along `dim` (the JAX package's `_bn(train=True)`):
     batch statistics in float32 over every other dim, weighted by `mask`
     (broadcast to x) where given, normalized with the biased variance.
     Returns (y, running_mean, running_var): the running stats after this
     batch (momentum 0.01, running_var from the Bessel-corrected variance),
-    detached and not written into `norm`."""
+    detached and not written into `norm`.
+
+    With `reduce` (data parallelism: `parallel/distributed.all_reduce_sum`)
+    the statistics are those of every rank's batch together: the masked
+    sum, sum of squares and count are reduced, differentiably, before the
+    mean and variance are taken."""
     dim = dim % x.ndim
     red = tuple(i for i in range(x.ndim) if i != dim)
     shape = [1] * x.ndim
     shape[dim] = x.shape[dim]
     xf = x.float()
-    if mask is None:
+    if reduce is not None:
+        w = (torch.ones_like(xf) if mask is None
+             else torch.broadcast_to(mask.float(), x.shape))
+        sums = reduce(torch.stack([torch.sum(xf * w, dim=red),
+                                   torch.sum(xf * xf * w, dim=red),
+                                   torch.sum(w, dim=red)]))
+        n = torch.clamp_min(sums[2], 1.0)
+        mean = sums[0] / n
+        var = sums[1] / n - mean * mean
+        bessel = n / torch.clamp_min(n - 1.0, 1.0)
+    elif mask is None:
         mean = torch.mean(xf, dim=red)
         var = torch.mean(xf * xf, dim=red) - mean * mean
         nf = float(np.prod([x.shape[i] for i in red]))
@@ -608,13 +623,14 @@ def _bn_train(x, norm: nn.Module, dim: int = 1, mask=None):
             + norm.bias.to(x.dtype).view(shape)), run_mean, run_var
 
 
-def _norm(x, norm: nn.Module, name: str, stats, dim: int = 1, mask=None):
-    """`_bn` where `stats` is None; else `_bn_train`, with the new running
-    stats put in `stats` under `name`'s state-dict keys."""
+def _norm(x, norm: nn.Module, name: str, stats, dim: int = 1, mask=None,
+          reduce=None):
+    """`_bn` where `stats` is None; else `_bn_train` (with `reduce`), the
+    new running stats put in `stats` under `name`'s state-dict keys."""
     if stats is None:
         return _bn(x, norm, dim)
     y, stats[f"{name}.running_mean"], stats[f"{name}.running_var"] = \
-        _bn_train(x, norm, dim, mask)
+        _bn_train(x, norm, dim, mask, reduce)
     return y
 
 
@@ -643,7 +659,7 @@ def pillar_features(vox: VoxelizeResult, cfg: PointPillarsConfig):
 
 
 def pfn_forward(feat, net: PointPillars, cfg: PointPillarsConfig,
-                stats=None, live=None):
+                stats=None, live=None, reduce=None):
     """PFN: linear -> BN -> ReLU -> max over the points. (..., V, P, 10) ->
     (..., V, C); padded points take part in the max, as in pcdet. With a
     `stats` dict the BN runs in train mode (see `_norm`), its statistics
@@ -655,7 +671,7 @@ def pfn_forward(feat, net: PointPillars, cfg: PointPillarsConfig,
     for i, layer in enumerate(net.vfe.pfn_layers):
         x = torch.matmul(x, layer.linear.weight.to(x.dtype).t())
         x = torch.relu(_norm(x, layer.norm, f"vfe.pfn_layers.{i}.norm",
-                             stats, dim=-1, mask=mask))
+                             stats, dim=-1, mask=mask, reduce=reduce))
     return torch.amax(x, dim=-2)                          # (..., V, C)
 
 
@@ -675,7 +691,7 @@ def scatter_bev(pfeat, vox: VoxelizeResult, cfg: PointPillarsConfig):
 
 
 def backbone_forward(spatial, net: PointPillars, cfg: PointPillarsConfig,
-                     stats=None):
+                     stats=None, reduce=None):
     """BaseBEVBackbone: stages of a stride-s 3x3 conv (pcdet's ZeroPad2d(1)
     + padding 0, i.e. padding 1) and n 3x3 convs, each stage upsampled to
     the feature-map stride and concatenated. (B, C, ny, nx) ->
@@ -687,11 +703,11 @@ def backbone_forward(spatial, net: PointPillars, cfg: PointPillarsConfig,
         blk = net.backbone_2d.blocks[i]
         pre = f"backbone_2d.blocks.{i}"
         x = F.conv2d(x, blk[1].weight.to(x.dtype), stride=s, padding=1)
-        x = torch.relu(_norm(x, blk[2], f"{pre}.2", stats))
+        x = torch.relu(_norm(x, blk[2], f"{pre}.2", stats, reduce=reduce))
         for j in range(n):
             x = F.conv2d(x, blk[3 * j + 4].weight.to(x.dtype), padding=1)
             x = torch.relu(_norm(x, blk[3 * j + 5], f"{pre}.{3 * j + 5}",
-                                 stats))
+                                 stats, reduce=reduce))
         u = cfg.upsample_strides[i]
         deblk = net.backbone_2d.deblocks[i]
         if u >= 1:
@@ -701,7 +717,8 @@ def backbone_forward(spatial, net: PointPillars, cfg: PointPillarsConfig,
             k = int(round(1 / u))
             y = F.conv2d(x, deblk[0].weight.to(x.dtype), stride=k)
         ups.append(torch.relu(_norm(y, deblk[1],
-                                    f"backbone_2d.deblocks.{i}.1", stats)))
+                                    f"backbone_2d.deblocks.{i}.1", stats,
+                                    reduce=reduce)))
     return torch.cat(ups, dim=1)
 
 
@@ -843,7 +860,8 @@ def forward_features(points, valid, net: PointPillars):
     return cls, box, dir_, vox
 
 
-def train_forward(points, valid, net: PointPillars, device="cuda"):
+def train_forward(points, valid, net: PointPillars, device="cuda",
+                  reduce=None):
     """Batched training forward with batch-statistic BN (the JAX package's
     `detector_train.train_forward`).
 
@@ -856,9 +874,10 @@ def train_forward(points, valid, net: PointPillars, device="cuda"):
     float32). Returns (cls (B, N_anchors, ncls), box (B, N_anchors, 7),
     dir (B, N_anchors, nbins), float32, and {state-dict name: tensor} of
     the running stats after this batch). The stats are not written into
-    `net`: the caller commits them (`detector_train`). Call it inside
-    `_true_float32()` for IEEE float32 convolutions, the backward pass
-    included."""
+    `net`: the caller commits them (`detector_train`). With `reduce` (see
+    `_bn_train`) every BN takes its statistics over all ranks' batches.
+    Call it inside `_true_float32()` for IEEE float32 convolutions, the
+    backward pass included."""
     where = _on_net_device(net, device)
     points = torch.as_tensor(points, dtype=torch.float32, device=where)
     valid = torch.as_tensor(valid, dtype=torch.bool, device=where)
@@ -871,10 +890,11 @@ def train_forward(points, valid, net: PointPillars, device="cuda"):
     live = (torch.arange(cfg.max_pillars, device=points.device)[None, :]
             < num_pillars[:, None])                       # (B, V)
     stats: dict = {}
-    pfeat = pfn_forward(feat.to(dtype), net, cfg, stats=stats, live=live)
+    pfeat = pfn_forward(feat.to(dtype), net, cfg, stats=stats, live=live,
+                        reduce=reduce)
     pfeat = pfeat * live[..., None].to(pfeat.dtype)
     spatial = torch.cat([scatter_bev(f, v, cfg) for f, v in zip(pfeat, voxs)])
-    bev = backbone_forward(spatial, net, cfg, stats=stats)
+    bev = backbone_forward(spatial, net, cfg, stats=stats, reduce=reduce)
     cls, box, dir_ = head_forward(bev, net, cfg)
     return cls, box, dir_, stats
 

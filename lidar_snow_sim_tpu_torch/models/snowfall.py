@@ -161,6 +161,17 @@ class BankTensors(NamedTuple):
     angle: torch.Tensor    # (C, K_ext) signed extended sort azimuth
     wide: torch.Tensor     # (C, W, 4), W = the bank's wide capacity
 
+    def to(self, device) -> "BankTensors":
+        """The bank on `device`: data_t, wide_t, count and lut copied once
+        (not copied where they already lie there), the views re-made."""
+        data_t, wide_t = self.data_t.to(device), self.wide_t.to(device)
+        return BankTensors(
+            data_t=data_t, wide_t=wide_t, count=self.count.to(device),
+            lut=self.lut.to(device),
+            data=data_t[:, :4].transpose(1, 2), angle=data_t[:, 6],
+            wide=wide_t[:, :4, :self.wide.shape[1]].transpose(1, 2),
+        )
+
 
 class CalibTensors(NamedTuple):
     min_intensity: torch.Tensor
@@ -168,6 +179,9 @@ class CalibTensors(NamedTuple):
     focal_slope: torch.Tensor
     focal_offset: torch.Tensor
     max_intensity: torch.Tensor
+
+    def to(self, device) -> "CalibTensors":
+        return CalibTensors(*(t.to(device) for t in self))
 
 
 def bank_to_torch(bank: ParticleBank, device) -> BankTensors:

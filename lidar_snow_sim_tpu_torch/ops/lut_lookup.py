@@ -56,7 +56,8 @@ def lut_lookup_pairs(p: torch.Tensor, pairs: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"pairs on {pairs.device}, p on {p.device}")
     out = torch.empty_like(flat)
     lib = _kernels.load("lut_lookup")
-    err = lib.lut_lookup_l1(
+    err = _kernels.launch(
+        p.device, lib.lut_lookup_l1,
         flat.data_ptr(), pairs.data_ptr(), out.data_ptr(), flat.numel(), g1,
         torch.cuda.current_stream(p.device).cuda_stream,
     )

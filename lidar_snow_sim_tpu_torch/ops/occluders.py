@@ -343,7 +343,8 @@ def find_occluders(feats, w0b, rows, los, has, counts, data_t, wide_t, *,
     a12d = torch.empty((3 * k_occ, n_chunks * blk), dtype=torch.float32,
                        device=feats.device)
     ovf = torch.empty((n_chunks, blk), dtype=torch.int32, device=feats.device)
-    err = _kernels.load("occluders").occluders_a1(
+    err = _kernels.launch(
+        feats.device, _kernels.load("occluders").occluders_a1,
         feats.data_ptr(), w0b.data_ptr(), rows.data_ptr(), los.data_ptr(),
         has.data_ptr(), counts.data_ptr(), data_t.data_ptr(),
         wide_t.data_ptr(), a12d.data_ptr(), ovf.data_ptr(),
@@ -376,7 +377,8 @@ def find_occluders_routed(feats, w0b, rows, los, gloa, mode, counts, data_t,
     a12d = torch.empty((3 * k_occ, n_chunks * blk), dtype=torch.float32,
                        device=feats.device)
     ovf = torch.empty((n_chunks, blk), dtype=torch.int32, device=feats.device)
-    err = _kernels.load("occluders").occluders_a2(
+    err = _kernels.launch(
+        feats.device, _kernels.load("occluders").occluders_a2,
         feats.data_ptr(), w0b.data_ptr(), rows.data_ptr(), los.data_ptr(),
         gloa.data_ptr(), mode.data_ptr(), counts.data_ptr(),
         data_t.data_ptr(), wide_t.data_ptr(), a12d.data_ptr(),
@@ -411,7 +413,8 @@ def find_occluders_banded(feats, w0b, rows, gloa, glob, counts, data_t,
                        device=dev)
     ovf = torch.empty((n_chunks, blk), dtype=torch.int32, device=dev)
     unc = torch.empty((n_chunks, blk), dtype=torch.int32, device=dev)
-    err = _kernels.load("occluders").occluders_a3(
+    err = _kernels.launch(
+        dev, _kernels.load("occluders").occluders_a3,
         feats.data_ptr(), w0b.data_ptr(), rows.data_ptr(), gloa.data_ptr(),
         glob.data_ptr(), counts.data_ptr(), data_t.data_ptr(),
         wide_t.data_ptr(), a12d.data_ptr(), ovf.data_ptr(), unc.data_ptr(),
@@ -432,7 +435,8 @@ def _ungated_kernel(entry: str, what: str, feats, w0b, rows, los, counts,
     a12d = torch.empty((3 * k_occ, n_chunks * blk), dtype=torch.float32,
                        device=feats.device)
     ovf = torch.empty((n_chunks, blk), dtype=torch.int32, device=feats.device)
-    err = getattr(_kernels.load("occluders"), entry)(
+    err = _kernels.launch(
+        feats.device, getattr(_kernels.load("occluders"), entry),
         feats.data_ptr(), w0b.data_ptr(), rows.data_ptr(), los.data_ptr(),
         counts.data_ptr(), data_t.data_ptr(), wide_t.data_ptr(),
         a12d.data_ptr(), ovf.data_ptr(), n_chunks, blk, w_sl,

@@ -210,7 +210,8 @@ def _launch(entry: str, what: str, extra: tuple, feats, a1, a2, rr, valid,
     idx = torch.empty(cap, dtype=torch.int32, device=dev)
     touched = torch.empty(cap, dtype=torch.bool, device=dev)
     remainder = torch.empty(cap, dtype=torch.float32, device=dev)
-    err = getattr(_kernels.load("pulse"), entry)(
+    err = _kernels.launch(
+        dev, getattr(_kernels.load("pulse"), entry),
         feats.data_ptr(), a1.data_ptr(), a2.data_ptr(), rr.data_ptr(),
         valid.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(),
         cos_g.data_ptr(), sin_g.data_ptr(), peak.data_ptr(), idx.data_ptr(),

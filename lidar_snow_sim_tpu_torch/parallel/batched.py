@@ -12,6 +12,12 @@ window config (`assembly="window"`, plain torch as the JAX package's is
 plain XLA) runs `snowfall_augment` frame by frame, each frame's rows
 stable-sorted by channel with the padding last, as the JAX `batched_step`
 gives them. The packed in/out surface is the JAX package's.
+
+`make_sharded_step` and `make_sharded_packed_step` split a batch's frames
+over a `parallel/mesh.Mesh` and run each shard through the same step on
+its device (`parallel/mesh.run_shards`), with the kernels on whatever
+the mesh's shape (see `parallel/mesh.py` for why the 'beam' axis shards
+frames too). The outputs are the unsharded step's, byte for byte.
 """
 
 from __future__ import annotations
@@ -32,6 +38,11 @@ from lidar_snow_sim_tpu_torch.models.wet_ground import (
     wet_ground_augment,
 )
 from lidar_snow_sim_tpu_torch.ops.fitting import ransac_draws
+from lidar_snow_sim_tpu_torch.parallel.mesh import (
+    Mesh,
+    gather_frames,
+    run_shards,
+)
 
 IN_META_WIDTH = 3 + 64   # [n_points, seed_hi, seed_lo, order(64)]
 OUT_META_WIDTH = 13      # [n_keep, att, rem, avg_diff, 5 overflows,
@@ -166,3 +177,68 @@ def datagen_packed_step(points, chan, in_meta, bank, calib,
         ]))
         planes_out.append(planes_c)
     return torch.stack(planes_out), torch.stack(metas)
+
+
+class _Replicas:
+    """Each (bank or calib, device) pair copied once: the copies are kept
+    for as long as the step that made them."""
+
+    def __init__(self):
+        self._copies = {}
+
+    def __call__(self, obj, device):
+        key = (id(obj), str(device))
+        if key not in self._copies:
+            self._copies[key] = (obj, obj.to(device))
+        return self._copies[key][1]
+
+
+def make_sharded_step(mesh: Mesh, snow_cfg: SnowfallConfig,
+                      wet_cfg: WetGroundConfig | None = None):
+    """`batched_step` with its frames sharded over `mesh` (the JAX
+    package's `make_sharded_step`). Returns step(points, mask, bank, calib,
+    orders, draws) with `batched_step`'s arguments and results: each shard
+    runs `batched_step` on its device, bank and calib copied there once,
+    and the results come back in frame order on the points' device."""
+    replicas = _Replicas()
+
+    def step(points, mask, bank, calib, orders, draws):
+        snow_draws, wet_draws = draws
+
+        def shard(dev, f):
+            return batched_step(
+                points[f].to(dev), mask[f].to(dev), replicas(bank, dev),
+                replicas(calib, dev), orders[f].to(dev),
+                (snow_draws[f].to(dev),
+                 None if wet_draws is None else wet_draws[f].to(dev)),
+                snow_cfg, wet_cfg)
+
+        parts = run_shards(mesh, points.shape[0], shard)
+        out = points.device
+        return (gather_frames([p[0] for p in parts], out),
+                None if wet_cfg is None
+                else gather_frames([p[1] for p in parts], out))
+
+    return step
+
+
+def make_sharded_packed_step(mesh: Mesh, snow_cfg: SnowfallConfig,
+                             wet_cfg: WetGroundConfig | None = None,
+                             out_points: int | None = None):
+    """`datagen_packed_step` with its frames sharded over `mesh` (the JAX
+    package's `make_sharded_packed_step`). Returns step(points, chan,
+    in_meta, bank, calib) -> (planes_c, out_meta) in frame order on the
+    points' device, `datagen_packed_step`'s results byte for byte."""
+    replicas = _Replicas()
+
+    def step(points, chan, in_meta, bank, calib):
+        def shard(dev, f):
+            return datagen_packed_step(
+                points[f].to(dev), chan[f].to(dev), in_meta[f],
+                replicas(bank, dev), replicas(calib, dev), snow_cfg,
+                wet_cfg=wet_cfg, out_points=out_points)
+
+        parts = run_shards(mesh, points.shape[0], shard)
+        return gather_frames(parts, points.device)
+
+    return step

@@ -3,9 +3,12 @@
 `tools/snowfall/precompute.py:47-106`).
 
 Scans are padded to a fixed capacity, batched through
-`datagen_packed_step` on one device, and written as STF-format .bin files
-with the reference's skip-if-exists resume. Outputs land where the
-reference puts them, so they drop into OpenPCDet training unchanged:
+`datagen_packed_step` on one device or, with a `mesh`, sharded over the
+mesh's devices (`parallel/batched.make_sharded_packed_step`), and written
+as STF-format .bin files with the reference's skip-if-exists resume. One
+IO thread loads the next batch while the current one computes. Outputs
+land where the reference puts them, so they drop into OpenPCDet training
+unchanged:
   {out_root}/snowfall_simulation/{mode}/{lidar_folder}_rainrate_{int(rr)}/{id}.bin
 """
 
@@ -16,6 +19,7 @@ import json
 import logging
 import time
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable, Iterable, Sequence
 
@@ -29,7 +33,10 @@ from lidar_snow_sim_tpu_torch.models.snowfall import (
     calib_to_torch,
     grown_config,
 )
-from lidar_snow_sim_tpu_torch.parallel.batched import datagen_packed_step
+from lidar_snow_sim_tpu_torch.parallel.batched import (
+    datagen_packed_step,
+    make_sharded_packed_step,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -59,6 +66,21 @@ class DatagenStats:
 
     def as_dict(self):
         return dataclasses.asdict(self)
+
+    def steady_scans_per_sec(self):
+        """Throughput over the batches that ran no set-up event (kernel
+        build, capacity growth rerun); None if every batch ran one."""
+        clean = [b for b in self.batches if not b["compiles"]]
+        frames = sum(b["frames"] for b in clean)
+        secs = sum(b["s"] for b in clean)
+        return (frames / secs) if secs > 0 else None
+
+    def steady_median_scans_per_sec(self):
+        """Median per-batch throughput over those batches: robust to a
+        stall that lands on one batch."""
+        clean = sorted(b["frames"] / b["s"] for b in self.batches
+                       if not b["compiles"] and b["s"] > 0)
+        return clean[len(clean) // 2] if clean else None
 
 
 def _unpack_rows(planes: np.ndarray, wet: bool) -> np.ndarray:
@@ -96,6 +118,7 @@ def run_snowfall_datagen(
     shuffle_channels: bool = True,
     fov_filter=None,
     overwrite: bool = False,
+    mesh=None,
     wet_cfg=None,
     out_frac: float = 0.8,
     device: str | torch.device = "cuda",
@@ -112,8 +135,20 @@ def run_snowfall_datagen(
     keeping more grows it to max_points. A `_manifest.json` with the run
     stats and the config the run ended with (its grown capacities) is
     written next to the outputs.
+
+    With a `mesh` (`parallel/mesh.make_mesh`) each batch is sharded over
+    the mesh's devices in place of `device`, and the manifest records the
+    mesh's shape; the files are those of a run without one. The batch must
+    be a multiple of the mesh's 'data' axis, as in the JAX package.
     """
-    dev = resolve_device(device)
+    if mesh is not None and batch % mesh.shape["data"] != 0:
+        raise ValueError(
+            f"batch {batch} not divisible by mesh data axis "
+            f"{mesh.shape['data']}"
+        )
+    # with a mesh the batch is staged on the host and each shard moves to
+    # its device (make_sharded_packed_step)
+    dev = torch.device("cpu") if mesh is not None else resolve_device(device)
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     stats = DatagenStats()
@@ -178,72 +213,93 @@ def run_snowfall_datagen(
         else:
             todo.append((sid, out_path))
 
-    first_batch = True
-    for i in range(0, len(todo), batch):
-        t0 = time.time()
-        # the first batch builds and loads the kernels
-        events = 1 if first_batch else 0
-        first_batch = False
-        raw = []
-        for sid, out_path in todo[i:i + batch]:
+    def load_batch(chunk):
+        """Load and FOV-filter one batch: (rows, failed loads). Runs on the
+        IO thread, so the next batch's reads overlap the device's step."""
+        raw, failed = [], 0
+        for sid, out_path in chunk:
             try:
                 pc = load_fn(sid)
             except Exception as e:  # noqa: BLE001 - per-frame fault tolerance
                 logger.warning("failed to load %s: %s", sid, e)
-                stats.frames_failed += 1
+                failed += 1
                 continue
             if fov_filter is not None:
                 pc = pc[fov_filter(pc[:, :3])]
             raw.append((sid, out_path, pc))
-        if not raw:
-            continue
-        need = max(len(pc) for _, _, pc in raw)
-        if need > snow_cfg.max_points:
-            chunk = snow_cfg.point_chunk
-            new_cap = -(-need // chunk) * chunk
-            logger.warning("datagen max_points grew %d -> %d",
-                           snow_cfg.max_points, new_cap)
-            snow_cfg = dataclasses.replace(snow_cfg, max_points=new_cap)
-            out_points = default_out_points(snow_cfg)
-            stats.capacity_growths += 1
-            events += 1
-        for _attempt in range(8):
-            args = make_args(raw, snow_cfg)
-            planes_c, out_meta = datagen_packed_step(
-                *args, bank_t, calib_t, snow_cfg, wet_cfg=wet_cfg,
-                out_points=out_points,
+        return raw, failed
+
+    sharded = None   # (config, out_points, the mesh step made for them)
+
+    def run_step(args, cfg, out_pts):
+        nonlocal sharded
+        if mesh is None:
+            return datagen_packed_step(*args, bank_t, calib_t, cfg,
+                                       wet_cfg=wet_cfg, out_points=out_pts)
+        if sharded is None or sharded[:2] != (cfg, out_pts):
+            sharded = (cfg, out_pts, make_sharded_packed_step(
+                mesh, cfg, wet_cfg, out_pts))
+        return sharded[2](*args, bank_t, calib_t)
+
+    chunks = [todo[i:i + batch] for i in range(0, len(todo), batch)]
+    first_batch = True
+    with ThreadPoolExecutor(max_workers=1) as io_pool:
+        pending = io_pool.submit(load_batch, chunks[0]) if chunks else None
+        for ci in range(len(chunks)):
+            t0 = time.time()
+            raw, failed = pending.result()
+            stats.frames_failed += failed
+            if ci + 1 < len(chunks):   # the next batch loads meanwhile
+                pending = io_pool.submit(load_batch, chunks[ci + 1])
+            if not raw:
+                continue
+            # the first batch builds and loads the kernels
+            events = 1 if first_batch else 0
+            first_batch = False
+            need = max(len(pc) for _, _, pc in raw)
+            if need > snow_cfg.max_points:
+                chunk = snow_cfg.point_chunk
+                new_cap = -(-need // chunk) * chunk
+                logger.warning("datagen max_points grew %d -> %d",
+                               snow_cfg.max_points, new_cap)
+                snow_cfg = dataclasses.replace(snow_cfg, max_points=new_cap)
+                out_points = default_out_points(snow_cfg)
+                stats.capacity_growths += 1
+                events += 1
+            for _attempt in range(8):
+                args = make_args(raw, snow_cfg)
+                planes_c, out_meta = run_step(args, snow_cfg, out_points)
+                planes_c = planes_c.cpu().numpy()
+                out_meta = out_meta.cpu().numpy()
+                ovf = out_meta[:, 4:10].sum(axis=0)
+                if not ovf.any():
+                    break
+                grown, grown_out = grow(snow_cfg, out_points, ovf.tolist())
+                if grown is None:
+                    raise RuntimeError(
+                        "datagen capacity overflow not auto-resolvable: "
+                        + str(dict(zip(_OVF, ovf.tolist())))
+                    )
+                snow_cfg = grown
+                out_points = grown_out or out_points
+                logger.warning("datagen capacities grew after %s",
+                               dict(zip(_OVF, ovf.tolist())))
+                stats.capacity_growths += 1
+                events += 1
+            else:
+                raise RuntimeError("datagen capacity overflows persisted")
+            for j, (sid, out_path, pc) in enumerate(raw):
+                aug = _unpack_rows(planes_c[j, :, :out_meta[j, 0]], wet)
+                aug.astype(np.float32).tofile(out_path)
+                stats.frames_done += 1
+                stats.points_in += len(pc)
+                stats.points_out += len(aug)
+                stats.attenuated += int(out_meta[j, 1])
+                stats.removed += int(out_meta[j, 2])
+            stats.batches.append(
+                {"frames": len(raw), "s": round(time.time() - t0, 4),
+                 "compiles": events}
             )
-            planes_c = planes_c.cpu().numpy()
-            out_meta = out_meta.cpu().numpy()
-            ovf = out_meta[:, 4:10].sum(axis=0)
-            if not ovf.any():
-                break
-            grown, grown_out = grow(snow_cfg, out_points, ovf.tolist())
-            if grown is None:
-                raise RuntimeError(
-                    "datagen capacity overflow not auto-resolvable: "
-                    + str(dict(zip(_OVF, ovf.tolist())))
-                )
-            snow_cfg = grown
-            out_points = grown_out or out_points
-            logger.warning("datagen capacities grew after %s",
-                           dict(zip(_OVF, ovf.tolist())))
-            stats.capacity_growths += 1
-            events += 1
-        else:
-            raise RuntimeError("datagen capacity overflows persisted")
-        for j, (sid, out_path, pc) in enumerate(raw):
-            aug = _unpack_rows(planes_c[j, :, :out_meta[j, 0]], wet)
-            aug.astype(np.float32).tofile(out_path)
-            stats.frames_done += 1
-            stats.points_in += len(pc)
-            stats.points_out += len(aug)
-            stats.attenuated += int(out_meta[j, 1])
-            stats.removed += int(out_meta[j, 2])
-        stats.batches.append(
-            {"frames": len(raw), "s": round(time.time() - t0, 4),
-             "compiles": events}
-        )
 
     stats.wall_s = time.time() - t_start
     try:
@@ -254,8 +310,10 @@ def run_snowfall_datagen(
                 "batch": batch,
                 "seed": seed,
                 "wet_ground": wet,
-                "device": str(dev),
+                "device": str(dev) if mesh is None
+                else ",".join(str(d) for d in mesh.flat),
                 "config": dataclasses.asdict(snow_cfg),
+                **({} if mesh is None else {"mesh": mesh.shape}),
             },
             indent=2,
         ))

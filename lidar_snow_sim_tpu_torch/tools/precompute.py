@@ -9,10 +9,13 @@ to
 
     {out_root}/snowfall_simulation/{mode}/{lidar_name}_rainrate_{int(rr)}/{id}.bin
 
-with skip-if-exists resume. Same flags as the JAX CLI without --mesh, plus
---device (default cuda; without a card it raises, and the CPU must be
-asked for with --device cpu) and the phase-A layout (--route-band, --band-width, --band-group;
-SnowfallConfig's fields of those names). Run:
+with skip-if-exists resume. Same flags as the JAX CLI, plus --device
+(default cuda; without a card it raises, and the CPU must be asked for
+with --device cpu) and the phase-A layout (--route-band, --band-width,
+--band-group; SnowfallConfig's fields of those names). --mesh DATAxBEAM
+shards each batch's frames over data x beam devices
+(`parallel/mesh.make_mesh`: the first data x beam cards; with --device
+cpu, the CPU that many times); --batch must be a multiple of DATA. Run:
 python -m lidar_snow_sim_tpu_torch.tools.precompute --help
 """
 
@@ -69,6 +72,8 @@ def main(argv=None):
                     help="KITTI-format calib txt (default: built-in DENSE rig)")
     ap.add_argument("--shard", default="0/1",
                     help="i/n: process every n-th frame starting at i")
+    ap.add_argument("--mesh", default=None,
+                    help="DATAxBEAM device mesh, e.g. 4x2 (default: none)")
     ap.add_argument("--wet", action="store_true",
                     help="chain wet-ground reflectance after snowfall "
                          "(the viewer's snow+wet mode)")
@@ -124,6 +129,13 @@ def main(argv=None):
         band_group=args.band_group,
     )
     wet_cfg = WetGroundConfig(replace=False) if args.wet else None
+    mesh = None
+    if args.mesh:
+        from lidar_snow_sim_tpu_torch.parallel.mesh import make_mesh
+
+        d, b = (int(v) for v in args.mesh.split("x"))
+        mesh = make_mesh(data=d, beam=b, devices=None
+                         if device.type == "cuda" else [device] * (d * b))
 
     def load_fn(sid):
         return load_velodyne_bin(lidar_dir / f"{sid}.bin")
@@ -148,7 +160,8 @@ def main(argv=None):
             stats = run_snowfall_datagen(
                 ids, load_fn, out_dir, bank, calib, cfg,
                 batch=args.batch, seed=args.seed, fov_filter=fov,
-                overwrite=args.overwrite, wet_cfg=wet_cfg, device=device,
+                overwrite=args.overwrite, mesh=mesh, wet_cfg=wet_cfg,
+                device=device,
             )
             all_stats[f"{mode}_rainrate_{int(rr)}"] = stats.as_dict()
             print(f"{mode} rr={rr:.2f}: {json.dumps(stats.as_dict())}",

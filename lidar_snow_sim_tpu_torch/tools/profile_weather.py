@@ -26,16 +26,25 @@ import time
 from collections import defaultdict
 
 
-def profile_case(fn, reps: int) -> dict:
+def profile_case(fn, reps: int, top: int = 6, trace_dir=None) -> dict:
+    """fn() 3 times to warm up, then `reps` times under torch.profiler:
+    host wall and summed device time per rep, their ratio, device ops per
+    rep and the `top` device items [name, ms per rep, calls per rep].
+    With `trace_dir` the session is `utils/profiling.device_trace`, which
+    also writes its Chrome trace there."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from lidar_snow_sim_tpu_torch.utils.profiling import device_trace
+
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    session = (device_trace(trace_dir) if trace_dir else
+               profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]))
+    with session as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -47,14 +56,16 @@ def profile_case(fn, reps: int) -> dict:
             by_name[e.name] += e.time_range.elapsed_us()
             count[e.name] += 1
     device_us = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     return {
         "wall_ms_per_rep": wall_us / reps / 1e3,
         "device_ms_per_rep": device_us / reps / 1e3,
         "busy_share": device_us / wall_us,
         "device_ops_per_rep": sum(count.values()) / reps,
         "top": [[name[:60], us / reps / 1e3, count[name] / reps]
-                for name, us in top],
+                for name, us in ranked[:top]],
+        "ops": {name: [us / reps / 1e3, count[name] / reps]
+                for name, us in ranked},
     }
 
 
@@ -143,8 +154,10 @@ def main(argv=None) -> int:
                                                                 device=dev),
     }
     for name, fn in cases.items():
-        print(json.dumps({"case": name, "points": len(pc),
-                          **profile_case(fn, args.reps)}), flush=True)
+        res = profile_case(fn, args.reps)
+        del res["ops"]
+        print(json.dumps({"case": name, "points": len(pc), **res}),
+              flush=True)
     print(json.dumps({
         "case": "L1 back to back", "positions": list(p.shape),
         "cells": int(pairs.shape[0]),

@@ -37,8 +37,20 @@ workspace config, no cuDNN benchmark). The final params, `params_tpu.npz`,
 load straight into `tools/infer.py --params`.
 
 Same flags as the JAX CLI, plus --device (default cuda; without a card it
-raises, and the CPU must be asked for with --device cpu). --dp-devices
-above 1 raises: data parallelism over several GPUs is not ported.
+raises, and the CPU must be asked for with --device cpu).
+
+Data parallelism: --dp-devices N (default: every visible card, 1 on the
+CPU) trains on N ranks when N > 1 divides --batch, as the JAX CLI shards
+its batch over N devices, and else on one; stderr says which. Each rank
+is a spawned process with a card of its own (NCCL) or, where there are
+fewer cards than ranks or --device cpu, the ranks share the device (gloo);
+`parallel/distributed.spawn_ranks`. Every rank draws the step's whole
+seeded batch and takes its contiguous slice; train-mode BN takes its
+statistics over all ranks and the gradients are averaged
+(`models/detector_train.make_train_step(..., data_parallel=True)`), so
+the step is the one-process step up to the order of its sums. Rank 0
+writes the log, the checkpoints and the final params; --resume replays a
+data-parallel run bit for bit at the same rank count.
 
 Example (synthetic smoke run):
   python -m lidar_snow_sim_tpu_torch.tools.train --synthetic 8 --steps 4 \\
@@ -282,8 +294,9 @@ def main(argv=None):
     ap.add_argument("--dtype", default="bfloat16",
                     choices=("float32", "bfloat16"))
     ap.add_argument("--dp-devices", type=int, default=0,
-                    help="data parallelism over several devices: not "
-                         "ported, values above 1 raise")
+                    help="data-parallel ranks (default: every visible "
+                         "card; 1 on the CPU); used when it divides "
+                         "--batch")
     ap.add_argument("--save-every", type=int, default=500)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
@@ -293,15 +306,33 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not args.synthetic and not args.scans:
         raise SystemExit("need --scans (or --synthetic N)")
-    if args.dp_devices > 1:
-        raise SystemExit(
-            "--dp-devices > 1: data parallelism over several GPUs is not "
-            "ported yet (ROADMAP.md, the multi-GPU item of the module "
-            "ports)")
-
-    import dataclasses
 
     from lidar_snow_sim_tpu_torch.device import resolve_device
+    from lidar_snow_sim_tpu_torch.parallel import distributed
+
+    device = resolve_device(args.device)
+    world = args.dp_devices or (torch.cuda.device_count()
+                                if device.type == "cuda" else 1)
+    if world > 1 and args.batch % world == 0:
+        devices = distributed.rank_devices(device, world)
+        print(f"data-parallel over {world} ranks "
+              f"({distributed.backend_for(devices)}, devices "
+              f"{[str(d) for d in devices]}), {args.batch // world} frames "
+              "a rank", file=sys.stderr)
+        distributed.spawn_ranks(_train, devices, args, world)
+        return 0
+    why = (f"batch {args.batch} does not divide over {world} ranks"
+           if world > 1 else "one rank")
+    print(f"not data-parallel ({why}): one process on {device}",
+          file=sys.stderr)
+    return _train(0, device, args, 1)
+
+
+def _train(rank: int, device, args, world: int) -> int:
+    """The training run of rank `rank` of `world` on `device`: its
+    contiguous share of each step's batch; rank 0 logs and writes."""
+    import dataclasses
+
     from lidar_snow_sim_tpu_torch.models import detector_train as dtr
     from lidar_snow_sim_tpu_torch.models.pointpillars import (
         PointPillars,
@@ -311,7 +342,10 @@ def main(argv=None):
         init_params,
     )
 
-    device = resolve_device(args.device)
+    def say(msg):
+        if rank == 0:
+            print(msg, file=sys.stderr)
+
     yaml_path = args.config
     if args.experiment and not yaml_path:
         from lidar_snow_sim_tpu_torch.tools.convert_checkpoint import (
@@ -348,7 +382,7 @@ def main(argv=None):
             columns=args.columns, intensity_scale=args.intensity_scale,
             min_points=args.gt_db_min_points,
         )
-        print(f"gt-sampling database: {gt_db.stats()}", file=sys.stderr)
+        say(f"gt-sampling database: {gt_db.stats()}")
 
     if args.augment:
         from lidar_snow_sim_tpu_torch.models.detector_augment import (
@@ -358,7 +392,10 @@ def main(argv=None):
 
     schedule = make_schedule(total_steps, args.lr)
     anchors = generate_anchors(cfg)
-    step_fn, init_state = dtr.make_train_step(cfg, anchors, schedule)
+    step_fn, init_state = dtr.make_train_step(cfg, anchors, schedule,
+                                              data_parallel=world > 1)
+    per_rank = args.batch // world
+    share = slice(rank * per_rank, (rank + 1) * per_rank)
 
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -366,16 +403,14 @@ def main(argv=None):
         ckpts = sorted(out_dir.glob("ckpt_*.npz"))
         if args.resume and ckpts:
             state = load_checkpoint(ckpts[-1], init_state, cfg, device)
-            print(f"resumed {ckpts[-1]} at step {state.step}",
-                  file=sys.stderr)
+            say(f"resumed {ckpts[-1]} at step {state.step}")
         else:
             if args.init_params:
                 from lidar_snow_sim_tpu_torch.tools.convert_checkpoint \
                     import load_params
 
                 params = load_params(args.init_params)
-                print(f"warm-started from {args.init_params}",
-                      file=sys.stderr)
+                say(f"warm-started from {args.init_params}")
             else:
                 params = init_params(
                     cfg, torch.Generator().manual_seed(args.seed))
@@ -398,39 +433,43 @@ def main(argv=None):
                     )[:2]
                     for bi, (p, g) in enumerate(batch)
                 ]
-            pts = torch.as_tensor(np.stack([p for p, _g in batch]),
+            # the whole batch's frames and draws, then this rank's share
+            pts = torch.as_tensor(np.stack([p for p, _g in batch[share]]),
                                   device=device)
-            gts = torch.as_tensor(np.stack([g for _p, g in batch]),
+            gts = torch.as_tensor(np.stack([g for _p, g in batch[share]]),
                                   device=device)
             if args.augment:
                 gen = torch.Generator().manual_seed(step_seed(args.seed, it))
+                draws = world_draws(gen, args.batch)
                 pts, gts = world_augment(pts, gts,
-                                         *world_draws(gen, args.batch))
+                                         *(d[share] for d in draws))
             valid = torch.ones(pts.shape[:2], dtype=torch.bool,
                                device=device)
             state, metrics = step_fn(state, pts, valid, gts)
             if (it + 1) % args.log_every == 0 or it + 1 == total_steps:
                 m = {k: float(v) for k, v in metrics.items()}
                 rate = (it + 1 - start) / max(time.time() - t0, 1e-9)
-                print(
+                say(
                     f"step {it + 1}/{total_steps} loss={m['loss']:.4f} "
                     f"(cls {m['loss_cls']:.4f} loc {m['loss_loc']:.4f} "
                     f"dir {m['loss_dir']:.4f}) pos={m['num_pos']:.1f} "
-                    f"lr={float(schedule(it)):.2e} {rate:.2f} steps/s",
-                    file=sys.stderr,
+                    f"lr={float(schedule(it)):.2e} {rate:.2f} steps/s"
                 )
-            if (it + 1) % args.save_every == 0 or it + 1 == total_steps:
+            if rank == 0 and ((it + 1) % args.save_every == 0
+                              or it + 1 == total_steps):
                 path = out_dir / f"ckpt_{it + 1:07d}.npz"
                 save_checkpoint(path, state)
-                print(f"saved {path}", file=sys.stderr)
+                say(f"saved {path}")
             if args.limit_steps and it + 1 - start >= args.limit_steps:
                 break
 
+    if rank != 0:
+        return 0
     # make the stop point resumable even off the save-every grid
     path = out_dir / f"ckpt_{state.step:07d}.npz"
     if state.step > start and not path.exists():
         save_checkpoint(path, state)
-        print(f"saved {path}", file=sys.stderr)
+        say(f"saved {path}")
 
     # inference-ready params for tools/infer.py --params
     from lidar_snow_sim_tpu_torch.models.pointpillars import param_shapes
@@ -439,7 +478,7 @@ def main(argv=None):
     final = out_dir / "params_tpu.npz"
     np.savez(final, **{k: sd[k].detach().cpu().numpy()
                        for k in param_shapes(cfg)})
-    print(f"wrote {final}", file=sys.stderr)
+    say(f"wrote {final}")
     return 0
 
 

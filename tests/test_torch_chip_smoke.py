@@ -4,7 +4,10 @@ labels (`_near_assignment`, `_label_flips`) and gradients (`_rel_err`);
 phase 8's rule for truncated CUPTI records (tools/kernel_times.settle,
 merge_times) on made-up records; phase 13's gates on made-up parity reports
 (`_parity_gate`), phase 14's combos (`_grid_combos`) and its card-against-
-CPU rule for one frame (`_card_cpu_parity`) on made-up results.
+CPU rule for one frame (`_card_cpu_parity`) on made-up results; phase 15's
+launch-per-shard and stats gates (`_shard_launch_gate`, `_stats_gate`) and
+phase 16's gates on made-up tool reports (`_ab_gate`, `_profile_gate`,
+`_datagen_bench_gate`).
 
 A prediction that one run kept and the other did not is a flip. The gate
 excuses a flip only where a decision about that prediction lies within
@@ -349,3 +352,72 @@ def test_card_cpu_parity_rule():
     xyz[0, 5] = 5e-5
     assert SMOKE["_card_cpu_parity"]("t", _result(labels, keep, xyz), ok,
                                      n)[1] == pytest.approx(5e-5)
+
+
+@pytest.mark.parametrize("calls,want", [
+    # two shards of 2 frames each, A1 and C1 once a frame on each
+    ({"A1": {1: 2, 2: 2}, "C1": {1: 2, 2: 2}}, 0),
+    # one shard launched everything: the frames were not sharded
+    ({"A1": {1: 4}, "C1": {1: 4}}, 2),
+    # a shard launched no C1 (a fallback ran its phase C)
+    ({"A1": {1: 2, 2: 2}, "C1": {1: 2}}, 1),
+    # a frame launched twice (a rerun)
+    ({"A1": {1: 3, 2: 2}, "C1": {1: 2, 2: 2}}, 1),
+])
+def test_shard_launch_gate(calls, want):
+    assert len(SMOKE["_shard_launch_gate"](calls, 2, 4)) == want
+
+
+FIELDS = ("frames_done", "points_in")
+
+
+@pytest.mark.parametrize("merged,want", [
+    ([{"frames_done": 3, "points_in": 3 * 2**24 + 3, "wall_s": 0.0},
+      {"frames_done": 3, "points_in": 3 * 2**24 + 3, "wall_s": 1.0}], 0),
+    # a float32 sum: the count rounded
+    ([{"frames_done": 3, "points_in": 3 * 2**24 + 4, "wall_s": 0.0},
+      {"frames_done": 3, "points_in": 3 * 2**24 + 4, "wall_s": 1.0}], 2),
+    # the wall time summed or maxed, not kept
+    ([{"frames_done": 3, "points_in": 3 * 2**24 + 3, "wall_s": 1.0},
+      {"frames_done": 3, "points_in": 3 * 2**24 + 3, "wall_s": 1.0}], 1),
+])
+def test_stats_gate(merged, want):
+    local = {"frames_done": 1, "points_in": 2**24 + 1, "wall_s": 0.0}
+    locals_ = [SMOKE["_stats_local"](local, r) for r in range(2)]
+    assert locals_[1] == {"frames_done": 2, "points_in": 2 * (2**24 + 1),
+                          "wall_s": 1.0}
+    assert len(SMOKE["_stats_gate"](merged, locals_, FIELDS)) == want
+
+
+ARM = {"step_ms": 12.5, "scans_per_sec": 80.0, "spread_ms": 1.0,
+       "overflow": 0}
+
+
+@pytest.mark.parametrize("report,want", [
+    ({"base": ARM, "route256": ARM}, 0),
+    ({"base": ARM}, 1),                                  # an arm missing
+    ({"base": ARM, "route256": dict(ARM, step_ms=-0.1)}, 1),
+    ({"base": dict(ARM, overflow=3), "route256": ARM}, 1),
+    ({"base": {"step_ms": 1.0}, "route256": ARM}, 1),    # keys missing
+])
+def test_ab_gate(report, want):
+    assert len(SMOKE["_ab_gate"](report, ("base", "route256"))) == want
+
+
+def test_profile_gate():
+    text = ("port kernels:\n   0.1345 ms x1.0    void a1_kernel<32>(...)\n"
+            "   0.0280 ms x1.0    c1_kernel(...)\n")
+    assert SMOKE["_profile_gate"](text) == []
+    assert SMOKE["_profile_gate"](text.replace("c1_kernel", "x")) == [
+        "c1_kernel"]
+
+
+def test_datagen_bench_gate():
+    report = dict.fromkeys(SMOKE["DATAGEN_BENCH_KEYS"], 1.0)
+    report.update(frames=8)
+    assert SMOKE["_datagen_bench_gate"](report, 8) == []
+    assert len(SMOKE["_datagen_bench_gate"](dict(report, frames=6), 8)) == 1
+    del report["tunnel"]
+    assert SMOKE["_datagen_bench_gate"](report, 8) == ["missing tunnel"]
+    report.update(tunnel={}, device_resident_scans_per_sec=None)
+    assert len(SMOKE["_datagen_bench_gate"](report, 8)) == 1

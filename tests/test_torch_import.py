@@ -47,12 +47,17 @@ MODULES = [
     "lidar_snow_sim_tpu_torch.oracle.wet_ground",
     "lidar_snow_sim_tpu_torch.parallel.batched",
     "lidar_snow_sim_tpu_torch.parallel.datagen",
+    "lidar_snow_sim_tpu_torch.parallel.distributed",
+    "lidar_snow_sim_tpu_torch.parallel.mesh",
     "lidar_snow_sim_tpu_torch.sampling",
     "lidar_snow_sim_tpu_torch.sampling.banks",
     "lidar_snow_sim_tpu_torch.sampling.dart",
     "lidar_snow_sim_tpu_torch.sampling.distributions",
     "lidar_snow_sim_tpu_torch.sampling.empirical",
+    "lidar_snow_sim_tpu_torch.tools.ab",
     "lidar_snow_sim_tpu_torch.tools.convert_checkpoint",
+    "lidar_snow_sim_tpu_torch.tools.datagen_bench",
+    "lidar_snow_sim_tpu_torch.tools.dryrun_multichip",
     "lidar_snow_sim_tpu_torch.tools.evaluate",
     "lidar_snow_sim_tpu_torch.tools.experiment",
     "lidar_snow_sim_tpu_torch.tools.gen_banks",
@@ -60,6 +65,7 @@ MODULES = [
     "lidar_snow_sim_tpu_torch.tools.inspect",
     "lidar_snow_sim_tpu_torch.tools.parity_gpu",
     "lidar_snow_sim_tpu_torch.tools.precompute",
+    "lidar_snow_sim_tpu_torch.tools.profile_bench",
     "lidar_snow_sim_tpu_torch.tools.profile_weather",
     "lidar_snow_sim_tpu_torch.tools.serve",
     "lidar_snow_sim_tpu_torch.tools.train",

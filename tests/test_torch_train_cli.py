@@ -251,15 +251,19 @@ def test_gt_sampling_flags(tmp_path, tiny, capsys, monkeypatch):
     _same_npz(tmp_path / "a" / "params_tpu.npz",
               tmp_path / "b" / "params_tpu.npz")
     shutil.rmtree(tmp_path / "a")
+    base = ["--synthetic", "2", "--steps", "1", "--batch", "1",
+            "--max-points", "128", "--max-gt", "4", "--config", tiny[0],
+            "--out", str(tmp_path / "x"), "--device", "cpu"]
     for bad, match in (
             (["--gt-sampling", "Car:4"], "requires --scans"),
             (["--scans", str(scans), "--labels", str(labels),
-              "--gt-sampling", "Van:4"], "not in config"),
-            (["--dp-devices", "2"], "multi-GPU")):
-        base = ["--synthetic", "2", "--steps", "1", "--batch", "1",
-                "--max-points", "128", "--max-gt", "4", "--config", tiny[0],
-                "--out", str(tmp_path / "x"), "--device", "cpu"]
-        if bad[0] == "--scans":
-            base = base[2:]
+              "--gt-sampling", "Van:4"], "not in config")):
         with pytest.raises(SystemExit, match=match):
-            ttrain.main([*base, *bad])
+            ttrain.main([*(base[2:] if bad[0] == "--scans" else base),
+                         *bad])
+    # --dp-devices is ported: a rank count that does not divide the batch
+    # trains on one process, as the JAX CLI does, and says so
+    capsys.readouterr()
+    assert ttrain.main([*base, "--dp-devices", "2"]) == 0
+    assert "not data-parallel (batch 1 does not divide over 2 ranks)" in \
+        capsys.readouterr().err
