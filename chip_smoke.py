@@ -40,8 +40,8 @@ Phases, each printing one line of numbers:
      end to end, scans/s on the host clock, each held against the CPU on
      the same draws; then the inspect CLI (python -m
      lidar_snow_sim_tpu_torch.tools.inspect ... --device cuda) with lisa
-     (after --dror --fov), fog, stf_fog and snow+wet, the launch counters
-     zeroed before each run;
+     (after --dror --fov), fog, stf_fog and snow+wet (the JAX CLI's window
+     assembly: W1 and W2), the launch counters zeroed before each run;
   7. the batched snowfall path at the JAX bench's batch of 16 frames (the
      bench scan with 16 channel orders and RANSAC seeds drawn as the
      datagen draws them): kernels A4a (pallas_transposed) and A4b
@@ -55,8 +55,8 @@ Phases, each printing one line of numbers:
      A4a / A4b / C2 16 times with their knobs), scans/s over 3 batches;
      then run_snowfall_datagen on 16 synthetic scans with batch_fold,
      the same files as the default config; then batched_step on a window
-     config (assembly="window") over 2 frames, equal byte for byte to
-     snowfall_augment run frame by frame;
+     config (assembly="window") over 2 frames, W1 and W2 once a frame, equal
+     byte for byte to snowfall_augment run frame by frame;
   8. each kernel's device times (below), taken after every end-to-end
      phase, one line each;
   9. the PointPillars detector (run before phase 8, whose profiler
@@ -89,28 +89,35 @@ Phases, each printing one line of numbers:
      the trained params through the
      infer CLI and its predictions through the evaluate CLI (card table ==
      CPU table); the experiment tool on the card, whose snowify launches
-     A1 and C1. Each dtype's step time (CUDA events, median of 5 after 2
-     warm-ups), steps/s, device busy time, launches and busy share, target
-     assignment's share of the busy time (torch.profiler) and the peak
-     memory. Training reaches no Pallas kernel, so the kernels' record is
-     unchanged;
+     W1 and W2 (the JAX experiment's window config). Each dtype's step
+     time (CUDA events, median of 5 after 2 warm-ups), steps/s, device
+     busy time, launches and busy share, target assignment's share of the
+     busy time (torch.profiler) and the peak memory. Training reaches no
+     Pallas kernel, so the kernels' record is unchanged;
  11. the viewer's live server (python -m lidar_snow_sim_tpu_torch.tools.
      viewer scan.bin --serve --device cuda ...) on the bench scan, served
-     from a thread (run before phase 8 too): GET /, snow on /augment (A1
-     and C1), a slider move, LISA (L1), /infer twice with the full-width
-     detector and an unknown augmentation (400); every frame equal to the
+     from a thread (run before phase 8 too): GET /, snow on /augment (W1
+     and W2, the JAX CLI's window assembly), a slider move, LISA (L1),
+     /infer twice with the full-width detector and an unknown
+     augmentation (400); every frame equal to the
      inspect pipeline's, /infer equal to detect's (server_phase);
  12. the window assembly (assembly="window", the JAX package's default) on
-     the card at the JAX inspect CLI's capacities: equal to the dense
-     assembly byte for byte on the channel-sorted bench scan, within the
-     parity contract of the CPU's, its scan time, launches and busy share
-     beside the dense path's (window_phase);
+     its kernels W1 (occluders) and W2 (sweep, bumps, pulse peak): both
+     against their plain versions exactly, with equal counters, at the JAX
+     inspect CLI's config on the channel-sorted bench scan (measured), the
+     JAX experiment's and a starved one (both overflows nonzero); a window
+     scan launching W1 and W2 once each and equal byte for byte to the
+     plain window path on the card, to the dense assembly through
+     SnowfallAugmenter, and within the parity contract of the CPU's; its
+     scan time, launches and busy share beside the plain path's, the dense
+     path's and the plain scan before the kernels (window_phase);
  13. the card-vs-oracle parity tool (tools/parity_gpu, before phase 8 too)
-     on the JAX parity tool's scene (5,727 points): the window, dense (A1,
-     C1) and span-routed dense (A2 in both modes, C1) assemblies, each
-     classified against the port's NumPy oracle: ok, oracle stats (29,
-     847, 194), no overflow, 0 unexplained mismatches and a mismatch rate
-     under 0.002 for each, A1, A2 and C1 launched (parity_phase);
+     on the JAX parity tool's scene (5,727 points): the window (W1, W2),
+     dense (A1, C1) and span-routed dense (A2 in both modes, C1)
+     assemblies, each classified against the port's NumPy oracle: ok,
+     oracle stats (29, 847, 194), no overflow, 0 unexplained mismatches
+     and a mismatch rate under 0.002 for each, A1, A2, C1, W1 and W2
+     launched (parity_phase);
  14. the reference grid (before phase 8 too): the port's gen_banks in a
      subprocess per combo, native sampler only, for gunn's five precompute
      (rate, velocity) pairs and sekhon's lightest (384 files, deleted at
@@ -466,8 +473,8 @@ def weather_phase(pc, sets, rr, occ, dev) -> dict:
         lut_lookup_pairs,
         lut_lookup_plain,
     )
-    from lidar_snow_sim_tpu_torch.ops.occluders import find_occluders
-    from lidar_snow_sim_tpu_torch.ops.pulse import pulse_peaks
+    from lidar_snow_sim_tpu_torch.ops.occluders import find_occluders_window
+    from lidar_snow_sim_tpu_torch.ops.pulse import window_pulse_peaks
     from lidar_snow_sim_tpu_torch.tools import inspect as tinspect
     n_scans = 10
     cap = 65536
@@ -607,14 +614,15 @@ def weather_phase(pc, sets, rr, occ, dev) -> dict:
           f"scans {n_scans} scans_per_s {dror_rate:.3f}", flush=True)
 
     # the inspect CLI on the card, the counters zeroed before each run
-    counted = {"A1": find_occluders, "C1": pulse_peaks, "L1": lut_lookup_pairs}
+    counted = {"W1": find_occluders_window, "W2": window_pulse_peaks,
+               "L1": lut_lookup_pairs}
     runs = {
         "lisa": (["--augment", "lisa", "--dror", "--fov"], ("L1",)),
         "fog": (["--augment", "fog"], ()),
         "stf_fog": (["--augment", "stf_fog"], ()),
         # --fov: wet ground takes at most 32,768 points, in both packages
         "snow+wet": (["--augment", "snow+wet", "--fov", "--rate", "2.5",
-                      "--velocity", "1.6"], ("A1", "C1")),
+                      "--velocity", "1.6"], ("W1", "W2")),
     }
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -679,6 +687,7 @@ def batched_phase(pc, padded, bank, bank_t, calib, calib_t, cfg, lay, a12d,
         find_occluders_folded,
         find_occluders_pair,
         find_occluders_t,
+        find_occluders_window,
         occluders_plain,
         occluders_ungated_plain,
     )
@@ -686,6 +695,7 @@ def batched_phase(pc, padded, bank, bank_t, calib, calib_t, cfg, lay, a12d,
         pulse_peaks,
         pulse_peaks_pair,
         pulse_plain,
+        window_pulse_peaks,
     )
     from lidar_snow_sim_tpu_torch.parallel.batched import (
         batched_step,
@@ -887,8 +897,15 @@ def batched_phase(pc, padded, bank, bank_t, calib, calib_t, cfg, lay, a12d,
 
     wcfg = dataclasses.replace(cfg, assembly="window")
     t0 = time.time()
+    w_counted = (find_occluders_window, window_pulse_peaks)
+    for fn in w_counted:
+        fn.launches = 0
     got = batched_step(points[:2], mask[:2], bank_t, calib_t, orders_t[:2],
                        (draws[:2], None), wcfg)[0]
+    w_launches = [fn.launches for fn in w_counted]
+    if w_launches != [2, 2]:
+        fail(f"window batched_step launched W1, W2 {w_launches} times, not "
+             "once a frame")
     for f in range(2):
         want = snowfall_augment(points[f], mask[f], bank_t, calib_t,
                                 orders_t[f], draws[f], wcfg)
@@ -899,7 +916,8 @@ def batched_phase(pc, padded, bank, bank_t, calib, calib_t, cfg, lay, a12d,
     counters = [int(getattr(got, n).sum()) for n in OVERFLOW_COUNTERS]
     stats0 = tuple(int(getattr(got, n)[0]) for n in (
         "num_attenuated", "num_removed", "avg_intensity_diff"))
-    print(f"batched window: frames 2 equal_to_snowfall_augment True "
+    print(f"batched window: frames 2 W1_W2_launches {w_launches} "
+          f"equal_to_snowfall_augment True "
           f"counters {counters} stats_frame0 {stats0} "
           f"s {time.time() - t0:.1f}", flush=True)
 
@@ -1364,8 +1382,8 @@ def training_phase(cloud, dev) -> None:
     from lidar_snow_sim_tpu_torch.models import detector_augment as taug
     from lidar_snow_sim_tpu_torch.models import detector_train as tdt
     from lidar_snow_sim_tpu_torch.models import pointpillars as tpp
-    from lidar_snow_sim_tpu_torch.ops.occluders import find_occluders
-    from lidar_snow_sim_tpu_torch.ops.pulse import pulse_peaks
+    from lidar_snow_sim_tpu_torch.ops.occluders import find_occluders_window
+    from lidar_snow_sim_tpu_torch.ops.pulse import window_pulse_peaks
     from lidar_snow_sim_tpu_torch.tools import evaluate, experiment, infer
     from lidar_snow_sim_tpu_torch.tools import train as ttrain
     from lidar_snow_sim_tpu_torch.tools.kernel_times import card_line
@@ -1567,8 +1585,9 @@ def training_phase(cloud, dev) -> None:
               f"{ {c: v['3d'] for c, v in table['ap'].items()} }",
               flush=True)
 
-        # the experiment tool on the card; its snowify runs A1 and C1
-        for fn in (find_occluders, pulse_peaks):
+        # the experiment tool on the card; its snowify runs W1 and W2 (the
+        # JAX tool's window config)
+        for fn in (find_occluders_window, window_pulse_peaks):
             fn.launches = 0
         t0 = time.time()
         out = io.StringIO()
@@ -1579,7 +1598,8 @@ def training_phase(cloud, dev) -> None:
                 "--train-frames", "4", "--eval-frames", "2", "--steps", "4",
                 "--finetune-steps", "2", "--batch", "2", "--device",
                 dev.type])
-        counts = {"A1": find_occluders.launches, "C1": pulse_peaks.launches}
+        counts = {"W1": find_occluders_window.launches,
+                  "W2": window_pulse_peaks.launches}
         art = json.loads((tmp / "exp.json").read_text())
         if rc not in (0, 1) or min(counts.values()) < 1 or \
                 art["platform"] != dev.type or \
@@ -1601,8 +1621,8 @@ def server_phase(pc, sets, rr, occ, dev) -> None:
     sent twice: cold, then warm (the server's result cache emptied first,
     except for /infer, whose displayed cloud stays cached), with numpy's
     global seed set before every snow send and the launch counters zeroed.
-    Gates: the codes (400 for an unknown augmentation, else 200); A1 and C1
-    launched in each warm snow request, L1 in the warm LISA one; every
+    Gates: the codes (400 for an unknown augmentation, else 200); W1 and W2
+    (the JAX CLI's window assembly) launched in each warm snow request, L1 in the warm LISA one; every
     /augment frame equal byte for byte to `_frame_payload` of run_pipeline
     with the same args and seed; both /infer answers equal to the boxes of
     `detect` called directly on the displayed cloud; the label counts
@@ -1620,8 +1640,8 @@ def server_phase(pc, sets, rr, occ, dev) -> None:
         predictions_array,
     )
     from lidar_snow_sim_tpu_torch.ops.lut_lookup import lut_lookup_pairs
-    from lidar_snow_sim_tpu_torch.ops.occluders import find_occluders
-    from lidar_snow_sim_tpu_torch.ops.pulse import pulse_peaks
+    from lidar_snow_sim_tpu_torch.ops.occluders import find_occluders_window
+    from lidar_snow_sim_tpu_torch.ops.pulse import window_pulse_peaks
     from lidar_snow_sim_tpu_torch.tools.infer import prediction_boxes
     from lidar_snow_sim_tpu_torch.tools.inspect import run_pipeline
     from lidar_snow_sim_tpu_torch.tools.kernel_times import card_line
@@ -1633,12 +1653,13 @@ def server_phase(pc, sets, rr, occ, dev) -> None:
     )
 
     t_phase = time.time()
-    counted = {"A1": find_occluders, "C1": pulse_peaks, "L1": lut_lookup_pairs}
+    counted = {"W1": find_occluders_window, "W2": window_pulse_peaks,
+               "L1": lut_lookup_pairs}
     # (label, path, body or None for GET, numpy seed, code, kernels)
     requests = [
-        ("GET /", "/", None, 100, 200, ("A1", "C1")),
-        ("augment {}", "/augment", {}, 100, 200, ("A1", "C1")),
-        ("augment seed 1", "/augment", {"seed": 1}, 101, 200, ("A1", "C1")),
+        ("GET /", "/", None, 100, 200, ("W1", "W2")),
+        ("augment {}", "/augment", {}, 100, 200, ("W1", "W2")),
+        ("augment seed 1", "/augment", {"seed": 1}, 101, 200, ("W1", "W2")),
         ("augment lisa", "/augment", {"augment": "lisa"}, None, 200,
          ("L1",)),
         ("infer {}", "/infer", {}, 100, 200, ()),
@@ -1763,27 +1784,197 @@ def server_phase(pc, sets, rr, occ, dev) -> None:
           f"{time.time() - t_phase:.1f}", flush=True)
 
 
-def window_phase(pc, sets, calib, dev) -> None:
-    """Phase 12: the window assembly on the card. The bench scan,
-    stable-sorted by channel, through SnowfallAugmenter with the JAX
-    inspect CLI's capacities (window_size 256, wide_capacity 128,
-    max_occluders 64, max_bumps 32, point_chunk 2048) on
-    assembly="window", and through the dense assembly (the port's inspect
-    layout) with the same order and draws: outputs and stats equal byte for
-    byte, every overflow counter 0. Then snowfall_augment on the card
-    against the CPU with one injected plane (RANSAC fitted once on the
-    CPU): the parity contract (labels, intensities and keep equal on >=
-    99.8% of points, xyz within 1e-4 elsewhere, counters equal). Prints
-    each assembly's scan ms (CUDA events, median of 5), launches and busy
-    share (torch.profiler's device time over the scan's ms)."""
+def window_occluder_bound(inputs, mask, window_size: int, k_occ: int):
+    """bound() of a kernel-W1 call from this run's inputs (`ops/occluders.
+    w1_inputs`), counted over the live points (`mask`; the padding rows,
+    sorted last, are no consumer's work): their hit tests (window_size +
+    n_wide candidates each); the bytes of their features, rows, starts and
+    window bounds, of the distinct bank columns their windows read (x, y,
+    r, dist, the sort angle and pang: 6 rows), of the wide columns of the
+    rows read (x, y, r, dist, pang), and of their outputs written once:
+    (live, K) a1, a2, dist and valid, and the overflow."""
+    import torch
+
+    feats, row, lo, _, data_t, _, _, wang_t = inputs
+    k_ext, n_wide = data_t.shape[2], wang_t.shape[2]
+    lo, row = lo.long()[mask], row[mask]
+    start = lo.clamp(0, k_ext - 1)
+    cols = _runs(start, (torch.clamp(lo + window_size, max=k_ext) - start
+                         ).clamp_min(1), row, k_ext)
+    live = int(mask.sum())
+    n_bytes = (live * (feats.shape[1] + 4) * 4
+               + (cols * 6 + int(torch.unique(row).numel()) * n_wide * 5) * 4
+               + live * (k_occ * 13 + 4))
+    return bound(n_bytes, live * (window_size + n_wide) * HIT_TEST_OPS)
+
+
+def window_pulse_bound(inputs, mask, max_bumps: int, beam_rad: float,
+                       ipm: int, c_tau: float):
+    """bound() of a kernel-W2 call from this run's inputs (`ops/pulse.
+    w2_inputs`), counted over the live points (`mask`; the padding rows
+    are no consumer's work). Operations: each point's sweep, (2 nv + 2)^2
+    compares to rank its endpoints and 2 nv (2 nv + 1) cover tests (nv
+    valid occluders), and its waveform terms, WAVE_OPS for each bin of each
+    walked window (the selected bumps' and the target's). Bytes, each read
+    once: the live points' feats and valid flags; a1 and a2 of the valid
+    slots; dist, cos_b and sin_b of the selected bumps, each in the 32-byte
+    sectors that hold them; the live targets' cos and sin, the grid's; the
+    four (live,) outputs."""
+    import torch
+
+    from lidar_snow_sim_tpu_torch.ops.sweep import occlusion_sweep
+
+    feats, a1, a2, dist, valid = inputs[:5]
+    m_bins = inputs[-1].shape[0]
+    k = a1.shape[1]
+    live = int(mask.sum())
+    valid = valid & mask[:, None]
+    nv = valid.sum(dim=1).long()
+    sweep_ops = int(((2 * nv + 2) ** 2 + 2 * nv * (2 * nv + 1))[mask].sum())
+    ratio, _, _ = occlusion_sweep(feats[1], feats[2], a1, a2, valid,
+                                  beam_rad)
+    top, idx = torch.sort(ratio, dim=1, descending=True, stable=True)
+    sel = torch.zeros_like(valid)
+    sel.scatter_(1, idx[:, :max_bumps], top[:, :max_bumps] > 0)
+
+    def bins(r):
+        lo = torch.ceil(r * ipm).clamp(min=0)
+        hi = torch.floor((r + c_tau) * ipm).clamp(max=m_bins - 1)
+        return (hi - lo + 1).clamp_min(0)
+
+    terms = float(torch.where(sel, bins(dist), 0).sum()
+                  + torch.where(mask, bins(feats[0]), 0).sum())
+    n_bytes = ((live * feats.shape[0] + m_bins * 2 + live * 2) * 4
+               + live * k + 2 * _sector_bytes(valid) + 3 * _sector_bytes(sel)
+               + live * 13)
+    return bound(n_bytes, sweep_ops + terms * WAVE_OPS)
+
+
+def _first_diff(a, b) -> str:
+    """Where two tensors first differ, and their values there."""
+    import torch
+
+    d = torch.nonzero((a != b) & ~(a.isnan() & b.isnan())
+                      if a.is_floating_point() else a != b)
+    at = tuple(d[0].tolist())
+    return f"{len(d)} entries, first at {at}: {a[at].item()} vs {b[at].item()}"
+
+
+def _same(a, b) -> bool:
+    """Equal tensors, NaN where NaN."""
+    import torch
+
+    return torch.equal(a, b) or (a.is_floating_point() and torch.equal(
+        a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num()))
+
+
+def window_kernels(label, srt, bank, calib, cfg, order, plane, dev,
+                   measure: bool = False) -> dict:
+    """Phase 12's kernel checks at `cfg`: kernel W1 and then W2 on the
+    window assembly's inputs for the channel-sorted scan `srt`, held
+    against their plain versions on the card, every output equal (a peak
+    NaN where the other is), and the counters they give. With
+    `measure`: each one's ms, plain_ms, bound and device times (timed)."""
+    import torch
+
+    from lidar_snow_sim_tpu_torch import pad_cloud
+    from lidar_snow_sim_tpu_torch.config import SPEED_OF_LIGHT
+    from lidar_snow_sim_tpu_torch.models import snowfall as ts
+    from lidar_snow_sim_tpu_torch.ops import occluders as occ_ops
+    from lidar_snow_sim_tpu_torch.ops import pulse as pulse_ops
+
+    padded = pad_cloud(srt, cfg.max_points)
+    bank_t = ts.bank_to_torch(bank, dev)
+    inp = ts.window_inputs(
+        torch.as_tensor(padded.points, device=dev),
+        torch.as_tensor(padded.mask, device=dev), bank_t,
+        ts.calib_to_torch(calib, dev), torch.as_tensor(order, device=dev),
+        None, cfg, plane=plane)
+    args, kw = ts.window_occluder_call(inp, bank_t, cfg)
+    occ = occ_ops.find_occluders_window(*args, **kw)
+    occ_p = occ_ops.occluders_window_plain(*args, **kw)
+    for name, a, b in zip(("a1", "a2", "dist", "valid", "overflow"), occ,
+                          occ_p):
+        if not torch.equal(a, b):
+            fail(f"W1 {label}: {name} differs from the plain version: "
+                 f"{_first_diff(a, b)}")
+    pargs, pkw = ts.window_pulse_call(inp, occ, cfg)
+    pk = pulse_ops.window_pulse_peaks(*pargs, **pkw)
+    pk_p = pulse_ops.window_pulse_plain(*pargs, **pkw)
+    for name, a, b in zip(("peak", "bin", "touched", "bump_overflow"), pk,
+                          pk_p):
+        if not _same(a, b):
+            fail(f"W2 {label}: {name} differs from the plain version: "
+                 f"{_first_diff(a, b)}")
+    m = inp.mask
+    out = {"points": int(m.sum()), "hits": int(occ[3][m].sum()),
+           "touched": int(pk[2][m].sum()),
+           "occluder_overflow": int(occ[4][m].sum()),
+           "bump_overflow": int(pk[3][m].sum())}
+    if measure:
+        ins1 = occ_ops.w1_inputs(*args, delta=kw["delta"],
+                                 beam_rad=kw["beam_rad"])
+        ins2 = pulse_ops.w2_inputs(*pargs, beam_rad=pkw["beam_rad"],
+                                   tau_h=pkw["tau_h"])
+        w1_kw = dict(window_size=kw["window_size"], k_occ=kw["k_occ"])
+        out["W1"] = dict(
+            ms=time_ms(lambda: occ_ops.find_occluders_window(*args, **kw)),
+            plain_ms=time_ms(lambda: occ_ops.occluders_window_plain(
+                *args, **kw), reps=3, warmup=1),
+            bound=window_occluder_bound(ins1, m, cfg.window_size,
+                                        cfg.max_occluders),
+            times=timed("W1", lambda: occ_ops.launch_w1(ins1, **w1_kw),
+                        "w1_kernel"))
+        out["W2"] = dict(
+            ms=time_ms(lambda: pulse_ops.window_pulse_peaks(*pargs, **pkw)),
+            plain_ms=time_ms(lambda: pulse_ops.window_pulse_plain(
+                *pargs, **pkw), reps=3, warmup=1),
+            bound=window_pulse_bound(
+                ins2, m, cfg.max_bumps, cfg.beam_divergence_rad,
+                cfg.intervals_per_meter, SPEED_OF_LIGHT * cfg.tau_h),
+            times=timed("W2", lambda: pulse_ops.launch_w2(ins2, **pkw),
+                        "w2_kernel"))
+    return out
+
+
+# the window scan on the card before kernels W1 and W2, plain torch with
+# the sweep's claims summed by sum(dim=2) (this phase on an NVIDIA H100
+# 80GB HBM3, 700.00 W)
+WINDOW_PLAIN_BEFORE = {"ms": 324.953, "launches": 28885}
+
+
+def window_phase(pc, sets, calib, dev) -> list:
+    """Phase 12: the window assembly on the card, on its kernels W1 and W2.
+    (a) W1 and W2 against their plain versions, exactly, at three configs
+    on the channel-sorted bench scan: the JAX inspect CLI's (window_size
+    256, wide_capacity 128, max_occluders 64, max_bumps 32, point_chunk
+    2048; measured), the JAX experiment's (128, 16, 24, 16) and a starved
+    one (the inspect CLI's with max_occluders 2 and max_bumps 1), whose
+    occluder and bump overflows must both be nonzero. (b) SnowfallAugmenter
+    with the inspect CLI's window config and with the dense assembly (the
+    layout the port's inspect CLI took before) on the same order and draws:
+    outputs and stats equal byte for byte, every counter 0. (c) One
+    window scan (snowfall_augment) with every launch counter zeroed before:
+    W1 and W2 once each and no other kernel of the port; its result equal
+    byte for byte to the plain window path on the card (window_augment,
+    plain=True), and within the parity contract of the CPU's with one
+    injected plane (RANSAC fitted once on the CPU). Prints the window
+    scan's ms (CUDA events, median of 5), launches and busy share
+    (torch.profiler's device time over the scan's ms) beside the plain
+    window path's, the dense assembly's and the plain scan before the
+    kernels (WINDOW_PLAIN_BEFORE). Returns
+    W1's and W2's records for the kernels line."""
     import torch
 
     from lidar_snow_sim_tpu_torch import SnowfallConfig, build_bank, pad_cloud
     from lidar_snow_sim_tpu_torch.models import snowfall as ts
+    from lidar_snow_sim_tpu_torch.ops import occluders as occ_ops
+    from lidar_snow_sim_tpu_torch.ops import pulse as pulse_ops
     from lidar_snow_sim_tpu_torch.ops.fitting import (
         ransac_draws,
         ransac_plane,
     )
+    from lidar_snow_sim_tpu_torch.ops.lut_lookup import lut_lookup_pairs
     from lidar_snow_sim_tpu_torch.tools.kernel_times import card_line
 
     t_phase = time.time()
@@ -1792,14 +1983,47 @@ def window_phase(pc, sets, calib, dev) -> None:
     pch = max(cap // 64, 256)
     common = dict(max_points=cap, window_size=256, wide_capacity=128,
                   max_occluders=64, max_bumps=32, point_chunk=2048)
-    cfgs = {"window": SnowfallConfig(**common, assembly="window"),
+    cfgs = {"window": SnowfallConfig(**common),
             "dense": SnowfallConfig(
                 **common, assembly="dense", channel_capacity=pch,
                 block_points=max(min(128, pch // 8), 32))}
-    bank = build_bank(sets, window_size=256,
-                      wide_threshold=cfgs["window"].wide_threshold,
-                      wide_capacity=128)
+    wcfg = cfgs["window"]
+    exp_cfg = SnowfallConfig(
+        max_points=cap, window_size=128, wide_capacity=16, max_occluders=24,
+        max_bumps=16, point_chunk=2048,
+        channel_capacity=max(cap // 32, 128))
+    starved = dataclasses.replace(wcfg, max_occluders=2, max_bumps=1)
+
+    def bank_for(cfg):
+        return build_bank(sets, window_size=cfg.window_size,
+                          wide_threshold=cfg.wide_threshold,
+                          wide_capacity=cfg.wide_capacity)
+
+    bank, exp_bank = bank_for(wcfg), bank_for(exp_cfg)
     order = np.random.default_rng(0).permutation(64)
+    padded = pad_cloud(srt, cap)
+    draws = ransac_draws(0, wcfg.ransac_trials)
+    w, h = ransac_plane(torch.as_tensor(padded.points[:, :3]),
+                        torch.as_tensor(padded.mask), draws)
+    plane = {d: (w.to(d), h.to(d)) for d in (dev.type, "cpu")}
+
+    # (a) the kernels against their plain versions at three configs
+    checks = {
+        "inspect": window_kernels("inspect", srt, bank, calib, wcfg, order,
+                                  plane[dev.type], dev, measure=True),
+        "experiment": window_kernels("experiment", srt, exp_bank, calib,
+                                     exp_cfg, order, plane[dev.type], dev),
+        "starved": window_kernels("starved", srt, bank, calib, starved,
+                                  order, plane[dev.type], dev),
+    }
+    if not (checks["starved"]["occluder_overflow"] > 0
+            and checks["starved"]["bump_overflow"] > 0):
+        fail(f"window starved config: overflows {checks['starved']}")
+    print(f"window kernels: card {card_line()!r} equal_to_plain True "
+          + " ".join(f"{k} { {n: v for n, v in c.items() if n[0] != 'W'} }"
+                     for k, c in checks.items()), flush=True)
+
+    # (b) SnowfallAugmenter: the window assembly against the dense one
     outs, grown = {}, {}
     for name, cfg in cfgs.items():
         aug = ts.SnowfallAugmenter(bank=bank, calib=calib, cfg=cfg, seed=0,
@@ -1817,40 +2041,71 @@ def window_phase(pc, sets, calib, dev) -> None:
              f"{outs['window'][0]} vs {outs['dense'][0]}, rows "
              f"{len(outs['window'][1])} vs {len(outs['dense'][1])}")
 
-    padded = pad_cloud(srt, cap)
-    draws = ransac_draws(0, cfgs["window"].ransac_trials)
-    w, h = ransac_plane(torch.as_tensor(padded.points[:, :3]),
-                        torch.as_tensor(padded.mask), draws)
-
+    # (c) one window scan: its launches, the plain path, the CPU
     def args_on(d, cfg):
         return (torch.as_tensor(padded.points, device=d),
                 torch.as_tensor(padded.mask, device=d),
                 ts.bank_to_torch(bank, d), ts.calib_to_torch(calib, d),
                 torch.as_tensor(order, device=d), draws.to(d), cfg)
 
-    plane = {d: (w.to(d), h.to(d)) for d in (dev.type, "cpu")}
-    res = {d: ts.snowfall_augment(*args_on(d, cfgs["window"]),
-                                  plane=plane[d]) for d in (dev.type, "cpu")}
+    counted = {"W1": occ_ops.find_occluders_window,
+               "W2": pulse_ops.window_pulse_peaks,
+               "A1": occ_ops.find_occluders,
+               "A2": occ_ops.find_occluders_routed,
+               "A3": occ_ops.find_occluders_banded,
+               "A4a": occ_ops.find_occluders_t,
+               "A4b": occ_ops.find_occluders_pair,
+               "C1": pulse_ops.pulse_peaks, "C2": pulse_ops.pulse_peaks_pair,
+               "L1": lut_lookup_pairs}
+    a = args_on(dev.type, wcfg)
+    torch.cuda.synchronize()
+    for fn in counted.values():
+        fn.launches = 0
+    got = ts.snowfall_augment(*a, plane=plane[dev.type])
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counted.items()}
+    if launches != dict(dict.fromkeys(counted, 0), W1=1, W2=1):
+        fail(f"a window scan launched {launches}, not W1 and W2 once each")
+    want = ts.window_augment(*a, plane=plane[dev.type], plain=True)
+    for name, x, y in zip(ts.SnowfallResult._fields, got, want):
+        if not torch.equal(x, y):
+            fail(f"window scan: {name} differs from the plain window path: "
+                 f"{_first_diff(x, y)}")
+    cpu = ts.snowfall_augment(*args_on("cpu", wcfg), plane=plane["cpu"])
     n = len(srt)
-    differ, xyz_err = _card_cpu_parity("window card vs CPU", res[dev.type],
-                                       res["cpu"], n)
+    differ, xyz_err = _card_cpu_parity("window card vs CPU", got, cpu, n)
 
     timing = {}
-    for name, cfg in cfgs.items():
-        a = args_on(dev.type, cfg)
-        ms = time_ms(lambda: ts.snowfall_augment(*a, plane=plane[dev.type]),
-                     reps=5, warmup=1)
-        busy, launches = _busy(lambda: ts.snowfall_augment(
-            *a, plane=plane[dev.type]))
-        timing[name] = {"ms": round(ms, 3), "launches": launches,
+    runs = {"window": lambda: ts.snowfall_augment(*a, plane=plane[dev.type]),
+            "window_plain": lambda: ts.window_augment(
+                *a, plane=plane[dev.type], plain=True)}
+    ad = args_on(dev.type, cfgs["dense"])
+    runs["dense"] = lambda: ts.snowfall_augment(*ad, plane=plane[dev.type])
+    for name, fn in runs.items():
+        ms = time_ms(fn, reps=5, warmup=1)
+        busy, n_launch = _busy(fn)
+        timing[name] = {"ms": round(ms, 3), "launches": n_launch,
                         "busy_ms": round(busy, 3),
                         "busy_share": round(busy / ms, 3)}
     print(f"window: card {card_line()!r} points {n} cap {cap} stats "
           f"{outs['window'][0]} rows {len(outs['window'][1])} "
-          f"equal_to_dense True grown {grown} vs_cpu_differing "
-          f"{differ} "
-          f"xyz_max_abs_err {xyz_err} {timing} phase_s "
-          f"{time.time() - t_phase:.1f}", flush=True)
+          f"equal_to_dense True grown {grown} kernel_launches {launches} "
+          f"equal_to_plain_path True vs_cpu_differing {differ} "
+          f"xyz_max_abs_err {xyz_err} {timing} plain_before_kernels "
+          f"{WINDOW_PLAIN_BEFORE} phase_s {time.time() - t_phase:.1f}",
+          flush=True)
+    m = checks["inspect"]
+    return [record(f"{k} " + ("window occluders (window assembly)"
+                              if k == "W1" else
+                              "window sweep and pulse peak (window assembly)"),
+                   f"lidar_snow_sim_tpu_torch/csrc/"
+                   f"{'occluders' if k == 'W1' else 'pulse'}.cu",
+                   "lidar_snow_sim_tpu/models/snowfall.py:"
+                   + ("112" if k == "W1" else "151"),
+                   launches[k], 0.0, m[k]["ms"], m[k]["plain_ms"],
+                   m[k]["bound"], m[k]["times"],
+                   replaces_kind="XLA-fused in lax.map (no Pallas kernel)")
+            for k in ("W1", "W2")]
 
 
 PARITY_STATS = dict(num_attenuated=29, num_removed=847,
@@ -1862,7 +2117,8 @@ def _parity_gate(report: dict, launches: dict) -> list:
     """Phase 13's gates on a tools/parity_gpu report and the launches
     counted around its run: ok, the oracle's stats, the three variants each
     with no overflow, 0 unexplained mismatches and a rate under 0.002, and
-    A1, A2 and C1 launched. Returns the failures (none when all hold)."""
+    A1, A2, C1 (the dense variants) and W1, W2 (the window variant)
+    launched. Returns the failures (none when all hold)."""
     bad = []
     if report.get("ok") is not True:
         bad.append("the report is not ok")
@@ -1877,7 +2133,7 @@ def _parity_gate(report: dict, launches: dict) -> list:
         if a["num_unexplained"] != 0 or not a["mismatch_rate"] < 0.002:
             bad.append(f"{name}: {a['num_unexplained']} unexplained, "
                        f"mismatch rate {a['mismatch_rate']}")
-    for kernel in ("A1", "A2", "C1"):
+    for kernel in ("A1", "A2", "C1", "W1", "W2"):
         if launches.get(kernel, 0) < 1:
             bad.append(f"{kernel} never launched")
     return bad
@@ -1892,13 +2148,18 @@ def parity_phase(dev) -> None:
     from lidar_snow_sim_tpu_torch.ops.occluders import (
         find_occluders,
         find_occluders_routed,
+        find_occluders_window,
     )
-    from lidar_snow_sim_tpu_torch.ops.pulse import pulse_peaks
+    from lidar_snow_sim_tpu_torch.ops.pulse import (
+        pulse_peaks,
+        window_pulse_peaks,
+    )
     from lidar_snow_sim_tpu_torch.tools import parity_gpu
 
     t_phase = time.time()
     counted = {"A1": find_occluders, "A2": find_occluders_routed,
-               "C1": pulse_peaks}
+               "C1": pulse_peaks, "W1": find_occluders_window,
+               "W2": window_pulse_peaks}
     for fn in counted.values():
         fn.launches = 0
     with tempfile.TemporaryDirectory() as tmp:
@@ -3015,7 +3276,7 @@ def main() -> int:
     detector_phase(out, dev)
     training_phase(out, dev)
     server_phase(pc, sets, rr, occ, dev)
-    window_phase(pc, sets, calib, dev)
+    window = window_phase(pc, sets, calib, dev)
     parity_phase(dev)
     grid_phase(calib, dev)
     multi_gpu_phase(pc, sets, calib, dev)
@@ -3044,6 +3305,7 @@ def main() -> int:
         batched["A4b"],
         batched["C2"],
         l1,
+        *window,
     ]
     # --- 8. each kernel's device times, after every end-to-end phase ---
     time_kernels()

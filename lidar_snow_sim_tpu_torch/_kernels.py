@@ -62,6 +62,12 @@ SIGNATURES = {
             _I, _I, _I, _I, _I, _I,
             _P,
         ],
+        "occluders_w1": [
+            _P, _P, _P, _P, _P, _P, _P, _P,           # inputs
+            _P, _P, _P, _P, _P,                       # outputs
+            _I, _I, _I, _I, _I, _I,                   # n, k_ext, wc, n_wide,
+            _P,                                       # window, K; stream
+        ],
     },
     "pulse": {
         "pulse_c1": [
@@ -75,6 +81,13 @@ SIGNATURES = {
             _P, _P, _P, _P, _P, _P, _P, _P, _P,
             _P, _P, _P, _P,
             _I, _I, _I, _I,                            # cap, K, M, blk
+            _F, _F, _F, _F, _F,
+            _P,
+        ],
+        "pulse_w2": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # inputs
+            _P, _P, _P, _P,                            # outputs
+            _I, _I, _I, _I,                            # n, K, M, max_bumps
             _F, _F, _F, _F, _F,
             _P,
         ],

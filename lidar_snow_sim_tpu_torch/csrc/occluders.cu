@@ -1,5 +1,6 @@
 // Kernels A1, A2, A3, A4a and A4b: nearest-K occluders for each (channel,
-// azimuth)-sorted beam, phase A of the dense snowfall assembly.
+// azimuth)-sorted beam, phase A of the dense snowfall assembly; kernel W1:
+// the window assembly's occluders (see w1_kernel at the end).
 //
 // Replaces, in lidar_snow_sim_tpu/ops/pallas_occluders.py:
 //   A1 `_kernel` (with `_prep_side`, `_extract_step`): every beam of a chunk
@@ -545,6 +546,155 @@ __global__ void __launch_bounds__(kLanesA3 * kBeamsA3)
 
 #undef LANE_SPLIT_ARGS
 
+// Kernel W1: the window assembly's nearest-K occluders. It replaces no TPU
+// kernel: the JAX package computes them in XLA inside its lax.map over
+// point chunks (`_occluder_phase` on `chunk_fn`'s gathered candidates,
+// lidar_snow_sim_tpu/models/snowfall.py:112-148, 352-373), and the port's
+// plain version, ops/occluders.occluders_window_plain, gathers a (P, 384,
+// 4) block a chunk. Each point tests its own list: window_size bank
+// columns lo, lo + 1, ... of its row (clamped to the row's last column;
+// an entry whose sort angle lies outside the point's window [lo_ang,
+// hi_ang] takes range 1e9, which fails the range test), then the row's
+// n_wide wide columns; it keeps the K nearest hits in lax.top_k's order
+// (range, then list position) and writes them as (n, K) rows with an
+// empty slot's a1 = a2 = 0, dist = inf, valid = false, and the hits
+// beyond K.
+//
+// Its hit test is the plain version's, candidate_intervals
+// (ops/geometry.py), not A1's hit_test: the half-plane test of an edge is
+// cos(edge - pang) > 0 (A1 takes the sign of a dot product), and pang and
+// the interval ends wrap(pang -+ asin(r / d)) come from per-column tables
+// made once a bank with torch's own atan2 and asin (ops/occluders.
+// window_angles, in models/snowfall.bank_to_torch), since a column's values
+// do not depend on the point; the plain version reads the same tables.
+// cosf is called here: a faithful cosine never has the wrong sign and cos
+// of a float is never 0, so the comparison equals torch's.
+// The point's sin and cos of its edges come from point_features, as A1's.
+//
+// Design (simple first). G lanes a point (lane s tests list positions s,
+// s + G, ...), kPointsW1 consecutive points a CTA: the points are
+// channel-sorted, so a CTA's points mostly read one bank row, and their
+// windows overlap. The bank is read from global memory, through L1 and the
+// 50 MB L2 that holds the whole bank (data_t is 38.9 MB at the bench). A
+// lane's K nearest hits are LaneTopK, the lanes' lists are merged as
+// merge_write merges them. What bounds it: at the bench's 65,536 points x
+// 384 candidates it makes ~25 M tests of ~20 operations (~7.5 us at
+// 67 TFLOP/s) and writes 13 bytes a slot, ~55 MB at K = 64 (~16 us at
+// 3.35 TB/s), so the bytes it writes.
+constexpr int kLanesW1 = 8;
+constexpr int kPointsW1 = 32;
+
+// The window assembly's hit test of candidate (px, py, pr, pang), its
+// range already found below the point's d_orig: the centre inside the
+// beam, or an edge ray within r of the centre on the centre's side.
+__device__ __forceinline__ bool window_hit(const Beam& b, float px, float py,
+                                           float pr, float pang,
+                                           bool& right_hit, bool& left_hit) {
+  const bool center_in = ((b.lo_a <= pang) & (pang <= b.hi_a)) |
+                         ((b.lo_b <= pang) & (pang <= b.hi_b));
+  right_hit = fabsf(px * b.sin_r - py * b.cos_r) < pr &&
+              cosf(b.right - pang) > 0.f;
+  left_hit = fabsf(px * b.sin_l - py * b.cos_l) < pr &&
+             cosf(b.left - pang) > 0.f;
+  return center_in | right_hit | left_hit;
+}
+
+// merge_write's merge of the G lanes' lists of one point, written as row p
+// of the (n, K) outputs; empty slots get a1 = a2 = 0, dist = inf and valid
+// = false. Every lane of the warp must call it.
+template <int G, int KMAX>
+__device__ void merge_window(LaneTopK<KMAX>& top, float* a1, float* a2,
+                             float* dist, bool* valid, int* ovf, size_t p,
+                             int k_occ, int sub, bool active) {
+  int total = top.n_hit;
+  for (int o = G / 2; o > 0; o >>= 1)
+    total += __shfl_xor_sync(0xffffffffu, total, o);
+  const int trips = min(k_occ, total);
+  int trips_w = trips;
+  for (int o = 16; o >= G; o >>= 1)
+    trips_w = max(trips_w, __shfl_xor_sync(0xffffffffu, trips_w, o));
+  const size_t row = p * k_occ;
+  for (int k = 0; k < trips_w; ++k) {
+    const bool has = top.head < top.n_kept;
+    float bd = has ? top.d[top.head] : INFINITY;
+    int bc = has ? top.col[top.head] : 0x7fffffff;
+    for (int o = G / 2; o > 0; o >>= 1) {
+      const float od = __shfl_xor_sync(0xffffffffu, bd, o);
+      const int oc = __shfl_xor_sync(0xffffffffu, bc, o);
+      if (od < bd || (od == bd && oc < bc)) { bd = od; bc = oc; }
+    }
+    if (has && top.col[top.head] == bc) {   // the winner: one lane
+      a1[row + k] = top.a1[top.head];
+      a2[row + k] = top.a2[top.head];
+      dist[row + k] = bd;
+      valid[row + k] = true;
+      ++top.head;
+    }
+  }
+  if (!active) return;
+  for (int k = trips + sub; k < k_occ; k += G) {
+    a1[row + k] = 0.f;
+    a2[row + k] = 0.f;
+    dist[row + k] = INFINITY;
+    valid[row + k] = false;
+  }
+  if (sub == 0) ovf[p] = total > k_occ ? total - k_occ : 0;
+}
+
+template <int KMAX>
+__global__ void __launch_bounds__(kLanesW1 * kPointsW1) w1_kernel(
+    const float* __restrict__ feats, const int* __restrict__ rows,
+    const int* __restrict__ los, const float* __restrict__ bounds,
+    const float* __restrict__ data_t, const float* __restrict__ wide_t,
+    const float* __restrict__ ang_t, const float* __restrict__ wang_t,
+    float* __restrict__ a1, float* __restrict__ a2, float* __restrict__ dist,
+    bool* __restrict__ valid, int* __restrict__ ovf, int n, int k_ext, int wc,
+    int n_wide, int window, int k_occ) {
+  constexpr int G = kLanesW1;
+  const int sub = threadIdx.x % G;
+  const int p = blockIdx.x * kPointsW1 + threadIdx.x / G;
+  const bool active = p < n;
+  const int pc = min(p, n - 1);
+  const Beam b(feats + (size_t)pc * kFeat);
+  const int row = rows[pc];
+  const int lo = los[pc];
+  const float lo_ang = bounds[2 * (size_t)pc];
+  const float hi_ang = bounds[2 * (size_t)pc + 1];
+  const float* bank = data_t + (size_t)row * kProp * k_ext;
+  const float* ang = ang_t + (size_t)row * 3 * k_ext;
+  const float* wide = wide_t + (size_t)row * kProp * wc;
+  const float* wang = wang_t + (size_t)row * 3 * n_wide;
+  LaneTopK<KMAX> top;
+  int n_hit = 0;
+  const int n_tot = active ? window + n_wide : 0;
+  for (int j = sub; j < n_tot; j += G) {
+    const bool in_window = j < window;
+    const int c = in_window ? min(max(lo + j, 0), k_ext - 1) : j - window;
+    const float* src = in_window ? bank + c : wide + c;
+    const size_t ld = in_window ? k_ext : wc;
+    float pdist = src[3 * ld];
+    if (in_window) {
+      const float sa = bank[(size_t)kSangRow * k_ext + c];
+      if (!(sa >= lo_ang && sa <= hi_ang)) pdist = 1e9f;
+    }
+    if (!(pdist < b.d_orig)) continue;   // the range test fails
+    const float* ends = in_window ? ang + c : wang + c;
+    const size_t ld_a = in_window ? k_ext : n_wide;
+    const float pang = ends[0];
+    bool right_hit, left_hit;
+    if (!window_hit(b, src[0], src[ld], src[2 * ld], pang, right_hit,
+                    left_hit))
+      continue;
+    ++n_hit;
+    if (top.takes(pdist, k_occ))
+      top.insert(pdist, right_hit ? b.right : ends[ld_a],
+                 left_hit ? b.left : ends[2 * ld_a], j, k_occ);
+  }
+  top.n_hit = n_hit;
+  merge_window<G>(top, a1, a2, dist, valid, ovf, (size_t)pc, k_occ, sub,
+                  active);
+}
+
 // Launch a lane-split kernel on grid (grid_x, grid_y) of `threads`, with
 // nl staged lists of cap columns in its dynamic shared memory, raising the
 // kernel's limit past 48 KB where it needs more; the kernel takes cap as its
@@ -665,4 +815,28 @@ extern "C" int occluders_a4b(
       2 * kLanesA4b * kBeamsA4b, 2, min(w_sl + wc, kTileA4b), s, feats, w0b,
       rows, los, counts, data_t, wide_t, a12d, ovf, n_chunks, blk, w_sl,
       k_ext, wc, k_occ))
+}
+
+// Kernel W1: feats (n, 9) f32 (point_features); rows, los (n,) i32; bounds
+// (n, 2) f32, each point's window [lo_ang, hi_ang] in the bank's sort
+// angle; data_t (C, 8, k_ext), wide_t (C, 8, wc) f32; ang_t (C, 3, k_ext)
+// and wang_t (C, 3, n_wide) f32 rows [pang, start, end]; outputs a1, a2,
+// dist (n, K) f32, valid (n, K) bool, ovf (n,) i32. Needs K <= window +
+// n_wide and n_wide <= wc. Returns cudaGetLastError().
+extern "C" int occluders_w1(
+    const float* feats, const int* rows, const int* los, const float* bounds,
+    const float* data_t, const float* wide_t, const float* ang_t,
+    const float* wang_t, float* a1, float* a2, float* dist, bool* valid,
+    int* ovf, int n, int k_ext, int wc, int n_wide, int window, int k_occ,
+    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  if (k_occ > window + n_wide || n_wide > wc)
+    return static_cast<int>(cudaErrorInvalidValue);
+  DISPATCH_K(k_occ, {
+    w1_kernel<KMAX><<<cdiv(n, kPointsW1), kLanesW1 * kPointsW1, 0, s>>>(
+        feats, rows, los, bounds, data_t, wide_t, ang_t, wang_t, a1, a2,
+        dist, valid, ovf, n, k_ext, wc, n_wide, window, k_occ);
+    return static_cast<int>(cudaGetLastError());
+  })
 }

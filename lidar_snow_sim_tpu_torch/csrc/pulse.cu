@@ -1,5 +1,6 @@
 // Kernels C1 and C2: first-claim sweep and received-pulse peak per occluded
-// beam.
+// beam; kernel W2: the window assembly's sweep, bump selection and pulse
+// peak per point (see w2_kernel at the end).
 //
 // C1 replaces `_kernel` of lidar_snow_sim_tpu/ops/pallas_pulse.py (with its
 // helpers `_side_state`, `_sweep_step`, `_sweep_init` and `_make_wave_fns`),
@@ -526,6 +527,262 @@ __global__ void c2_kernel(
     write_out(s, best, best_i, peak_out, idx_out, touched_out, rem_out);
 }
 
+// Kernel W2: the window assembly's sweep, bump selection and pulse peak
+// per point. It replaces no TPU kernel: the JAX package computes them in
+// XLA inside its lax.map over point chunks (`_pulse_phase` up to the peak,
+// lidar_snow_sim_tpu/models/snowfall.py:151-199), and the port's plain
+// version, ops/pulse.window_pulse_plain, evaluates every bump over the
+// whole M-bin grid, a (P, M) plane of ~10 operations a bump. For each
+// point, from kernel W1's (n, K) rows:
+//   1. the first-claim sweep: window_side_init loads the valid occluders
+//      (C1's side_init, with W1's row layout and bool valid), then C1's
+//      sweep_all, which sums each occluder's widths and the target's in
+//      interval order, as ops/sweep.occlusion_sweep does;
+//   2. the ratios clamp(claimed / beam_rad, 0, 1) and the max_bumps
+//      largest nonzero ones in the order of a stable descending sort (ties
+//      to the lower slot; a zero ratio has a zero amplitude, so the tail of
+//      zeros adds nothing), with the nonzero ratios beyond max_bumps;
+//   3. amplitudes 0.9 * max_int * ratio * xsi(r) / (r * r) of those bumps
+//      and of the hard target with the remainder, in that order;
+//   4. the waveform's peak and first bin, summed at each bin as the plain
+//      version sums it: the selected bumps in their order, then the target
+//      (an exact zero term, out of its window or of a zero amplitude,
+//      leaves the sum as it is), over the union of the bumps' windows only
+//      (C1's rule for the bins outside: +0.0, the lowest of them ties).
+//      A NaN term (the target of a point at the origin: 0/0) makes the
+//      peak NaN and the bin M, as torch's amax and the equality test do.
+// The transcendentals (cos and sin of each slot's, the target's and the
+// grid's pulse phase) come from the wrapper, computed by torch, as C1
+// takes them. Design: C1's, kLanesW2 lanes a point and the point's state in
+// its slice of shared memory. Unlike C1's, the selected bumps' windows are
+// not in ascending order, so each bin sums every selected window that
+// holds it (a check a window). What bounds it: little. It reads W1's valid
+// flags (a byte a slot), the intervals of the few valid slots and the
+// range, cos and sin of the selected bumps, and writes 13 bytes a point:
+// a few MB at the bench's 65,536 points x K = 64, a few microseconds at
+// 3.35 TB/s. Its time is each point's chain of dependent steps.
+constexpr int kLanesW2 = 16;
+
+// C1's side_init on W1's rows: (n, K) occluders, row p, with bool valid.
+template <int G>
+__device__ void window_side_init(Side& s, const float* __restrict__ feats,
+                                 const float* __restrict__ a1g,
+                                 const float* __restrict__ a2g,
+                                 const bool* __restrict__ validg, int n,
+                                 int K, int lane) {
+  const int gl = lane & (G - 1);
+  const int p = s.p;
+  s.d_orig = feats[p];
+  const float right = feats[(size_t)n + p];
+  s.left = feats[2 * (size_t)n + p];
+  const bool wrapped = right > s.left;
+  int nv = 0;
+  for (int k0 = 0; k0 < K; k0 += G) {
+    const int k = k0 + gl;
+    bool v = false;
+    float a1 = 0.f, a2 = 0.f;
+    if (k < K) {
+      const size_t at = (size_t)p * K + k;
+      a1 = a1g[at];
+      a2 = a2g[at];
+      v = validg[at];
+      if (wrapped && a1 > a2) a1 = a1 - kTwoPi;
+      s.claimed[k] = 0.f;
+    }
+    const unsigned bits = __ballot_sync(kFull, v) & group_bits<G>(lane);
+    if (v) {   // compacted in index order
+      const int at = nv + __popc(bits & ((1u << lane) - 1u));
+      s.a1s[at] = a1;
+      s.a2s[at] = a2;
+      s.kidx[at] = k;
+      s.score[2 + 2 * at] = a1;
+      s.score[3 + 2 * at] = a2;
+    }
+    nv += __popc(bits);
+  }
+  s.nv = nv;
+  if (gl == 0) {
+    s.score[0] = wrapped ? right - kTwoPi : right;
+    s.score[1] = s.left;
+  }
+  __syncwarp();
+}
+
+// Steps 2 and 3 after sweep_all: the selected bumps, then the target, as
+// walk entries q = 0 .. n_sel (written over the Side's free arrays: the
+// positive ratios' slots over kidx and their ratios over a1s, then each
+// entry's amplitude, cos, sin in amp, cb, sb and its bins [lo, hi] over
+// wlo, whi; an entry of zero amplitude gets an empty window). Returns the
+// entry count n_sel + 1; sets touched, the remainder and bump_over.
+template <int G>
+__device__ int window_bumps(Side& s, const float* __restrict__ feats,
+                            const float* __restrict__ dist,
+                            const float* __restrict__ cos_b,
+                            const float* __restrict__ sin_b,
+                            const float* __restrict__ cos_t,
+                            const float* __restrict__ sin_t, int n, int K,
+                            int M, int max_bumps, int lane, float beam_rad,
+                            float ipm, float c_tau, float xsi_r1,
+                            float xsi_den, int& bump_over) {
+  const int gl = lane & (G - 1);
+  const int p = s.p;
+  int* pos_k = s.kidx;
+  float* pos_r = s.a1s;
+  int* lo = reinterpret_cast<int*>(s.wlo);
+  int* hi = reinterpret_cast<int*>(s.whi);
+  s.remainder = fminf(fmaxf(s.unclaimed / beam_rad, 0.f), 1.f);
+  bool touched = false;
+  int n_pos = 0;
+  for (int k0 = 0; k0 < K; k0 += G) {
+    const int k = k0 + gl;
+    float r = 0.f;
+    if (k < K) {
+      const float c = s.claimed[k];
+      touched = touched || c > 0.f;
+      r = fminf(fmaxf(c / beam_rad, 0.f), 1.f);
+    }
+    const bool pos = r > 0.f;
+    const unsigned bits = __ballot_sync(kFull, pos) & group_bits<G>(lane);
+    if (pos) {
+      const int at = n_pos + __popc(bits & ((1u << lane) - 1u));
+      pos_k[at] = k;
+      pos_r[at] = r;
+    }
+    n_pos += __popc(bits);
+  }
+  s.touched = (__ballot_sync(kFull, touched) & group_bits<G>(lane)) != 0u;
+  bump_over = max(n_pos - max_bumps, 0);
+  const int n_sel = min(n_pos, min(max_bumps, K));
+  __syncwarp();
+  const float amp_scale = feats[3 * (size_t)n + p];
+  for (int i = gl; i <= n_pos; i += G) {
+    int q;
+    float r, ratio, cb, sb;
+    if (i < n_pos) {   // rank in the stable descending order of the ratios
+      ratio = pos_r[i];
+      q = 0;
+      for (int j = 0; j < n_pos; ++j)
+        q += (pos_r[j] > ratio || (pos_r[j] == ratio && j < i)) ? 1 : 0;
+      if (q >= n_sel) continue;
+      const size_t at = (size_t)p * K + pos_k[i];
+      r = dist[at];
+      cb = cos_b[at];
+      sb = sin_b[at];
+    } else {           // the target, last
+      q = n_sel;
+      ratio = s.remainder;
+      r = s.d_orig;
+      cb = cos_t[p];
+      sb = sin_t[p];
+    }
+    const float xsi = fminf(fmaxf((r - xsi_r1) / xsi_den, 0.f), 1.f);
+    const float amp = amp_scale * ratio * xsi / (r * r);
+    s.amp[q] = amp;
+    s.cb[q] = cb;
+    s.sb[q] = sb;
+    lo[q] = M;
+    hi[q] = -1;
+    if (amp != 0.f) window_bins(r * ipm, (r + c_tau) * ipm, M, lo[q], hi[q]);
+  }
+  __syncwarp();
+  return n_sel + 1;
+}
+
+// Step 4: the peak over the union of the n_walk entries' windows, each bin
+// once (in the first window that holds it), summed over every entry that
+// holds it in entry order; then +0.0 at the lowest bin outside the union
+// where the union's peak is not above zero; NaN anywhere: (NaN, M). Every
+// lane of the warp calls it.
+template <int G>
+__device__ void window_wave_peak(const Side& s, int n_walk, int M, int lane,
+                                 const float* __restrict__ cos_g,
+                                 const float* __restrict__ sin_g,
+                                 float& best, int& best_i) {
+  const int gl = lane & (G - 1);
+  const int* lo = reinterpret_cast<const int*>(s.wlo);
+  const int* hi = reinterpret_cast<const int*>(s.whi);
+  best = -INFINITY;
+  best_i = M;
+  bool nan = false;
+  for (int t = 0; t < n_walk; ++t) {
+    for (int m = lo[t] + gl; m <= hi[t]; m += G) {
+      bool seen = false;
+      for (int u = 0; u < t && !seen; ++u) seen = lo[u] <= m && m <= hi[u];
+      if (seen) continue;
+      const float cg = cos_g[m], sg = sin_g[m];
+      float w = 0.f;
+      for (int u = 0; u < n_walk; ++u)
+        if (lo[u] <= m && m <= hi[u])
+          w = w + term(s.amp[u], s.cb[u], s.sb[u], cg, sg);
+      if (w != w) {
+        nan = true;
+      } else if (w > best || (w == best && m < best_i)) {
+        best = w;
+        best_i = m;
+      }
+    }
+  }
+  group_peak<G>(best, best_i);
+  if ((__ballot_sync(kFull, nan) & group_bits<G>(lane)) != 0u) {
+    best = NAN;
+    best_i = M;
+    return;
+  }
+  if (!(best > 0.f)) {
+    int u = 0;   // the lowest bin outside every window (lowest_uncovered)
+    for (bool moved = true; moved && u < M;) {
+      moved = false;
+      for (int t = 0; t < n_walk; ++t) {
+        if (lo[t] <= u && u <= hi[t]) {
+          u = hi[t] + 1;
+          moved = true;
+        }
+      }
+    }
+    if (u < M && (0.f > best || (0.f == best && u < best_i))) {
+      best = 0.f;
+      best_i = u;
+    }
+  }
+}
+
+// Kernel W2: kLanesW2 lanes a point. A slot past n computes the last point
+// again and writes nothing (its lanes take part in the warp's shuffles).
+__global__ void w2_kernel(
+    const float* __restrict__ feats, const float* __restrict__ a1g,
+    const float* __restrict__ a2g, const float* __restrict__ dist,
+    const bool* __restrict__ validg, const float* __restrict__ cos_b,
+    const float* __restrict__ sin_b, const float* __restrict__ cos_t,
+    const float* __restrict__ sin_t, const float* __restrict__ cos_g,
+    const float* __restrict__ sin_g, float* __restrict__ peak_out,
+    int* __restrict__ idx_out, bool* __restrict__ touched_out,
+    int* __restrict__ bump_out, int n, int K, int M, int max_bumps,
+    int per_beam, float beam_rad, float ipm, float c_tau, float xsi_r1,
+    float xsi_den) {
+  constexpr int G = kLanesW2;
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31;
+  const int slot = threadIdx.x / G;
+  const int p = blockIdx.x * (blockDim.x / G) + slot;
+
+  Side s(smem + (size_t)slot * per_beam, K, min(p, n - 1));
+  window_side_init<G>(s, feats, a1g, a2g, validg, n, K, lane);
+  sweep_all<G>(s, K, lane & (G - 1));
+  int bump_over;
+  const int n_walk = window_bumps<G>(
+      s, feats, dist, cos_b, sin_b, cos_t, sin_t, n, K, M, max_bumps, lane,
+      beam_rad, ipm, c_tau, xsi_r1, xsi_den, bump_over);
+  float best;
+  int best_i;
+  window_wave_peak<G>(s, n_walk, M, lane, cos_g, sin_g, best, best_i);
+  if (p < n && (lane & (G - 1)) == 0) {
+    peak_out[p] = best;
+    idx_out[p] = best_i;
+    touched_out[p] = s.touched;
+    bump_out[p] = bump_over;
+  }
+}
+
 // The launch shape of a kernel of `lanes` lanes a beam: up to 4 warps a
 // CTA, as many as fit at 12 K + 8 floats of shared memory a beam (see
 // Side), the kernel allowed its size above the default 48 KB. Sets warps
@@ -590,5 +847,31 @@ extern "C" int pulse_c2(
       feats, a1, a2, rr, valid, cos_b, sin_b, cos_g, sin_g, peak, idx,
       touched, remainder, cap, K, M, 12 * K + 8, blk, beam_rad, ipm, c_tau,
       xsi_r1, xsi_den);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel W2: feats (4, n) f32 rows [d_orig, right, left, 0.9 *
+// max_intensity]; a1, a2, dist (n, K) f32 and valid (n, K) bool (kernel
+// W1's rows); cos_b, sin_b (n, K) f32 of each slot's pulse phase, cos_t,
+// sin_t (n,) of the target's, cos_g, sin_g (M,) of the grid's. Outputs
+// (n,): peak f32, first peak bin i32, touched bool, bump overflow i32.
+// Returns cudaGetLastError().
+extern "C" int pulse_w2(
+    const float* feats, const float* a1, const float* a2, const float* dist,
+    const bool* valid, const float* cos_b, const float* sin_b,
+    const float* cos_t, const float* sin_t, const float* cos_g,
+    const float* sin_g, float* peak, int* idx, bool* touched, int* bump,
+    int n, int K, int M, int max_bumps, float beam_rad, float ipm,
+    float c_tau, float xsi_r1, float xsi_den, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  int warps, smem;
+  const cudaError_t e = launch_shape(w2_kernel, K, kLanesW2, warps, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int points = warps * 32 / kLanesW2;
+  w2_kernel<<<(n + points - 1) / points, warps * 32, smem, s>>>(
+      feats, a1, a2, dist, valid, cos_b, sin_b, cos_t, sin_t, cos_g, sin_g,
+      peak, idx, touched, bump, n, K, M, max_bumps, 12 * K + 8, beam_rad,
+      ipm, c_tau, xsi_r1, xsi_den);
   return static_cast<int>(cudaGetLastError());
 }

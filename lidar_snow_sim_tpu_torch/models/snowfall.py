@@ -1,17 +1,20 @@
 """Snowfall augmentation (counterpart of
 `lidar_snow_sim_tpu/models/snowfall.py`): the window assembly
-(`snowfall_augment`, plain torch) and the dense assembly
-(`snowfall_augment_dense`, the JAX package's Pallas branch, on kernels).
+(`snowfall_augment`, kernels W1 and W2) and the dense assembly
+(`snowfall_augment_dense`, the JAX package's Pallas branch, on kernels A1-A4b
+and C1-C2).
 
 `snowfall_augment` runs the assembly `cfg.assembly` names. The window
-assembly (models/snowfall.py:93-419) stable-sorts the points by channel,
-gathers each point's angular window of `window_size` bank columns plus its
-row's wide list, and runs the intersection test, the nearest-K occluders,
-the first-claim sweep and the waveform peak per chunk of `point_chunk`
-points (`ops/geometry.candidate_intervals`, `ops/sweep`, `ops/waveform`);
-its rows come back in that channel-sorted order. Its window_overflow
-counts the in-window particles beyond `window_size`, which no capacity
-growth resolves (the JAX package's rule).
+assembly (models/snowfall.py:93-419; `window_augment`) stable-sorts the
+points by channel, finds each point's angular window in its bank row, then
+the nearest K occluders among the window's `window_size` bank columns and
+the row's wide list (kernel W1, `ops/occluders.find_occluders_window`), the
+first-claim sweep, the `max_bumps` largest bumps and the waveform peak
+(kernel W2, `ops/pulse.window_pulse_peaks`), and the decision tail in torch.
+On CPU tensors the kernels' plain versions run chunk by chunk of
+`point_chunk` points. Its rows come back in that channel-sorted order. Its
+window_overflow counts the in-window particles beyond `window_size`, which
+no capacity growth resolves (the JAX package's rule).
 
 The dense assembly, per scan:
 
@@ -70,8 +73,8 @@ fold its frames' A1 chunks into one launch (`run_phase_a_folded`, the
 
 Ignored knobs: use_pallas, pallas_interpret and chunk_group. The device
 decides instead: a CUDA tensor goes to the kernels, a CPU tensor to their
-plain versions. The window assembly has no kernel: the JAX package computes
-it in plain XLA.
+plain versions. The JAX package computes the window assembly in plain XLA,
+fused inside its lax.map over chunks; W1 and W2 take that place here.
 """
 
 from __future__ import annotations
@@ -101,11 +104,7 @@ from lidar_snow_sim_tpu_torch.ops.fitting import (
     ransac_draws,
     ransac_plane,
 )
-from lidar_snow_sim_tpu_torch.ops.geometry import (
-    beam_limits,
-    candidate_intervals,
-    norm3,
-)
+from lidar_snow_sim_tpu_torch.ops.geometry import beam_limits, norm3
 from lidar_snow_sim_tpu_torch.ops.laser import estimate_laser_parameters
 from lidar_snow_sim_tpu_torch.ops.occluders import (
     find_occluders,
@@ -114,11 +113,17 @@ from lidar_snow_sim_tpu_torch.ops.occluders import (
     find_occluders_pair,
     find_occluders_routed,
     find_occluders_t,
+    find_occluders_window,
+    occluders_window_plain,
     point_features,
+    window_angles,
 )
-from lidar_snow_sim_tpu_torch.ops.pulse import pulse_peaks, pulse_peaks_pair
-from lidar_snow_sim_tpu_torch.ops.sweep import occlusion_sweep
-from lidar_snow_sim_tpu_torch.ops.waveform import waveform_peak, xsi
+from lidar_snow_sim_tpu_torch.ops.pulse import (
+    pulse_peaks,
+    pulse_peaks_pair,
+    window_pulse_peaks,
+    window_pulse_plain,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -160,17 +165,30 @@ class BankTensors(NamedTuple):
     data: torch.Tensor     # (C, K_ext, 4) x, y, r, dist
     angle: torch.Tensor    # (C, K_ext) signed extended sort azimuth
     wide: torch.Tensor     # (C, W, 4), W = the bank's wide capacity
+    # the window assembly's per-column angle tables [pang, start, end]
+    # (ops/occluders.window_angles), made once a bank on its device
+    ang_t: torch.Tensor    # (C, 3, K_ext) f32
+    wang_t: torch.Tensor   # (C, 3, W) f32
 
     def to(self, device) -> "BankTensors":
         """The bank on `device`: data_t, wide_t, count and lut copied once
-        (not copied where they already lie there), the views re-made."""
+        (not copied where they already lie there), the views and the angle
+        tables re-made there."""
         data_t, wide_t = self.data_t.to(device), self.wide_t.to(device)
-        return BankTensors(
-            data_t=data_t, wide_t=wide_t, count=self.count.to(device),
-            lut=self.lut.to(device),
-            data=data_t[:, :4].transpose(1, 2), angle=data_t[:, 6],
-            wide=wide_t[:, :4, :self.wide.shape[1]].transpose(1, 2),
-        )
+        if data_t is self.data_t and wide_t is self.wide_t:
+            return self
+        return _bank_tensors(data_t, wide_t, self.count.to(device),
+                             self.lut.to(device), self.wide.shape[1])
+
+
+def _bank_tensors(data_t, wide_t, count, lut, n_wide: int) -> BankTensors:
+    ang_t, wang_t = window_angles(data_t, wide_t, n_wide)
+    return BankTensors(
+        data_t=data_t, wide_t=wide_t, count=count, lut=lut,
+        data=data_t[:, :4].transpose(1, 2), angle=data_t[:, 6],
+        wide=wide_t[:, :4, :n_wide].transpose(1, 2), ang_t=ang_t,
+        wang_t=wang_t,
+    )
 
 
 class CalibTensors(NamedTuple):
@@ -189,15 +207,11 @@ def bank_to_torch(bank: ParticleBank, device) -> BankTensors:
                              device=device).contiguous()
     wide_t = torch.as_tensor(bank.wide_t, dtype=torch.float32,
                              device=device).contiguous()
-    return BankTensors(
-        data_t=data_t,
-        wide_t=wide_t,
-        count=torch.as_tensor(bank.count, dtype=torch.int32, device=device),
-        lut=torch.as_tensor(bank.lut, dtype=torch.int64, device=device),
-        data=data_t[:, :4].transpose(1, 2),
-        angle=data_t[:, 6],
-        wide=wide_t[:, :4, :bank.wide.shape[1]].transpose(1, 2),
-    )
+    return _bank_tensors(
+        data_t, wide_t,
+        torch.as_tensor(bank.count, dtype=torch.int32, device=device),
+        torch.as_tensor(bank.lut, dtype=torch.int64, device=device),
+        bank.wide.shape[1])
 
 
 def calib_to_torch(calib: SensorCalib, device) -> CalibTensors:
@@ -260,66 +274,16 @@ def _batched_searchsorted(sorted_rows, rows, targets, length: int):
     return lo
 
 
-def _occluder_phase(xyz, cand, cfg: SnowfallConfig):
-    """Intersection test and the nearest max_occluders occluders of P
-    beams against their (P, C, 4) candidates [x, y, r, dist]. Returns
-    (occ_a1, occ_a2, occ_dist, occ_valid), each (P, K) and sorted by
-    ascending range (the reference's claim priority), and occ_overflow
-    (P,), the hits beyond K."""
-    k_occ = cfg.max_occluders
-    if k_occ > cand.shape[1]:
-        raise ValueError(f"max_occluders {k_occ} exceeds the "
-                         f"{cand.shape[1]} candidates of a point")
-    d_orig = norm3(xyz)
-    right, left = beam_limits(xyz[:, 0], xyz[:, 1], cfg.beam_divergence_rad)
-    a1, a2, hit = candidate_intervals(
-        right, left, cand[:, :, 0], cand[:, :, 1], cand[:, :, 2],
-        cand[:, :, 3], torch.ones(cand.shape[:2], dtype=torch.bool,
-                                  device=cand.device), d_orig)
-    occ_overflow = (hit.sum(dim=1) - k_occ).clamp_min(0)
-    # lax.top_k's order: the nearest first, equal ranges by column
-    score = torch.where(hit, cand[:, :, 3], float("inf"))
-    top, idx = torch.sort(score, dim=1, stable=True)
-    top, idx = top[:, :k_occ], idx[:, :k_occ]
-    return (a1.gather(1, idx), a2.gather(1, idx), top,
-            top < float("inf"), occ_overflow)
-
-
-def _pulse_phase(xyz, intensity, point_valid, occ_a1, occ_a2, occ_dist,
-                 occ_valid, min_int, max_int, focal_slope, focal_offset,
-                 range_grid, cfg: SnowfallConfig):
-    """First-claim sweep, pulse re-simulation and the label decision of P
-    beams with their occluders (simulation.py:151-192). Returns (new_xyz,
-    new_intensity, label, the stats' intensity-difference sum, the valid
-    points' bump_overflow sum)."""
-    beam_rad = cfg.beam_divergence_rad
+def _pulse_tail(xyz, intensity, point_valid, i_peak, peak_idx, touched_any,
+                min_int, max_int, focal_slope, focal_offset,
+                cfg: SnowfallConfig):
+    """The window assembly's decision tail of P points after their pulse
+    peak (`ops/pulse.window_pulse_plain`; simulation.py:151-192): returns
+    (new_xyz, new_intensity, label, diff), diff (P,) each point's share of
+    the stats' intensity-difference sum."""
     ipm = cfg.intervals_per_meter
     c_tau = SPEED_OF_LIGHT * cfg.tau_h
     d_orig = norm3(xyz)
-    right, left = beam_limits(xyz[:, 0], xyz[:, 1], beam_rad)
-
-    ratio, remainder, touched = occlusion_sweep(right, left, occ_a1, occ_a2,
-                                                occ_valid, beam_rad)
-    touched_any = touched.any(dim=1)
-
-    # the max_bumps largest nonzero ratios, in lax.top_k's order (ties by
-    # column)
-    bump_overflow = ((ratio > 0).sum(dim=1) - cfg.max_bumps).clamp_min(0)
-    bump_ratio, bump_idx = torch.sort(ratio, dim=1, descending=True,
-                                      stable=True)
-    bump_ratio = bump_ratio[:, :cfg.max_bumps]
-    bump_r = occ_dist.gather(1, bump_idx[:, :cfg.max_bumps])
-
-    # every amplitude, the hard target's included, takes the snowflake
-    # scale 0.9 * max_intensity (the reference's CA_P0 carry-over)
-    amp_scale = 0.9 * max_int
-    bump_amp = amp_scale[:, None] * bump_ratio * xsi(bump_r) / bump_r**2
-    bump_amp = torch.where(bump_ratio > 0, bump_amp, 0.0)
-    tgt_amp = amp_scale * remainder * xsi(d_orig) / d_orig**2
-    i_peak, peak_idx = waveform_peak(
-        torch.cat([bump_r, d_orig[:, None]], dim=1),
-        torch.cat([bump_amp, tgt_amp[:, None]], dim=1),
-        range_grid, ipm, cfg.tau_h)
     d_max = div(peak_idx.to(torch.float32), ipm) - c_tau / 2
 
     # focal-slope re-adjustment and clipping (simulation.py:155-156)
@@ -336,24 +300,7 @@ def _pulse_phase(xyz, intensity, point_valid, occ_a1, occ_a2, occ_dist,
         touched_any, torch.clamp(new_i, min_int, max_int), intensity)
     diff = torch.where(touched_any & attenuated & point_valid,
                        0.9 * max_int - new_i, 0.0)
-    return (xyz * scale[:, None], new_intensity, label, diff.sum(),
-            torch.where(point_valid, bump_overflow, 0).sum())
-
-
-def _per_point_kernel(xyz, intensity, point_valid, cand, n_window, min_int,
-                      max_int, focal_slope, focal_offset, range_grid,
-                      cfg: SnowfallConfig):
-    """Occluders and pulse re-simulation of one chunk of P points
-    (_occluder_phase, then _pulse_phase). Returns _pulse_phase's outputs,
-    then the valid points' occluder_overflow and window_overflow sums."""
-    occ_a1, occ_a2, occ_dist, occ_valid, occ_overflow = _occluder_phase(
-        xyz, cand, cfg)
-    out = _pulse_phase(xyz, intensity, point_valid, occ_a1, occ_a2,
-                       occ_dist, occ_valid, min_int, max_int, focal_slope,
-                       focal_offset, range_grid, cfg)
-    return (*out, torch.where(point_valid, occ_overflow, 0).sum(),
-            torch.where(point_valid,
-                        (n_window - cfg.window_size).clamp_min(0), 0).sum())
+    return xyz * scale[:, None], new_intensity, label, diff
 
 
 def snowfall_augment(points, mask, bank: BankTensors, calib: CalibTensors,
@@ -362,86 +309,152 @@ def snowfall_augment(points, mask, bank: BankTensors, calib: CalibTensors,
     """Snowfall augmentation of one padded scan on the assembly that
     `cfg.assembly` names.
 
-    Args as `snowfall_augment_dense`. "window" returns its rows in
-    channel-sorted order (a stable sort on the channel, padding last);
-    "dense" (`snowfall_augment_dense`) in the original order. On a scan
-    already stable-sorted by channel the two give the same output.
+    Args as `snowfall_augment_dense`. "window" (`window_augment`; kernels
+    W1 and W2 on CUDA tensors, the chunked plain path on CPU tensors)
+    returns its rows in channel-sorted order (a stable sort on the
+    channel, padding last); "dense" (`snowfall_augment_dense`) in the
+    original order. On a scan already stable-sorted by channel the two give
+    the same output.
     """
     if cfg.assembly == "dense":
         return snowfall_augment_dense(points, mask, bank, calib, order,
                                       draws, cfg, plane=plane)
     if cfg.assembly != "window":
         raise ValueError(f"unknown assembly {cfg.assembly!r}")
-    n = points.shape[0]
-    p_chunk = cfg.point_chunk
-    if n % p_chunk:
-        raise ValueError(f"max_points {n} is not a multiple of point_chunk "
-                         f"{p_chunk}")
-    dev = points.device
-    n_ch = order.shape[0]
+    return window_augment(points, mask, bank, calib, order, draws, cfg,
+                          plane=plane)
 
-    # 1. stable sort by channel, padding last
+
+class WindowInputs(NamedTuple):
+    """A scan stable-sorted by channel (padding last) with what the window
+    assembly's kernels take for each point."""
+
+    xyz: torch.Tensor          # (N, 3)
+    intensity: torch.Tensor
+    mask: torch.Tensor
+    noise_at: torch.Tensor
+    bank_row: torch.Tensor     # (N,) int64
+    lo: torch.Tensor           # (N,) first window column
+    n_window: torch.Tensor     # (N,) particles in the angular window
+    center: torch.Tensor       # (N,) signed azimuth
+    min_int: torch.Tensor      # (N,) the channel's calibration
+    max_int: torch.Tensor
+    focal_slope: torch.Tensor
+    focal_offset: torch.Tensor
+    range_grid: torch.Tensor   # (M,)
+
+
+def window_inputs(points, mask, bank: BankTensors, calib: CalibTensors,
+                  order, draws, cfg: SnowfallConfig,
+                  plane=None) -> WindowInputs:
+    """Steps 1-3 of the window assembly (models/snowfall.py:307-350): the
+    stable sort by channel, the plane and noise floor, the per-point
+    channel tables and angular windows in the bank's signed sort azimuth."""
+    n_ch = order.shape[0]
     perm = torch.sort(torch.where(mask, points[:, 4], 1e9), stable=True
                       ).indices
     points, mask = points[perm], mask[perm]
     xyz, intensity = points[:, :3], points[:, 3]
     channel = points[:, 4].to(torch.int64).clamp(0, n_ch - 1)
-
-    # 2. plane -> incident angles -> adaptive noise polynomial
     noise_at = _plane_and_noise(xyz, intensity, mask, norm3(xyz), draws, cfg,
                                 plane)
-
-    # 3. per-point channel tables and angular windows in the bank's signed
-    # sort azimuth
     bank_row = order[channel]
-    min_int = calib.min_intensity[channel]
-    fs = calib.focal_slope[channel]
-    fo = calib.focal_offset[channel]
-    max_int = calib.max_intensity[channel]
     center = torch.atan2(xyz[:, 1], xyz[:, 0])
-    delta = cfg.beam_divergence_rad / 2 + cfg.wide_threshold
+    delta = window_delta(cfg)
     k_ext = bank.angle.shape[1]
     lo = _batched_searchsorted(bank.angle, bank_row, center - delta, k_ext)
     n_window = _batched_searchsorted(bank.angle, bank_row, center + delta,
                                      k_ext) - lo
-    range_grid = torch.as_tensor(cfg.range_grid(), device=dev)
-    cols = torch.arange(cfg.window_size, device=dev)
+    return WindowInputs(
+        xyz=xyz, intensity=intensity, mask=mask, noise_at=noise_at,
+        bank_row=bank_row, lo=lo, n_window=n_window, center=center,
+        min_int=calib.min_intensity[channel],
+        max_int=calib.max_intensity[channel],
+        focal_slope=calib.focal_slope[channel],
+        focal_offset=calib.focal_offset[channel],
+        range_grid=torch.as_tensor(cfg.range_grid(), device=points.device),
+    )
 
-    # 4. chunks of point_chunk points, as the JAX package's lax.map (a full
-    # (N, grid) waveform plane per bump would not fit)
-    outs = []
-    for c0 in range(0, n, p_chunk):
-        sl = slice(c0, c0 + p_chunk)
-        row, lo_c, ctr = bank_row[sl], lo[sl], center[sl]
-        widx = (lo_c[:, None] + cols).clamp(0, k_ext - 1)
-        wcand = bank.data[row[:, None], widx]                 # (P, S, 4)
-        wang = bank.angle[row[:, None], widx]
-        # entries outside the angular window (wraparound duplicates, the
-        # next particles) get an infinite range, so every test fails
-        in_win = (wang >= (ctr - delta)[:, None]) & (
-            wang <= (ctr + delta)[:, None])
-        wcand = torch.cat([wcand[:, :, :3], torch.where(
-            in_win, wcand[:, :, 3], 1e9)[:, :, None]], dim=2)
-        cand = torch.cat([wcand, bank.wide[row]], dim=1)
-        outs.append(_per_point_kernel(
-            xyz[sl], intensity[sl], mask[sl], cand, n_window[sl],
-            min_int[sl], max_int[sl], fs[sl], fo[sl], range_grid, cfg))
-    new_xyz, new_int, label = (torch.cat([o[i] for o in outs])
-                               for i in range(3))
-    diff_c, bump_of, occ_of, win_of = (torch.stack([o[i] for o in outs])
-                                       for i in range(3, 7))
+
+def window_delta(cfg: SnowfallConfig) -> float:
+    """Half-width of a point's angular window: half the beam plus the wide
+    threshold."""
+    return cfg.beam_divergence_rad / 2 + cfg.wide_threshold
+
+
+def window_occluder_call(inp: WindowInputs, bank: BankTensors,
+                         cfg: SnowfallConfig, sl=slice(None)):
+    """(args, kwargs) of `find_occluders_window` (kernel W1) and its plain
+    version for the points `sl` of `inp`."""
+    return ((inp.xyz[sl], inp.bank_row[sl], inp.lo[sl], inp.center[sl],
+             bank.data_t, bank.wide_t, bank.ang_t, bank.wang_t),
+            dict(window_size=cfg.window_size, delta=window_delta(cfg),
+                 k_occ=cfg.max_occluders, beam_rad=cfg.beam_divergence_rad))
+
+
+def window_pulse_call(inp: WindowInputs, occ, cfg: SnowfallConfig,
+                      sl=slice(None)):
+    """(args, kwargs) of `window_pulse_peaks` (kernel W2) and its plain
+    version for the points `sl` of `inp` with their occluders `occ` (the
+    first four outputs of W1)."""
+    return ((inp.xyz[sl], inp.max_int[sl], *occ[:4], inp.range_grid),
+            dict(beam_rad=cfg.beam_divergence_rad,
+                 ipm=cfg.intervals_per_meter, tau_h=cfg.tau_h,
+                 max_bumps=cfg.max_bumps))
+
+
+def window_augment(points, mask, bank: BankTensors, calib: CalibTensors,
+                   order, draws, cfg: SnowfallConfig, plane=None, *,
+                   plain: bool = False) -> SnowfallResult:
+    """The window assembly of one padded scan (models/snowfall.py:268-417).
+
+    On CUDA tensors: kernel W1 (`ops/occluders.find_occluders_window`) and
+    kernel W2 (`ops/pulse.window_pulse_peaks`), one launch each over all
+    points. On CPU tensors, or with plain=True on any device: their plain
+    versions chunk by chunk of `point_chunk` points, as the JAX package's
+    lax.map (a (P, M) waveform plane per bump). Both give the same bytes on
+    one device: the kernels equal their plain versions, and the decision
+    tail and the stats are the same code (the intensity differences summed
+    a chunk at a time, then over the chunks)."""
+    n = points.shape[0]
+    p_chunk = cfg.point_chunk
+    if n % p_chunk:
+        raise ValueError(f"max_points {n} is not a multiple of point_chunk "
+                         f"{p_chunk}")
+    inp = window_inputs(points, mask, bank, calib, order, draws, cfg, plane)
+    if points.device.type == "cuda" and not plain:
+        args, kw = window_occluder_call(inp, bank, cfg)
+        occ = find_occluders_window(*args, **kw)
+        args, kw = window_pulse_call(inp, occ, cfg)
+        peaks = window_pulse_peaks(*args, **kw)
+        occ_of = occ[4]
+    else:
+        chunks = []
+        for c0 in range(0, n, p_chunk):
+            sl = slice(c0, c0 + p_chunk)
+            args, kw = window_occluder_call(inp, bank, cfg, sl)
+            occ = occluders_window_plain(*args, **kw)
+            args, kw = window_pulse_call(inp, occ, cfg, sl)
+            chunks.append((*window_pulse_plain(*args, **kw), occ[4]))
+        *peaks, occ_of = (torch.cat(parts) for parts in zip(*chunks))
+    i_peak, peak_idx, touched, bump_of = peaks
+    mask = inp.mask
+    new_xyz, new_int, label, diff = _pulse_tail(
+        inp.xyz, inp.intensity, mask, i_peak, peak_idx, touched,
+        inp.min_int, inp.max_int, inp.focal_slope, inp.focal_offset, cfg)
 
     # 5. rounded intensities, the noise-floor keep rule, stats
     new_int = torch.round(new_int)
-    keep = mask & ((label == 2) | (new_int > noise_at))
+    keep = mask & ((label == 2) | (new_int > inp.noise_at))
     num_removed = (mask & ~keep).sum()
     num_attenuated = (keep & (label == 1)).sum()
-    diff_sum = diff_c.sum()
+    diff_sum = torch.stack([d.sum() for d in diff.split(p_chunk)]).sum()
     avg_diff = torch.where(
         num_attenuated > 0,
         (diff_sum / num_attenuated.clamp_min(1)).to(torch.int32), 0)
+    win_of = (inp.n_window - cfg.window_size).clamp_min(0)
     i32 = torch.int32
-    zero = torch.zeros((), dtype=i32, device=dev)
+    zero = torch.zeros((), dtype=i32, device=points.device)
     return SnowfallResult(
         planes=torch.stack([new_xyz[:, 0], new_xyz[:, 1], new_xyz[:, 2],
                             new_int, label]),
@@ -449,9 +462,9 @@ def snowfall_augment(points, mask, bank: BankTensors, calib: CalibTensors,
         num_attenuated=num_attenuated.to(i32),
         num_removed=num_removed.to(i32),
         avg_intensity_diff=avg_diff.to(i32),
-        window_overflow=win_of.sum().to(i32),
-        occluder_overflow=occ_of.sum().to(i32),
-        bump_overflow=bump_of.sum().to(i32),
+        window_overflow=torch.where(mask, win_of, 0).sum().to(i32),
+        occluder_overflow=torch.where(mask, occ_of, 0).sum().to(i32),
+        bump_overflow=torch.where(mask, bump_of, 0).sum().to(i32),
         channel_overflow=zero,
         compact_overflow=zero,
     )
@@ -1040,16 +1053,16 @@ class SnowfallAugmenter:
     `device`, grows any overflowed capacity and reruns, compacts. Mirrors
     the reference's `augment(pc, ...) -> (stats, aug_pc)` contract.
 
-    The default config is the dense assembly, on the kernels; its rows come
-    back in the original order. An explicit `SnowfallConfig()` runs the
-    window assembly, the JAX package's default, in plain torch, and returns
-    its rows in channel-sorted order; on a scan already stable-sorted by
-    channel the two outputs are equal.
+    The default config is the JAX package's, `SnowfallConfig()`: the window
+    assembly (kernels W1 and W2 on the card), whose rows come back in
+    channel-sorted order and whose window_overflow raises. A dense config
+    runs kernels A1-C2 and returns the rows in the original order; on a
+    scan already stable-sorted by channel the two outputs are equal.
     """
 
     bank: ParticleBank
     calib: SensorCalib
-    cfg: SnowfallConfig = SnowfallConfig(assembly="dense")
+    cfg: SnowfallConfig = SnowfallConfig()
     seed: int = 0
     device: str | torch.device = "cuda"
 

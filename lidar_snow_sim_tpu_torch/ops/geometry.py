@@ -46,8 +46,19 @@ def _same_halfplane(theta, pang):
     return torch.cos(theta - pang) > 0
 
 
+def candidate_angles(px, py, pr, pdist):
+    """(pang, start, end) of candidates: the center azimuth and the tangent
+    rays pang -+ asin(r/d), each wrapped into [0, 2pi). They depend on the
+    candidate alone, so the window assembly reads them from per-column
+    tables that this function makes once a bank (ops/occluders.
+    window_angles)."""
+    pang = wrap_02pi(torch.atan2(py, px))
+    delta = torch.arcsin(torch.clamp(pr / pdist.clamp_min(1e-12), 0.0, 1.0))
+    return pang, wrap_02pi(pang - delta), wrap_02pi(pang + delta)
+
+
 def candidate_intervals(right, left, px, py, pr, pdist, pvalid,
-                        current_range):
+                        current_range, angles=None):
     """Intersection test and clipped occlusion intervals of P beams against
     their C candidates each (the window assembly's, geometry.py:14-29 and
     simulation.py:356-390).
@@ -57,6 +68,8 @@ def candidate_intervals(right, left, px, py, pr, pdist, pvalid,
         target's range
       px, py, pr, pdist, pvalid: (P, C) candidate center, radius, range and
         validity
+      angles: the candidates' (pang, start, end), each (P, C), where they
+        were made before (`candidate_angles`); None computes them here
 
     Returns (a1, a2, intersects), each (P, C): the occlusion interval in
     the wrapped convention (start > end iff it crosses 0/2pi), and whether
@@ -67,7 +80,8 @@ def candidate_intervals(right, left, px, py, pr, pdist, pvalid,
     clipped to the edge it overlaps.
     """
     right, left = right[:, None], left[:, None]
-    pang = wrap_02pi(torch.atan2(py, px))
+    pang, start, end = (candidate_angles(px, py, pr, pdist)
+                        if angles is None else angles)
     wrapped_beam = right > left
 
     center_in = (right <= pang) & (pang <= left)
@@ -82,7 +96,6 @@ def candidate_intervals(right, left, px, py, pr, pdist, pvalid,
     in_range = pdist < current_range[:, None]
     intersects = (center_in | right_hit | left_hit) & in_range & pvalid
 
-    delta = torch.arcsin(torch.clamp(pr / pdist.clamp_min(1e-12), 0.0, 1.0))
-    a1 = torch.where(right_hit, right, wrap_02pi(pang - delta))
-    a2 = torch.where(left_hit, left, wrap_02pi(pang + delta))
+    a1 = torch.where(right_hit, right, start)
+    a2 = torch.where(left_hit, left, end)
     return a1, a2, intersects

@@ -1,12 +1,14 @@
-"""Phase A of the dense snowfall assembly: the nearest K occluders of each
-beam (counterpart of `lidar_snow_sim_tpu/ops/pallas_occluders.py`).
+"""Phase A of the dense snowfall assembly, and the window assembly's
+occluders: the nearest K occluders of each beam (counterpart of
+`lidar_snow_sim_tpu/ops/pallas_occluders.py`).
 
-Five kernels, all in `csrc/occluders.cu`, each with a wrapper that
+Six kernels, all in `csrc/occluders.cu`, each with a wrapper that
 launches it on CUDA tensors and runs its plain torch version on CPU
-tensors. All follow the arithmetic of the TPU kernels: an exact hit test
-of every beam of a chunk against a candidate list, then the K nearest hits
-in lax.top_k order over that list (ascending range, ties to the lowest
-candidate column).
+tensors. The dense assembly's five follow the arithmetic of the TPU
+kernels: an exact hit test of every beam of a chunk against a candidate
+list, then the K nearest hits in lax.top_k order over that list (ascending
+range, ties to the lowest candidate column); W1 follows the JAX package's
+window assembly.
 
 - A1 (`find_occluders`, `occluders_plain`; TPU `_kernel`,
   pallas_occluders.py:150): every beam against one bank slice plus the
@@ -30,8 +32,15 @@ candidate column).
   live.
 - The folded A1 (`find_occluders_folded`, the TPU `batch_fold` rule,
   :1080-1128): B frames' A1 chunks in one A1 launch.
+- W1 (`find_occluders_window`, `occluders_window_plain`): the window
+  assembly's occluders, which the JAX package leaves to XLA
+  (models/snowfall.py:112-148, 352-373): each point against its own
+  angular window of `window_size` bank columns and its row's wide list,
+  the nearest K hits with the window assembly's hit test
+  (`ops/geometry.candidate_intervals`), outputs (N, K).
 
-All five kernels run one lane-split body in the CUDA source: a beam's
+The dense assembly's five kernels run one lane-split body in the CUDA
+source (W1 reuses its per-lane top-K and merge): a beam's
 candidates split over a few lanes and merged in lax.top_k order. A1, A4a,
 A4b and A2's mode-1 chunks test A1's whole list; A2's mode-2 chunks and A3
 test their group's band runs and the wide prefix.
@@ -60,7 +69,13 @@ from __future__ import annotations
 import torch
 
 from lidar_snow_sim_tpu_torch import _kernels
-from lidar_snow_sim_tpu_torch.ops.geometry import TWO_PI, beam_limits
+from lidar_snow_sim_tpu_torch.ops.geometry import (
+    TWO_PI,
+    beam_limits,
+    candidate_angles,
+    candidate_intervals,
+    norm3,
+)
 
 BIG = 3.0e38
 N_FEAT = 9
@@ -520,7 +535,155 @@ def fold_args(frame_args, blk: int):
     return folded, offsets
 
 
+WINDOW_FAR = 1e9   # the range of a window entry outside the point's window
+
+
+def occluders_window_plain(xyz, row, lo, center, data_t, wide_t, ang_t,
+                           wang_t, *, window_size: int, delta: float,
+                           k_occ: int, beam_rad: float):
+    """Plain torch version of kernel W1: the window assembly's occluders of
+    P points (the JAX package's `_occluder_phase` on the candidates its
+    `chunk_fn` gathers, models/snowfall.py:112-148, 356-368).
+
+    Point i's candidates are bank columns lo[i] + j, j < window_size
+    (clamped to the row's last column, so a window past the row's end
+    repeats that column), of bank row row[i], then the row's n_wide wide
+    columns (n_wide = wang_t.shape[2]). A window column whose sort angle
+    lies outside [center - delta, center + delta] takes the range
+    WINDOW_FAR, so it fails the range test, and keeps its index. The hit
+    test is `candidate_intervals` on the columns' angles from the bank's
+    tables ang_t and wang_t (`window_angles`), which kernel W1 reads too;
+    the K nearest hits in lax.top_k's order (range, then candidate index).
+
+    Returns occ_a1, occ_a2, occ_dist (P, K) f32, occ_valid (P, K) bool and
+    occ_overflow (P,) int32, the hits beyond K. An empty slot holds a1 = a2
+    = 0 and dist = inf (kernel W1 writes the same; the JAX package leaves
+    the a1/a2 of whatever candidate top_k took there, which every consumer
+    masks).
+    """
+    k_ext, n_wide = data_t.shape[2], wang_t.shape[2]
+    if k_occ > window_size + n_wide:
+        raise ValueError(f"max_occluders {k_occ} exceeds the "
+                         f"{window_size + n_wide} candidates of a point")
+    data = data_t[:, :4].transpose(1, 2)                 # (C, k_ext, 4)
+    angle = data_t[:, SANG_ROW]
+    wide = wide_t[:, :4, :n_wide].transpose(1, 2)        # (C, n_wide, 4)
+    widx = (lo[:, None] + torch.arange(window_size, device=lo.device)
+            ).clamp(0, k_ext - 1)
+    wcand = data[row[:, None], widx]                     # (P, S, 4)
+    wang = angle[row[:, None], widx]
+    in_win = (wang >= (center - delta)[:, None]) & (
+        wang <= (center + delta)[:, None])
+    wcand = torch.cat([wcand[:, :, :3], torch.where(
+        in_win, wcand[:, :, 3], WINDOW_FAR)[:, :, None]], dim=2)
+    cand = torch.cat([wcand, wide[row]], dim=1)          # (P, S + W, 4)
+    # (P, S + W, 3) pang, start, end: the columns' own values, so an
+    # out-of-window column's interval is that of its true range (it never
+    # hits, and an empty slot's a1/a2 are 0)
+    ang = torch.cat([ang_t.transpose(1, 2)[row[:, None], widx],
+                     wang_t.transpose(1, 2)[row]], dim=1)
+    right, left = beam_limits(xyz[:, 0], xyz[:, 1], beam_rad)
+    a1, a2, hit = candidate_intervals(
+        right, left, cand[:, :, 0], cand[:, :, 1], cand[:, :, 2],
+        cand[:, :, 3], torch.ones(cand.shape[:2], dtype=torch.bool,
+                                  device=cand.device), norm3(xyz),
+        angles=ang.unbind(2))
+    occ_overflow = (hit.sum(dim=1) - k_occ).clamp_min(0).to(torch.int32)
+    # lax.top_k's order: the nearest first, equal ranges by candidate index
+    score = torch.where(hit, cand[:, :, 3], float("inf"))
+    top, idx = torch.sort(score, dim=1, stable=True)
+    top, idx = top[:, :k_occ], idx[:, :k_occ]
+    valid = top < float("inf")
+    return (torch.where(valid, a1.gather(1, idx), 0.0),
+            torch.where(valid, a2.gather(1, idx), 0.0), top, valid,
+            occ_overflow)
+
+
+def window_angles(data_t, wide_t, n_wide: int):
+    """The per-column angle tables of a bank that the window assembly
+    reads (W1 and its plain version): (C, 3, k_ext) and (C, 3, n_wide) f32
+    rows [pang, start, end] (`candidate_angles`) of the bank's columns and
+    of its first n_wide wide columns, made with torch on the bank's device.
+    They depend on the bank alone, so `models/snowfall.bank_to_torch` makes
+    them once a bank."""
+    def table(t):
+        return torch.stack(candidate_angles(t[:, 0], t[:, 1], t[:, 2],
+                                            t[:, 3]), dim=1).contiguous()
+
+    return table(data_t), table(wide_t[:, :, :n_wide])
+
+
+def find_occluders_window(xyz, row, lo, center, data_t, wide_t, ang_t,
+                          wang_t, *, window_size: int, delta: float,
+                          k_occ: int, beam_rad: float):
+    """The window assembly's occluders of P points: kernel W1 on CUDA
+    tensors, `occluders_window_plain` on CPU tensors. xyz (P, 3) f32, row
+    and lo (P,) integer, center (P,) f32 (each point's signed azimuth),
+    data_t (C, 8, k_ext) and wide_t (C, 8, wc) f32, ang_t (C, 3, k_ext) and
+    wang_t (C, 3, n_wide) the bank's angle tables (`window_angles`).
+    Returns what `occluders_window_plain` returns."""
+    if xyz.device.type == "cpu":
+        return occluders_window_plain(
+            xyz, row, lo, center, data_t, wide_t, ang_t, wang_t,
+            window_size=window_size, delta=delta, k_occ=k_occ,
+            beam_rad=beam_rad)
+    return launch_w1(w1_inputs(xyz, row, lo, center, data_t, wide_t, ang_t,
+                               wang_t, delta=delta, beam_rad=beam_rad),
+                     window_size=window_size, k_occ=k_occ)
+
+
+def w1_inputs(xyz, row, lo, center, data_t, wide_t, ang_t, wang_t, *,
+              delta: float, beam_rad: float) -> tuple:
+    """Kernel W1's arrays, made by torch as `occluders_window_plain` makes
+    its values: the point features (`point_features`), each point's window
+    [center - delta, center + delta], row and lo as int32, the bank and its
+    angle tables."""
+    feats = point_features(xyz[:, 0], xyz[:, 1], xyz[:, 2],
+                           beam_rad).contiguous()
+    bounds = torch.stack([center - delta, center + delta], dim=1)
+    return (feats, row.to(torch.int32), lo.to(torch.int32), bounds, data_t,
+            wide_t, ang_t, wang_t)
+
+
+def launch_w1(inputs: tuple, *, window_size: int, k_occ: int):
+    """Launch kernel W1 on `w1_inputs`' arrays (CUDA tensors) and count
+    the launch; returns (a1, a2, dist, valid, overflow)."""
+    feats, row, lo, bounds, data_t, wide_t, ang_t, wang_t = inputs
+    n = feats.shape[0]
+    c_banks, _, k_ext = data_t.shape
+    wc, n_wide = wide_t.shape[2], wang_t.shape[2]
+    if not 0 < k_occ <= MAX_OCCLUDERS:
+        raise ValueError(f"max_occluders {k_occ} outside 1..{MAX_OCCLUDERS}")
+    if k_occ > window_size + n_wide or n_wide > wc:
+        raise ValueError(f"max_occluders {k_occ} and n_wide {n_wide} do not "
+                         f"fit window {window_size} + wide {wc}")
+    check = _kernels.check_input
+    check("feats", feats, torch.float32, (n, N_FEAT))
+    check("row", row, torch.int32, (n,))
+    check("lo", lo, torch.int32, (n,))
+    check("bounds", bounds, torch.float32, (n, 2))
+    check("data_t", data_t, torch.float32, (c_banks, 8, k_ext))
+    check("wide_t", wide_t, torch.float32, (c_banks, 8, wc))
+    check("ang_t", ang_t, torch.float32, (c_banks, 3, k_ext))
+    check("wang_t", wang_t, torch.float32, (c_banks, 3, n_wide))
+    dev = feats.device
+    a1, a2, dist = (torch.empty((n, k_occ), dtype=torch.float32, device=dev)
+                    for _ in range(3))
+    valid = torch.empty((n, k_occ), dtype=torch.bool, device=dev)
+    ovf = torch.empty(n, dtype=torch.int32, device=dev)
+    err = _kernels.launch(
+        dev, _kernels.load("occluders").occluders_w1,
+        *(t.data_ptr() for t in inputs), a1.data_ptr(), a2.data_ptr(),
+        dist.data_ptr(), valid.data_ptr(), ovf.data_ptr(), n, k_ext, wc,
+        n_wide, window_size, k_occ, _stream(feats),
+    )
+    _kernels.check(err, "kernel W1 (occluders_w1)")
+    find_occluders_window.launches += 1
+    return a1, a2, dist, valid, ovf
+
+
 find_occluders.launches = 0
+find_occluders_window.launches = 0
 find_occluders_routed.launches = 0
 find_occluders_banded.launches = 0
 find_occluders_t.launches = 0

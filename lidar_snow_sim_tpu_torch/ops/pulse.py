@@ -19,7 +19,12 @@ arithmetic of the TPU kernel `_kernel` (pallas_pulse.py:173):
    (r + c_tau) * ipm with pulse 0.5 * (1 - (cos_g * cb + sin_g * sb));
 4. the peak and its first bin.
 
-Inputs are K-outer: feats (4, cap) rows [d_orig, right, left,
+`window_pulse_peaks` launches kernel W2 (`csrc/pulse.cu`), the window
+assembly's sweep, bump selection and pulse peak, which the JAX package
+leaves to XLA (models/snowfall.py:151-199); `window_pulse_plain` is its
+plain version. Its inputs and outputs are per point, (N, K) and (N,).
+
+C1's and C2's inputs are K-outer: feats (4, cap) rows [d_orig, right, left,
 0.9 * max_intensity]; a1, a2, rr, valid (K, cap); cos_b, sin_b (K+1, cap),
 row K the hard target; cos_g, sin_g (M,). Outputs (cap,) each: peak f32,
 first peak bin int32, touched bool (the kernels write it as one byte a
@@ -28,11 +33,16 @@ beam), remainder f32.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from lidar_snow_sim_tpu_torch import _kernels
+from lidar_snow_sim_tpu_torch.config import SPEED_OF_LIGHT
 from lidar_snow_sim_tpu_torch.ops.f32 import div
-from lidar_snow_sim_tpu_torch.ops.geometry import TWO_PI
+from lidar_snow_sim_tpu_torch.ops.geometry import TWO_PI, beam_limits, norm3
+from lidar_snow_sim_tpu_torch.ops.sweep import occlusion_sweep
+from lidar_snow_sim_tpu_torch.ops.waveform import waveform_peak, xsi
 
 BIG = 3.0e38
 _CHUNK = 512    # beams per waveform step of the plain version (bounds memory)
@@ -254,5 +264,109 @@ def pulse_peaks_pair(*args, blk: int, **kw):
     return out
 
 
+def window_pulse_plain(xyz, max_int, occ_a1, occ_a2, occ_dist, occ_valid,
+                       range_grid, *, beam_rad: float, ipm: int,
+                       tau_h: float, max_bumps: int):
+    """Plain torch version of kernel W2 (the JAX package's `_pulse_phase`
+    up to the waveform's peak, models/snowfall.py:172-199) for P points with
+    their occluders (P, K) from `occluders_window_plain`: the first-claim
+    sweep (`ops/sweep.occlusion_sweep`), the max_bumps largest nonzero
+    ratios (lax.top_k's order: ties by column, zeros fill the tail), the
+    amplitudes 0.9 * max_int * ratio * xsi(r) / r^2 with the hard target
+    last, and the summed waveform's peak (`ops/waveform.waveform_peak`).
+
+    Returns four (P,) tensors: the peak (f32), its first bin (int32),
+    touched (bool) and bump_overflow (int32: the count of nonzero ratios
+    beyond max_bumps). A point at the origin has a NaN target amplitude
+    (0/0), so peak NaN and bin M.
+    """
+    d_orig = norm3(xyz)
+    right, left = beam_limits(xyz[:, 0], xyz[:, 1], beam_rad)
+    ratio, remainder, touched = occlusion_sweep(right, left, occ_a1, occ_a2,
+                                                occ_valid, beam_rad)
+    bump_overflow = ((ratio > 0).sum(dim=1) - max_bumps).clamp_min(0)
+    bump_ratio, bump_idx = torch.sort(ratio, dim=1, descending=True,
+                                      stable=True)
+    bump_ratio = bump_ratio[:, :max_bumps]
+    bump_r = occ_dist.gather(1, bump_idx[:, :max_bumps])
+    # every amplitude, the hard target's included, takes the snowflake
+    # scale 0.9 * max_intensity (the reference's CA_P0 carry-over)
+    amp_scale = 0.9 * max_int
+    bump_amp = amp_scale[:, None] * bump_ratio * xsi(bump_r) / (
+        bump_r * bump_r)
+    bump_amp = torch.where(bump_ratio > 0, bump_amp, 0.0)
+    tgt_amp = amp_scale * remainder * xsi(d_orig) / (d_orig * d_orig)
+    peak, idx = waveform_peak(
+        torch.cat([bump_r, d_orig[:, None]], dim=1),
+        torch.cat([bump_amp, tgt_amp[:, None]], dim=1),
+        range_grid, ipm, tau_h)
+    return (peak, idx.to(torch.int32), touched.any(dim=1),
+            bump_overflow.to(torch.int32))
+
+
+def window_pulse_peaks(xyz, max_int, occ_a1, occ_a2, occ_dist, occ_valid,
+                       range_grid, *, beam_rad: float, ipm: int,
+                       tau_h: float, max_bumps: int):
+    """Kernel W2 on CUDA tensors, `window_pulse_plain` on CPU tensors;
+    arguments and outputs as `window_pulse_plain`."""
+    if xyz.device.type == "cpu":
+        return window_pulse_plain(xyz, max_int, occ_a1, occ_a2, occ_dist,
+                                  occ_valid, range_grid, beam_rad=beam_rad,
+                                  ipm=ipm, tau_h=tau_h, max_bumps=max_bumps)
+    return launch_w2(w2_inputs(xyz, max_int, occ_a1, occ_a2, occ_dist,
+                               occ_valid, range_grid, beam_rad=beam_rad,
+                               tau_h=tau_h),
+                     beam_rad=beam_rad, ipm=ipm, tau_h=tau_h,
+                     max_bumps=max_bumps)
+
+
+def w2_inputs(xyz, max_int, occ_a1, occ_a2, occ_dist, occ_valid,
+              range_grid, *, beam_rad: float, tau_h: float) -> tuple:
+    """Kernel W2's arrays, with the transcendentals made by torch as
+    `window_pulse_plain` makes them: feats (4, P) rows [d_orig, right,
+    left, 0.9 * max_int]; W1's four (P, K) rows; cos and sin of each slot's
+    pulse phase (P, K), of the target's (P,) and of the grid's (M,)."""
+    phase = 2.0 * math.pi / (SPEED_OF_LIGHT * tau_h)   # as waveform_peak
+    d_orig = norm3(xyz)
+    right, left = beam_limits(xyz[:, 0], xyz[:, 1], beam_rad)
+    beta, beta_t, gph = phase * occ_dist, phase * d_orig, phase * range_grid
+    return (torch.stack([d_orig, right, left, 0.9 * max_int]), occ_a1,
+            occ_a2, occ_dist, occ_valid, torch.cos(beta), torch.sin(beta),
+            torch.cos(beta_t), torch.sin(beta_t), torch.cos(gph),
+            torch.sin(gph))
+
+
+def launch_w2(inputs: tuple, *, beam_rad: float, ipm: int, tau_h: float,
+              max_bumps: int):
+    """Launch kernel W2 on `w2_inputs`' arrays (CUDA tensors) and count
+    the launch; returns (peak, first bin, touched, bump_overflow)."""
+    n, k_occ = inputs[1].shape
+    m_bins = inputs[-1].shape[0]
+    names = ("feats", "occ_a1", "occ_a2", "occ_dist", "occ_valid", "cos_b",
+             "sin_b", "cos_t", "sin_t", "cos_g", "sin_g")
+    shapes = ((4, n), *[(n, k_occ)] * 6, (n,), (n,), (m_bins,), (m_bins,))
+    for name, t, shape in zip(names, inputs, shapes):
+        _kernels.check_input(name, t, torch.bool if name == "occ_valid"
+                             else torch.float32, shape)
+    dev = inputs[0].device
+    peak = torch.empty(n, dtype=torch.float32, device=dev)
+    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    touched = torch.empty(n, dtype=torch.bool, device=dev)
+    bump_overflow = torch.empty(n, dtype=torch.int32, device=dev)
+    # xsi's ramp as ops/waveform.xsi's defaults, which the plain version
+    # takes
+    err = _kernels.launch(
+        dev, _kernels.load("pulse").pulse_w2,
+        *(t.data_ptr() for t in inputs), peak.data_ptr(), idx.data_ptr(),
+        touched.data_ptr(), bump_overflow.data_ptr(), n, k_occ, m_bins,
+        max_bumps, beam_rad, float(ipm), SPEED_OF_LIGHT * tau_h, 0.9,
+        1.0 - 0.9, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _kernels.check(err, "kernel W2 (pulse_w2)")
+    window_pulse_peaks.launches += 1
+    return peak, idx, touched, bump_overflow
+
+
 pulse_peaks.launches = 0
 pulse_peaks_pair.launches = 0
+window_pulse_peaks.launches = 0

@@ -12,8 +12,11 @@ simulation.py:231-295), so for each beam:
   claimed_j  = sum_k diffs_k * [winner_k == j]
 
 Duplicate endpoints make zero-width sub-intervals that claim nothing. A beam
-crossing 0/2pi is unwrapped as the reference does. The dense assembly's
-phase C computes the same claims by extract-min (`ops/pulse.py`).
+crossing 0/2pi is unwrapped as the reference does. Each occluder's widths,
+and the target's, are summed in interval order (ascending endpoints): the
+order of kernel W2 (`ops/pulse.window_pulse_peaks`), which equals this
+function bit for bit, and of the dense assembly's phase C, which computes
+the same claims by extract-min (`ops/pulse.py`).
 """
 
 from __future__ import annotations
@@ -59,10 +62,12 @@ def occlusion_sweep(right, left, a1, a2, valid, beam_divergence_rad: float):
              & valid[:, :, None])                            # (P, K, 2K+1)
     ranks = torch.arange(k, dtype=torch.float32, device=a1.device)
     winner = torch.where(cover, ranks[:, None], _BIG).amin(dim=1)
-    claims = torch.where(winner[:, None, :] == ranks[:, None],
-                         diffs[:, None, :], 0.0)
-    claimed = claims.sum(dim=2)                              # (P, K)
-    unclaimed = torch.where(winner == _BIG, diffs, 0.0).sum(dim=1)
+    claimed = torch.zeros_like(a1)                           # (P, K)
+    unclaimed = torch.zeros_like(left)
+    for i in range(diffs.shape[1]):   # in interval order, as kernel W2
+        w, d = winner[:, i], diffs[:, i]
+        claimed = claimed + torch.where(ranks == w[:, None], d[:, None], 0.0)
+        unclaimed = unclaimed + torch.where(w == _BIG, d, 0.0)
 
     ratio = torch.clamp(div(claimed, beam_divergence_rad), 0.0, 1.0)
     remainder = torch.clamp(div(unclaimed, beam_divergence_rad), 0.0, 1.0)

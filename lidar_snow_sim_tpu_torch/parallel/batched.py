@@ -8,8 +8,8 @@ core: each frame's preamble and phase-A layout; phase A folded into one A1
 launch over the batch when `batch_fold` is set and every frame's kernel is
 A1 (the JAX package's fold rule, pallas_occluders.py:1080-1128), else one
 launch per frame; then each frame's phases B, C and D, and wet ground. A
-window config (`assembly="window"`, plain torch as the JAX package's is
-plain XLA) runs `snowfall_augment` frame by frame, each frame's rows
+window config (`assembly="window"`) runs `snowfall_augment` frame by frame
+(kernels W1 and W2 once a frame on the card), each frame's rows
 stable-sorted by channel with the padding last, as the JAX `batched_step`
 gives them. The packed in/out surface is the JAX package's.
 

@@ -20,9 +20,9 @@ every piece of this framework:
 Writes one JSON artifact with every number, under the JAX tool's keys
 ("platform" is the torch device type). Every stage runs on --device
 (default cuda; without a card it raises, and the CPU must be asked for
-with --device cpu): the datagen's kernels A1 and C1, training, detection
-and the AP's IoU matrices. The port's datagen runs the dense assembly,
-whose output equals the window assembly the JAX tool runs. Example:
+with --device cpu): the datagen's kernels W1 and W2 (the window assembly,
+as the JAX tool's), training, detection and the AP's IoU matrices.
+Example:
 
   python -m lidar_snow_sim_tpu_torch.tools.experiment --out EXPERIMENT.json \
       --work work_dir/ --steps 300 --finetune-steps 150
@@ -149,7 +149,7 @@ def snowify(scans: Path, stems, out_dir: Path, calib, batch=4,
     cfg = SnowfallConfig(
         max_points=max_points, window_size=128, wide_capacity=16,
         max_occluders=24, max_bumps=16, point_chunk=2048,
-        channel_capacity=max(max_points // 32, 128), assembly="dense",
+        channel_capacity=max(max_points // 32, 128),
     )
     bank = get_bank(cfg, BUILD_DIR / "banks")
     stats = run_snowfall_datagen(

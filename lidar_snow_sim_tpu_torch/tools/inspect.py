@@ -178,16 +178,11 @@ def run_pipeline(args, ap):
         occ = compute_occupancy(args.rate, args.velocity)
         prefix = f"{args.mode}_{rr}_{occ}"   # the viewer's live prefix
         cap = 1 << int(np.ceil(np.log2(max(len(pc), 2))))
-        pch = max(cap // 64, 256)
-        # the JAX CLI's capacities on the dense assembly (the JAX CLI runs
-        # the window one: the same points and stats, in the input's row
-        # order), laid out as api.augment lays it out, so that snow runs
-        # kernels A1 and C1
+        # the JAX CLI's config: the window assembly (kernels W1 and W2 on
+        # the card), rows back stable-sorted by channel
         cfg = SnowfallConfig(
             max_points=cap, window_size=256, wide_capacity=128,
             max_occluders=64, max_bumps=32, point_chunk=2048,
-            assembly="dense", channel_capacity=pch,
-            block_points=max(min(128, pch // 8), 32),
         )
 
         def make_snow():

@@ -4,18 +4,20 @@ write a report (counterpart of `lidar_snow_sim_tpu/tools/parity_tpu.py`).
 The CPU harness (tests/test_snowfall_parity.py) is exact; the card's float32
 (its own transcendentals, reduction orders) can shift decision boundaries
 the CPU never sees. This tool runs the JAX tool's scene through the window
-assembly (plain torch), the dense assembly (kernels A1 and C1) and the
-span-routed dense assembly (kernel A2 in both of its modes, then C1) on the
-device, classifies every mismatch against the port's NumPy oracle with its
-margin machinery (`oracle/parity.py`), and writes the counts with the
-card's name and power limit (nvidia-smi) and the torch version.
+assembly (kernels W1 and W2), the dense assembly (kernels A1 and C1) and
+the span-routed dense assembly (kernel A2 in both of its modes, then C1) on
+the device, classifies every mismatch against the port's NumPy oracle with
+its margin machinery (`oracle/parity.py`), and writes the counts and each
+variant's kernel launches with the card's name and power limit
+(nvidia-smi) and the torch version.
 
 Usage:  python -m lidar_snow_sim_tpu_torch.tools.parity_gpu [out.json]
         [--device cuda|cpu]
 
 The device defaults to cuda and raises without a card; the CPU must be asked
 for. Exits 1 unless every variant has 0 unexplained mismatches, a mismatch
-rate under 0.002 and no overflow.
+rate under 0.002 and no overflow, and, on the card, launched its kernels
+(`KERNELS`).
 """
 
 from __future__ import annotations
@@ -67,6 +69,11 @@ def build_scene():
     return calib, pc, sets, bank, order, cfg
 
 
+# the kernels each variant launches on the card
+KERNELS = {"window": ("W1", "W2"), "dense_pallas": ("A1", "C1"),
+           "dense_pallas_routed": ("A2", "C1")}
+
+
 def variants(cfg):
     """The JAX tool's three variants (parity_tpu.py:98-116) on the port's
     config: window; dense (A1, C1); dense span-routed with route_band 128
@@ -102,8 +109,12 @@ def main(argv=None) -> int:
     from lidar_snow_sim_tpu_torch.ops.occluders import (
         find_occluders,
         find_occluders_routed,
+        find_occluders_window,
     )
-    from lidar_snow_sim_tpu_torch.ops.pulse import pulse_peaks
+    from lidar_snow_sim_tpu_torch.ops.pulse import (
+        pulse_peaks,
+        window_pulse_peaks,
+    )
     from lidar_snow_sim_tpu_torch.oracle.parity import classify_parity
     from lidar_snow_sim_tpu_torch.oracle.snowfall import (
         augment as augment_oracle,
@@ -136,7 +147,8 @@ def main(argv=None) -> int:
                torch.tensor(plane[1], dtype=torch.float32, device=dev))
     n = len(pc)
     counted = {"A1": find_occluders, "A2": find_occluders_routed,
-               "C1": pulse_peaks}
+               "C1": pulse_peaks, "W1": find_occluders_window,
+               "W2": window_pulse_peaks}
 
     report = {
         "backend": dev.type,
@@ -185,7 +197,9 @@ def main(argv=None) -> int:
     ok = all(
         a["num_unexplained"] == 0 and a["mismatch_rate"] < 0.002
         and not any(a["overflows"].values())
-        for a in report["assemblies"].values()
+        and (dev.type != "cuda"
+             or all(a["launches"][k] >= 1 for k in KERNELS[name]))
+        for name, a in report["assemblies"].items()
     )
     report["ok"] = bool(ok)
     with open(args.out, "w") as f:

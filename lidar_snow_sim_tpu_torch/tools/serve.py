@@ -8,7 +8,7 @@ local HTTP server (stdlib only) behind the tools/viewer.py page:
 - moving a control re-runs the port's inspect pipeline on the base scan
   and sends the new frame payload, as the reference's `snowfall_change`
   (`pointcloud_viewer.py:1635`) re-augments the displayed cloud at every
-  slider move; snow runs kernels A1 and C1 on the card, LISA kernel L1;
+  slider move; snow runs kernels W1 and W2 on the card, LISA kernel L1;
 - the "run inference" button runs the port's PointPillars `detect` on the
   displayed (augmented and masked) cloud and overlays the predicted boxes,
   as the reference's `run_inference` (`pointcloud_viewer.py:2388-2436`)

@@ -65,7 +65,9 @@ def build_other(root: Path, name: str) -> ctypes.CDLL:
                            f"{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(str(out))
     for fn, argtypes in _kernels.SIGNATURES[name].items():
-        f = getattr(lib, fn)
+        f = getattr(lib, fn, None)
+        if f is None:   # an entry point newer than the other checkout
+            continue
         f.argtypes = argtypes
         f.restype = ctypes.c_int
     return lib

@@ -262,7 +262,7 @@ def _report(**change):
                 assemblies=variants)
 
 
-LAUNCHED = dict(A1=1, A2=1, C1=2)
+LAUNCHED = dict(A1=1, A2=1, C1=2, W1=1, W2=1)
 
 
 @pytest.mark.parametrize("report,launches,want", [
@@ -279,7 +279,9 @@ LAUNCHED = dict(A1=1, A2=1, C1=2)
     (_report(dense_pallas_routed=dict(mismatch_rate=0.002)), LAUNCHED,
      ["dense_pallas_routed: 0 unexplained, mismatch rate 0.002"]),
     (_report(), dict(LAUNCHED, A2=0), ["A2 never launched"]),
-    (_report(), dict(A1=1), ["A2 never launched", "C1 never launched"]),
+    (_report(), dict(LAUNCHED, W2=0), ["W2 never launched"]),
+    (_report(), dict(A1=1), ["A2 never launched", "C1 never launched",
+                             "W1 never launched", "W2 never launched"]),
     ({k: v for k, v in _report().items() if k != "assemblies"}, LAUNCHED,
      ["variants []"]),
 ])

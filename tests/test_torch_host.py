@@ -9,6 +9,7 @@ Mie table from the same seeds; every array must be equal bit for bit.
 import dataclasses
 import json
 import pickle
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -669,6 +670,28 @@ def test_splits_bitwise(tmp_path):
             jsp.reorder_second_half_first(ids)
         assert reference_sample_order(split) == \
             tsp.reorder_second_half_first(ids)
+
+
+SPLITS = ("test_clear", "test_snow_heavy", "test_snow_light", "train_clear",
+          "val_clear")
+
+
+@pytest.mark.parametrize("name", SPLITS)
+def test_split_files_bitwise(name):
+    """The port ships the JAX package's STF split files byte for byte, and
+    read_split reads the same sample IDs from both."""
+    import lidar_snow_sim_tpu
+    import lidar_snow_sim_tpu_torch
+    from lidar_snow_sim_tpu_torch.utils import splits as tsp
+
+    want = Path(lidar_snow_sim_tpu.__file__).parent / "data" / "splits"
+    got = Path(lidar_snow_sim_tpu_torch.__file__).parent / "data" / "splits"
+    assert sorted(p.name for p in got.glob("*.txt")) == \
+        sorted(p.name for p in want.glob("*.txt"))
+    assert (got / f"{name}.txt").read_bytes() == \
+        (want / f"{name}.txt").read_bytes()
+    assert tsp.read_split(got / f"{name}.txt") == \
+        tsp.read_split(want / f"{name}.txt")
 
 
 def test_stage_profiler_matches_jax():

@@ -7,7 +7,14 @@ boundary (the f32 distance expansion's cancellation can flip such pairs,
 models/dror.py), and the test asserts that before comparing. The
 augmentations draw from different generators in the two packages (jax.random
 and torch), so there the reports must have the same keys, the output labels
-lie in {0, 1, 2} and the capacity counters read 0.
+lie in {0, 1, 2} and the capacity counters read 0. Snow and snow+wet run
+once more with the JAX package's RANSAC draws handed to the port
+(`jax_draws`) and numpy's global seed (the channel order) set the same
+before each package's run: both packages' rows, in the JAX CLI's order
+(the window assembly's, stable-sorted by channel), and the reports' values
+agree under the parity contract of tests/test_snowfall_parity.py (labels,
+intensities and kept rows equal but on under 0.2% of points, xyz within
+1e-6; the stats equal where no point differs).
 """
 
 import argparse
@@ -19,6 +26,9 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
+from lidar_snow_sim_tpu.tools import inspect as jinspect
 from lidar_snow_sim_tpu.tools.inspect import main as jax_inspect
 from lidar_snow_sim_tpu_torch import (
     compute_occupancy,
@@ -151,3 +161,47 @@ def test_inspect_main_prints_report_and_bev(scene, tmp_path, capsys):
     assert report["bev"] == str(bev.resolve())
     assert bev.stat().st_size > 0
     assert report["fog"]["num_removed"] == 0
+
+
+def jax_draws(seed, trials, generator=None):
+    """The JAX package's RANSAC uniforms of `seed`: its augmenters fit the
+    plane with jax.random.uniform(PRNGKey(seed), (trials, 3))
+    (ops/fitting.py:217), where the port draws from a torch generator."""
+    return torch.tensor(np.asarray(jax.random.uniform(
+        jax.random.PRNGKey(seed), (trials, 3))))
+
+
+def assert_rows_parity(got, want):
+    """Two packages' output rows under the parity contract: the same rows,
+    labels and intensities equal on >= 99.8% of them, xyz within 1e-6
+    elsewhere; returns the rows that differ."""
+    assert got.shape == want.shape
+    off = (got[:, 3:] != want[:, 3:]).any(axis=1)
+    assert off.mean() < 0.002, f"{off.sum()} of {len(got)} rows differ"
+    np.testing.assert_allclose(got[~off, :3], want[~off, :3], rtol=1e-6,
+                               atol=1e-6)
+    return int(off.sum())
+
+
+@pytest.mark.parametrize("augment", ["snow", "snow+wet"])
+def test_inspect_snow_matches_jax_values(scene, augment, monkeypatch):
+    from lidar_snow_sim_tpu_torch.models import snowfall as tsnow
+    from lidar_snow_sim_tpu_torch.models import wet_ground as twet
+
+    monkeypatch.setattr(tsnow, "ransac_draws", jax_draws)
+    monkeypatch.setattr(twet, "ransac_draws", jax_draws)
+    _, scan, banks = scene
+    argv = [str(scan), "--augment", augment, "--bank-dir", str(banks),
+            "--seed", "5"]
+    jap = jinspect.add_pipeline_args(argparse.ArgumentParser())
+    np.random.seed(13)
+    want, jrep, _ = jinspect.run_pipeline(jap.parse_args(argv), jap)
+    jrep = json.loads(json.dumps(jrep))
+    np.random.seed(13)
+    got, rep = _port_run([*argv, "--device", "cpu"])
+    assert (got[:, 4] > 0).sum() > 0          # snow touched the scan
+    differ = assert_rows_parity(got, np.asarray(want))
+    if not differ:
+        assert rep == jrep
+    assert rep["snow"]["particle_file_prefix"] == \
+        jrep["snow"]["particle_file_prefix"]

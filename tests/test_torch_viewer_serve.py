@@ -10,7 +10,11 @@ byte for byte. The server mirrors tests/test_viewer_serve.py's five tests on
 - `augment: none` payloads equal to the JAX server's;
 - snow payloads to the JAX server's keys and invariants (the two packages
   draw RANSAC planes from different generators), and byte for byte to the
-  port's own `run_pipeline` with numpy's global seed set the same;
+  port's own `run_pipeline` with numpy's global seed set the same; with the
+  JAX package's draws handed to the port (tests/test_torch_inspect.py's
+  `jax_draws`) and the seed set before each server's request, to the JAX
+  server's values: the frames' xyz and labels, in the JAX order, under the
+  parity contract, and the stats equal where no point differs;
 - `/infer`, with weights carried over in an experiment's params_tpu.npz, to
   the port's `detect` on the displayed cloud exactly, and that `detect` to
   the JAX package's `detect` run op by op (`jax.disable_jit()`: jitted on
@@ -53,7 +57,12 @@ from lidar_snow_sim_tpu_torch.tools import serve as tserve
 from lidar_snow_sim_tpu_torch.tools import viewer as tviewer
 from lidar_snow_sim_tpu_torch.utils.boxes import Box3D
 from test_torch_detector import SMALL_YAML
-from test_torch_inspect import _boundary_gap, scene  # noqa: F401
+from test_torch_inspect import (  # noqa: F401
+    _boundary_gap,
+    assert_rows_parity,
+    jax_draws,
+    scene,
+)
 from test_viewer_serve import TINY_YAML
 
 SMOKE = runpy.run_path(str(Path(__file__).parents[1] / "chip_smoke.py"),
@@ -345,6 +354,38 @@ def test_snow_payload_matches_jax_keys_and_run_pipeline(served):
                 if k[0] == "snow" and k[4] == 4)
     assert {n: int(getattr(snow.last_result, n))
             for n in OVERFLOW_COUNTERS} == dict.fromkeys(OVERFLOW_COUNTERS, 0)
+
+
+def _frame_rows(frame):
+    """(n, 4) xyz and label of a frame payload."""
+    cols = [np.frombuffer(base64.b64decode(frame[k]), np.float32)
+            for k in ("xs", "ys", "zs")]
+    return np.column_stack([*cols, _labels(frame).astype(np.float32)])
+
+
+def test_snow_payload_matches_jax_server_values(served, monkeypatch):
+    """Snow at a seed no other test asks for, with the JAX package's
+    RANSAC draws in the port's snowfall and wet ground, and numpy's global
+    seed set before each server's request: the frame's rows (xyz, label) in
+    the JAX server's order under the parity contract, and the stats equal
+    where no point differs."""
+    from lidar_snow_sim_tpu_torch.models import snowfall as tsnow
+    from lidar_snow_sim_tpu_torch.models import wet_ground as twet
+
+    monkeypatch.setattr(tsnow, "ransac_draws", jax_draws)
+    monkeypatch.setattr(twet, "ransac_draws", jax_draws)
+    body = {"augment": "snow", "seed": 6}
+    np.random.seed(17)
+    s1, got = _post(served[0] + "/augment", body)
+    np.random.seed(17)
+    s2, want = _post(served[1] + "/augment", body)
+    assert s1 == s2 == 200
+    assert got["frame"]["n"] == want["frame"]["n"]
+    rows = _frame_rows(got["frame"])
+    assert (rows[:, 3] > 0).sum() > 0
+    differ = assert_rows_parity(rows, _frame_rows(want["frame"]))
+    if not differ:
+        assert got["stats"] == want["stats"]
 
 
 def test_infer_matches_jax_detect(served, tmp_path):

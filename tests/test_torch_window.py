@@ -305,10 +305,11 @@ def test_window_equals_dense_bit_for_bit(scene):
 
 
 def test_default_config_runs_the_window_assembly(monkeypatch):
-    """SnowfallConfig() names the window assembly, and the augmenter runs
-    it (the dense default of SnowfallAugmenter stays)."""
+    """SnowfallConfig() names the window assembly, SnowfallAugmenter's
+    default config is SnowfallConfig(), the JAX augmenter's, and the
+    augmenter runs it."""
     assert SnowfallConfig().assembly == "window"
-    assert ts.SnowfallAugmenter.cfg.assembly == "dense"
+    assert ts.SnowfallAugmenter.cfg == SnowfallConfig()
     pc, sets, _ = _sorted_scene("fov")
     bank = build_bank(sets, window_size=256, wide_capacity=64)
     order = np.random.default_rng(3).permutation(64)
