@@ -1789,8 +1789,8 @@ def window_occluder_bound(inputs, mask, window_size: int, k_occ: int):
     w1_inputs`), counted over the live points (`mask`; the padding rows,
     sorted last, are no consumer's work): their hit tests (window_size +
     n_wide candidates each); the bytes of their features, rows, starts and
-    window bounds, of the distinct bank columns their windows read (x, y,
-    r, dist, the sort angle and pang: 6 rows), of the wide columns of the
+    live flags, of the distinct bank columns their windows read (x, y, r,
+    dist, the sort angle and pang: 6 rows), of the wide columns of the
     rows read (x, y, r, dist, pang), and of their outputs written once:
     (live, K) a1, a2, dist and valid, and the overflow."""
     import torch
@@ -1802,10 +1802,13 @@ def window_occluder_bound(inputs, mask, window_size: int, k_occ: int):
     cols = _runs(start, (torch.clamp(lo + window_size, max=k_ext) - start
                          ).clamp_min(1), row, k_ext)
     live = int(mask.sum())
-    n_bytes = (live * (feats.shape[1] + 4) * 4
+    n_bytes = (live * ((feats.shape[1] + 2) * 4 + 1)
                + (cols * 6 + int(torch.unique(row).numel()) * n_wide * 5) * 4
                + live * (k_occ * 13 + 4))
     return bound(n_bytes, live * (window_size + n_wide) * HIT_TEST_OPS)
+
+
+TRIG_OPS = 40   # one cos and sin pair of a pulse phase (phase_cos_sin)
 
 
 def window_pulse_bound(inputs, mask, max_bumps: int, beam_rad: float,
@@ -1814,24 +1817,25 @@ def window_pulse_bound(inputs, mask, max_bumps: int, beam_rad: float,
     w2_inputs`), counted over the live points (`mask`; the padding rows
     are no consumer's work). Operations: each point's sweep, (2 nv + 2)^2
     compares to rank its endpoints and 2 nv (2 nv + 1) cover tests (nv
-    valid occluders), and its waveform terms, WAVE_OPS for each bin of each
-    walked window (the selected bumps' and the target's). Bytes, each read
-    once: the live points' feats and valid flags; a1 and a2 of the valid
-    slots; dist, cos_b and sin_b of the selected bumps, each in the 32-byte
-    sectors that hold them; the live targets' cos and sin, the grid's; the
-    four (live,) outputs."""
+    valid occluders), the cos and sin of each selected bump's and of the
+    target's phase (TRIG_OPS), and its waveform terms, WAVE_OPS for each
+    bin of each walked window (the selected bumps' and the target's).
+    Bytes, each read once: the live points' range and edges (3 feature
+    floats), max_int, live flags and valid flags; a1 and a2 of the valid
+    slots and the range of the selected bumps, each in the 32-byte sectors
+    that hold them; the grid's cos and sin; the four (live,) outputs."""
     import torch
 
     from lidar_snow_sim_tpu_torch.ops.sweep import occlusion_sweep
 
-    feats, a1, a2, dist, valid = inputs[:5]
+    feats, _, a1, a2, dist, valid = inputs[:6]
     m_bins = inputs[-1].shape[0]
     k = a1.shape[1]
     live = int(mask.sum())
     valid = valid & mask[:, None]
     nv = valid.sum(dim=1).long()
     sweep_ops = int(((2 * nv + 2) ** 2 + 2 * nv * (2 * nv + 1))[mask].sum())
-    ratio, _, _ = occlusion_sweep(feats[1], feats[2], a1, a2, valid,
+    ratio, _, _ = occlusion_sweep(feats[:, 1], feats[:, 2], a1, a2, valid,
                                   beam_rad)
     top, idx = torch.sort(ratio, dim=1, descending=True, stable=True)
     sel = torch.zeros_like(valid)
@@ -1843,11 +1847,104 @@ def window_pulse_bound(inputs, mask, max_bumps: int, beam_rad: float,
         return (hi - lo + 1).clamp_min(0)
 
     terms = float(torch.where(sel, bins(dist), 0).sum()
-                  + torch.where(mask, bins(feats[0]), 0).sum())
-    n_bytes = ((live * feats.shape[0] + m_bins * 2 + live * 2) * 4
-               + live * k + 2 * _sector_bytes(valid) + 3 * _sector_bytes(sel)
-               + live * 13)
-    return bound(n_bytes, sweep_ops + terms * WAVE_OPS)
+                  + torch.where(mask, bins(feats[:, 0]), 0).sum())
+    trig = int(sel.sum()) + live
+    n_bytes = ((live * 4 + m_bins * 2) * 4 + live * (k + 1)
+               + 2 * _sector_bytes(valid) + _sector_bytes(sel) + live * 13)
+    return bound(n_bytes, sweep_ops + terms * WAVE_OPS + trig * TRIG_OPS)
+
+
+def window_spans(inp, k_ext: int, window: int, points: int) -> dict:
+    """The bank columns kernel W1's CTAs of `points` consecutive points
+    stage (csrc/occluders.cu, w1_kernel): for each CTA with a live point,
+    the union [min lo, max lo + window - 1] (clamped to the row) of its
+    live points on the row of its first one; their median and maximum, and
+    the CTAs whose live points lie on two or more rows."""
+    lo = inp.lo.cpu().numpy()
+    row = inp.bank_row.cpu().numpy()
+    live = inp.mask.cpu().numpy()
+    widths, crossing = [], 0
+    for c0 in range(0, len(lo), points):
+        on = live[c0:c0 + points]
+        if not on.any():
+            continue
+        r, lo_c = row[c0:c0 + points][on], lo[c0:c0 + points][on]
+        mine = r == r[0]
+        crossing += int(not mine.all())
+        widths.append(int(np.clip(lo_c[mine] + window - 1, 0, k_ext - 1).max()
+                          - np.clip(lo_c[mine], 0, k_ext - 1).min() + 1))
+    return {"points": points, "median": float(np.median(widths)),
+            "max": int(max(widths)), "ctas": len(widths),
+            "crossing_rows": crossing}
+
+
+# The proof that kernel W2's cos and sin (phase_cos_sin in csrc/pulse.cu)
+# are torch's: every non-negative float32 (bit patterns 0 .. +inf), taken
+# as the phase itself and times the pulse phase, in chunks of TRIG_CHUNK.
+TRIG_CHUNK = 1 << 26
+TRIG_LAST = 0x7F800000   # +inf
+HALF_PLANE_LAST = 0x40E00000   # 7.0
+# cos_positive's bounds (csrc/occluders.cu): the first float32 above pi/2
+# and the last below 3 pi/2
+HALF_PI_ABOVE = float(np.frombuffer(np.uint32(0x3FC90FDB).tobytes(),
+                                    np.float32)[0])
+THREE_HALF_PI_BELOW = float(np.frombuffer(np.uint32(0x4096CBE3).tobytes(),
+                                          np.float32)[0])
+
+
+def trig_proof(phase: float, dev, step: int = 1) -> dict:
+    """Hold kernel W2's cos and sin (ops/pulse.trig_table) against
+    torch.cos and torch.sin on the card: of x for every float32 x in [0,
+    +inf] (bit patterns 0 .. 0x7f800000, every `step`-th), and of the
+    phase product fl(phase * x), as torch takes it, for the same x. Equal
+    means bitwise, NaN where NaN. Also kernel W1's half-plane rule
+    (cos_positive in csrc/occluders.cu: |x| below the first float above
+    pi/2 or above the last float below 3 pi/2) against torch.cos(x) > 0
+    for every float32 x with |x| <= 7 (W1 takes it on x in [-2 pi,
+    2 pi]).
+    Returns, for each of the three tests, the values checked, the count
+    that differ and the first that differs."""
+    import torch
+
+    from lidar_snow_sim_tpu_torch.ops.pulse import trig_table
+
+    out = {}
+    for name, scale in (("x", 1.0), ("phase_x", phase)):
+        checked, differ, first = 0, 0, None
+        for c0 in range(0, TRIG_LAST + 1, TRIG_CHUNK * step):
+            n = min(TRIG_CHUNK, (TRIG_LAST - c0) // step + 1)
+            x = (torch.arange(n, dtype=torch.int32, device=dev) * step
+                 + c0).view(torch.float32)
+            arg = x if scale == 1.0 else scale * x
+            c, s = trig_table(c0, n, scale, dev, step=step)
+            for got, want in ((c, torch.cos(arg)), (s, torch.sin(arg))):
+                bad = (got != want) & ~(got.isnan() & want.isnan())
+                nb = int(bad.sum())
+                if nb and first is None:
+                    k = int(torch.nonzero(bad)[0])
+                    first = {"x": float(x[k]), "arg": float(arg[k]),
+                             "got": float(got[k]), "want": float(want[k])}
+                differ += nb
+            checked += n
+        out[name] = {"checked": checked, "differ": differ, "first": first}
+    checked, differ, first = 0, 0, None
+    for lo, hi in ((0, HALF_PLANE_LAST), (-(1 << 31), -(1 << 31)
+                                          + HALF_PLANE_LAST)):
+        for c0 in range(lo, hi + 1, TRIG_CHUNK * step):
+            n = min(TRIG_CHUNK, (hi - c0) // step + 1)
+            x = (torch.arange(n, dtype=torch.int32, device=dev) * step
+                 + c0).view(torch.float32)
+            a = x.abs()
+            rule = (a < HALF_PI_ABOVE) | (a > THREE_HALF_PI_BELOW)
+            bad = rule != (torch.cos(x) > 0)
+            nb = int(bad.sum())
+            if nb and first is None:
+                first = {"x": float(x[int(torch.nonzero(bad)[0])])}
+            differ += nb
+            checked += n
+    out["half_plane"] = {"checked": checked, "differ": differ,
+                         "first": first}
+    return out
 
 
 def _first_diff(a, b) -> str:
@@ -1873,8 +1970,12 @@ def window_kernels(label, srt, bank, calib, cfg, order, plane, dev,
     """Phase 12's kernel checks at `cfg`: kernel W1 and then W2 on the
     window assembly's inputs for the channel-sorted scan `srt`, held
     against their plain versions on the card, every output equal (a peak
-    NaN where the other is), and the counters they give. With
-    `measure`: each one's ms, plain_ms, bound and device times (timed)."""
+    NaN where the other is), without a live mask and with the scan's mask
+    as it (the padding rows empty), and the counters they give. With
+    `measure`: each one's ms (W1's call making the feature rows W2 then
+    reads), plain_ms, bound and device times (timed), the device times of
+    the calls without the live mask (every padding row computed), and the
+    staged spans of W1's CTAs (window_spans)."""
     import torch
 
     from lidar_snow_sim_tpu_torch import pad_cloud
@@ -1890,41 +1991,67 @@ def window_kernels(label, srt, bank, calib, cfg, order, plane, dev,
         torch.as_tensor(padded.mask, device=dev), bank_t,
         ts.calib_to_torch(calib, dev), torch.as_tensor(order, device=dev),
         None, cfg, plane=plane)
-    args, kw = ts.window_occluder_call(inp, bank_t, cfg)
-    occ = occ_ops.find_occluders_window(*args, **kw)
-    occ_p = occ_ops.occluders_window_plain(*args, **kw)
-    for name, a, b in zip(("a1", "a2", "dist", "valid", "overflow"), occ,
-                          occ_p):
-        if not torch.equal(a, b):
-            fail(f"W1 {label}: {name} differs from the plain version: "
-                 f"{_first_diff(a, b)}")
-    pargs, pkw = ts.window_pulse_call(inp, occ, cfg)
-    pk = pulse_ops.window_pulse_peaks(*pargs, **pkw)
-    pk_p = pulse_ops.window_pulse_plain(*pargs, **pkw)
-    for name, a, b in zip(("peak", "bin", "touched", "bump_overflow"), pk,
-                          pk_p):
-        if not _same(a, b):
-            fail(f"W2 {label}: {name} differs from the plain version: "
-                 f"{_first_diff(a, b)}")
+    calls = {}
+    for live in (False, True):
+        tag = f"W1 {label}{' live' if live else ''}"
+        args, kw = ts.window_occluder_call(inp, bank_t, cfg)
+        if not live:
+            kw["live"] = None   # every row
+        occ = occ_ops.find_occluders_window(*args, **kw)
+        occ_p = occ_ops.occluders_window_plain(*args, **kw)
+        for name, a, b in zip(("a1", "a2", "dist", "valid", "overflow"),
+                              occ, occ_p):
+            if not torch.equal(a, b):
+                fail(f"{tag}: {name} differs from the plain version: "
+                     f"{_first_diff(a, b)}")
+        pargs, pkw = ts.window_pulse_call(inp, occ, cfg)
+        pkw["live"] = kw["live"]
+        pk = pulse_ops.window_pulse_peaks(*pargs, **pkw)
+        pk_p = pulse_ops.window_pulse_plain(*pargs, **pkw)
+        for name, a, b in zip(("peak", "bin", "touched", "bump_overflow"),
+                              pk, pk_p):
+            if not _same(a, b):
+                fail(f"W2 {label}{' live' if live else ''}: {name} differs "
+                     f"from the plain version: {_first_diff(a, b)}")
+        calls[live] = (args, kw, occ, pargs, pkw, pk)
+    args, kw, occ, pargs, pkw, pk = calls[True]
     m = inp.mask
     out = {"points": int(m.sum()), "hits": int(occ[3][m].sum()),
            "touched": int(pk[2][m].sum()),
            "occluder_overflow": int(occ[4][m].sum()),
            "bump_overflow": int(pk[3][m].sum())}
     if measure:
-        ins1 = occ_ops.w1_inputs(*args, delta=kw["delta"],
-                                 beam_rad=kw["beam_rad"])
-        ins2 = pulse_ops.w2_inputs(*pargs, beam_rad=pkw["beam_rad"],
-                                   tau_h=pkw["tau_h"])
-        w1_kw = dict(window_size=kw["window_size"], k_occ=kw["k_occ"])
+        w1_kw = dict(window_size=kw["window_size"], delta=kw["delta"],
+                     k_occ=kw["k_occ"])
+        w2_kw = dict(beam_rad=pkw["beam_rad"], ipm=pkw["ipm"],
+                     tau_h=pkw["tau_h"], max_bumps=pkw["max_bumps"])
+        ins = {}
+        for live, (a_, k_, _, pa_, pk_, _) in calls.items():
+            ins[live] = (
+                occ_ops.w1_inputs(*a_, live=k_["live"]),
+                pulse_ops.w2_inputs(*pa_, tau_h=pk_["tau_h"],
+                                    live=pk_["live"]))
+        ins1, ins2 = ins[True]
+        xyz = inp.xyz
+
+        def w1_call():
+            # the scan makes the feature rows once, for W1 and W2: W1's
+            # call is timed with them
+            feats = occ_ops.point_features(xyz[:, 0], xyz[:, 1], xyz[:, 2],
+                                           cfg.beam_divergence_rad)
+            return occ_ops.find_occluders_window(feats, *args[1:], **kw)
+
         out["W1"] = dict(
-            ms=time_ms(lambda: occ_ops.find_occluders_window(*args, **kw)),
+            ms=time_ms(w1_call),
             plain_ms=time_ms(lambda: occ_ops.occluders_window_plain(
                 *args, **kw), reps=3, warmup=1),
             bound=window_occluder_bound(ins1, m, cfg.window_size,
                                         cfg.max_occluders),
             times=timed("W1", lambda: occ_ops.launch_w1(ins1, **w1_kw),
-                        "w1_kernel"))
+                        "w1_kernel"),
+            ungated=timed("W1 without the live mask",
+                          lambda: occ_ops.launch_w1(ins[False][0], **w1_kw),
+                          "w1_kernel"))
         out["W2"] = dict(
             ms=time_ms(lambda: pulse_ops.window_pulse_peaks(*pargs, **pkw)),
             plain_ms=time_ms(lambda: pulse_ops.window_pulse_plain(
@@ -1932,8 +2059,14 @@ def window_kernels(label, srt, bank, calib, cfg, order, plane, dev,
             bound=window_pulse_bound(
                 ins2, m, cfg.max_bumps, cfg.beam_divergence_rad,
                 cfg.intervals_per_meter, SPEED_OF_LIGHT * cfg.tau_h),
-            times=timed("W2", lambda: pulse_ops.launch_w2(ins2, **pkw),
-                        "w2_kernel"))
+            times=timed("W2", lambda: pulse_ops.launch_w2(ins2, **w2_kw),
+                        "w2_kernel"),
+            ungated=timed("W2 without the live mask",
+                          lambda: pulse_ops.launch_w2(ins[False][1], **w2_kw),
+                          "w2_kernel"))
+        out["spans"] = [window_spans(inp, bank_t.data_t.shape[2],
+                                     cfg.window_size, pts)
+                        for pts in (16, 32, 64)]
     return out
 
 
@@ -1945,12 +2078,15 @@ WINDOW_PLAIN_BEFORE = {"ms": 324.953, "launches": 28885}
 
 def window_phase(pc, sets, calib, dev) -> list:
     """Phase 12: the window assembly on the card, on its kernels W1 and W2.
-    (a) W1 and W2 against their plain versions, exactly, at three configs
-    on the channel-sorted bench scan: the JAX inspect CLI's (window_size
-    256, wide_capacity 128, max_occluders 64, max_bumps 32, point_chunk
-    2048; measured), the JAX experiment's (128, 16, 24, 16) and a starved
-    one (the inspect CLI's with max_occluders 2 and max_bumps 1), whose
-    occluder and bump overflows must both be nonzero. (b) SnowfallAugmenter
+    (a) W1 and W2 against their plain versions, exactly, with and without
+    the scan's mask as their live mask, at three configs on the
+    channel-sorted bench scan: the JAX inspect CLI's (window_size 256,
+    wide_capacity 128, max_occluders 64, max_bumps 32, point_chunk 2048;
+    measured, with W1's staged spans), the JAX experiment's (128, 16, 24,
+    16) and a starved one (the inspect CLI's with max_occluders 2 and
+    max_bumps 1), whose occluder and bump overflows must both be nonzero;
+    then W2's cos and sin against torch's on every non-negative float32
+    (trig_proof). (b) SnowfallAugmenter
     with the inspect CLI's window config and with the dense assembly (the
     layout the port's inspect CLI took before) on the same order and draws:
     outputs and stats equal byte for byte, every counter 0. (c) One
@@ -2020,8 +2156,18 @@ def window_phase(pc, sets, calib, dev) -> list:
             and checks["starved"]["bump_overflow"] > 0):
         fail(f"window starved config: overflows {checks['starved']}")
     print(f"window kernels: card {card_line()!r} equal_to_plain True "
+          f"with_and_without_live_mask True "
           + " ".join(f"{k} { {n: v for n, v in c.items() if n[0] != 'W'} }"
                      for k, c in checks.items()), flush=True)
+    t0 = time.time()
+    proof = trig_proof(pulse_ops.pulse_phase(wcfg.tau_h), dev)
+    if any(v["differ"] for v in proof.values()):
+        fail(f"kernel W2's cos/sin or W1's half-plane rule differ from "
+             f"torch's: {proof}")
+    print(f"window trig proof: card {card_line()!r} cos and sin of every "
+          f"float32 in [0, inf] and of its pulse phase equal torch's, W1's "
+          f"half-plane rule equals torch.cos > 0 on |x| <= 7 "
+          f"{proof} seconds {time.time() - t0:.1f}", flush=True)
 
     # (b) SnowfallAugmenter: the window assembly against the dense one
     outs, grown = {}, {}

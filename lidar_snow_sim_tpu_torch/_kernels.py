@@ -63,10 +63,11 @@ SIGNATURES = {
             _P,
         ],
         "occluders_w1": [
-            _P, _P, _P, _P, _P, _P, _P, _P,           # inputs
-            _P, _P, _P, _P, _P,                       # outputs
+            _P, _P, _P, _P, _P, _P, _P, _P,           # inputs (live may
+            _P, _P, _P, _P, _P,                       # be null); outputs
             _I, _I, _I, _I, _I, _I,                   # n, k_ext, wc, n_wide,
-            _P,                                       # window, K; stream
+            _F,                                       # window, K; delta
+            _P,                                       # stream
         ],
     },
     "pulse": {
@@ -85,10 +86,16 @@ SIGNATURES = {
             _P,
         ],
         "pulse_w2": [
-            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # inputs
-            _P, _P, _P, _P,                            # outputs
+            _P, _P, _P, _P, _P, _P, _P, _P, _P,        # inputs (live may
+            _P, _P, _P, _P,                            # be null); outputs
             _I, _I, _I, _I,                            # n, K, M, max_bumps
-            _F, _F, _F, _F, _F,
+            _F, _F, _F, _F, _F, _F,                    # ..., phase
+            _P,
+        ],
+        "pulse_trig_table": [
+            _I, _I, _I, _F,                            # first, count,
+                                                       # step, phase
+            _P, _P,                                    # cos, sin
             _P,
         ],
     },

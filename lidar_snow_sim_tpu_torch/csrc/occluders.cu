@@ -551,14 +551,15 @@ __global__ void __launch_bounds__(kLanesA3 * kBeamsA3)
 // point chunks (`_occluder_phase` on `chunk_fn`'s gathered candidates,
 // lidar_snow_sim_tpu/models/snowfall.py:112-148, 352-373), and the port's
 // plain version, ops/occluders.occluders_window_plain, gathers a (P, 384,
-// 4) block a chunk. Each point tests its own list: window_size bank
+// 4) block a chunk. Each live point tests its own list: window_size bank
 // columns lo, lo + 1, ... of its row (clamped to the row's last column;
-// an entry whose sort angle lies outside the point's window [lo_ang,
-// hi_ang] takes range 1e9, which fails the range test), then the row's
-// n_wide wide columns; it keeps the K nearest hits in lax.top_k's order
-// (range, then list position) and writes them as (n, K) rows with an
-// empty slot's a1 = a2 = 0, dist = inf, valid = false, and the hits
-// beyond K.
+// an entry whose sort angle lies outside the point's window [center -
+// delta, center + delta] takes range 1e9, which fails the range test),
+// then the row's n_wide wide columns; it keeps the K nearest hits in
+// lax.top_k's order (range, then list position) and writes them as (n, K)
+// rows with an empty slot's a1 = a2 = 0, dist = inf, valid = false, and
+// the hits beyond K. A point that is not live (live[p] false; a null live
+// means every point) gets the empty row and overflow 0 without a test.
 //
 // Its hit test is the plain version's, candidate_intervals
 // (ops/geometry.py), not A1's hit_test: the half-plane test of an edge is
@@ -567,22 +568,78 @@ __global__ void __launch_bounds__(kLanesA3 * kBeamsA3)
 // made once a bank with torch's own atan2 and asin (ops/occluders.
 // window_angles, in models/snowfall.bank_to_torch), since a column's values
 // do not depend on the point; the plain version reads the same tables.
-// cosf is called here: a faithful cosine never has the wrong sign and cos
-// of a float is never 0, so the comparison equals torch's.
-// The point's sin and cos of its edges come from point_features, as A1's.
+// The sign of that cosine is decided without cosf (cos_positive), as
+// exactly. The point's
+// features (point_features: range, edges, their sin and cos, and feature
+// 8, the centre azimuth) are the rows kernel W2 reads too; the window
+// bounds are feature 8 -+ delta, one float operation each, as torch's.
 //
-// Design (simple first). G lanes a point (lane s tests list positions s,
-// s + G, ...), kPointsW1 consecutive points a CTA: the points are
-// channel-sorted, so a CTA's points mostly read one bank row, and their
-// windows overlap. The bank is read from global memory, through L1 and the
-// 50 MB L2 that holds the whole bank (data_t is 38.9 MB at the bench). A
-// lane's K nearest hits are LaneTopK, the lanes' lists are merged as
-// merge_write merges them. What bounds it: at the bench's 65,536 points x
-// 384 candidates it makes ~25 M tests of ~20 operations (~7.5 us at
-// 67 TFLOP/s) and writes 13 bytes a slot, ~55 MB at K = 64 (~16 us at
-// 3.35 TB/s), so the bytes it writes.
-constexpr int kLanesW1 = 8;
-constexpr int kPointsW1 = 32;
+// What bounds it: at the bench's 50,475 live points a point's window holds
+// ~37 of its 256 columns and its row ~1 real wide particle of 128, and it
+// writes 13 bytes a slot, ~42 MB at K = 64 for the live points (~13 us at
+// 3.35 TB/s); its bound is the bytes (chip_smoke's window_occluder_bound),
+// its time the instructions each point's warp issues (PERF.md). No tensor
+// cores: there is no product to give them. The design:
+//   - one warp a point, kWarpsW1 warps a CTA over kPointsW1 consecutive
+//     points. The points are channel-sorted with the padding last, so a
+//     CTA's points mostly share one bank row and their windows overlap; a
+//     CTA of padding only writes empty rows.
+//   - the CTA stages its points' features, rows, starts and live flags,
+//     and the union of its live points' windows on the row of its first
+//     live point ([min lo, max lo + window - 1], clamped to the row) in
+//     shared memory with cp.async: the x, y, r, dist and sort-angle rows
+//     of data_t and the pang, start, end rows of ang_t, and the row's
+//     n_wide wide columns (x, y, r, dist of wide_t, the three rows of
+//     wang_t). A point on another row (a CTA across a channel boundary),
+//     or every point of a CTA whose span or wide list exceeds the staging
+//     room (kSpanW1, kWideW1), reads the same values from global memory
+//     with the same arithmetic (GlobalCols).
+//   - work skipped exactly: a point's window columns ascend in sort angle
+//     (checked on the staged span), so once a run of 32 starts past the
+//     window's upper bound no later column is in the window, and an
+//     out-of-window column (range 1e9) cannot hit a point nearer than
+//     1e9; and a staged wide column past the last one nearer than the
+//     CTA's farthest live point fails every range test (the bank's wide
+//     lists are mostly padding at range 1e9).
+//   - no top-K list a thread: a ballot appends the warp's hits (range,
+//     list position, a1, a2) to its buffer of kHitsW1 in shared memory.
+//     When a hit would not fit, the buffer is cut to its T smallest (rank
+//     by counting; T = min(K - written, kHitsW1 / 2)), and from then on
+//     only a hit below the T-th enters. At the end of the list the buffer
+//     is ranked in lax.top_k's order and its first min(count, K) hits (T
+//     after a cut) are written; a point with more hits than that takes
+//     another pass over its list for the hits after the last one written,
+//     until min(K, hits) are out. Live points have a handful of hits, so
+//     one pass.
+//   - row p's K slots (sentinels included) go out as contiguous stores,
+//     32 slots a warp instruction, from the ranked buffer.
+constexpr int kWarpsW1 = 8;       // warps a CTA
+constexpr int kCtasW1 = 1;        // CTAs an SM asked of __launch_bounds__
+constexpr int kPointsW1 = 32;     // consecutive points a CTA (<= 32)
+constexpr int kSpanW1 = 1024;     // bank columns a CTA can stage
+constexpr int kWideW1 = 128;      // wide columns a CTA can stage
+constexpr int kHitsW1 = 64;       // a warp's hit buffer (a multiple of 32)
+constexpr int kBankRowsW1 = 8;    // staged rows: x, y, r, dist, sort angle,
+                                  // pang, start, end
+constexpr int kWideRowsW1 = 7;    // x, y, r, dist, pang, start, end
+constexpr unsigned kFullW1 = 0xffffffffu;
+// a cut keeps at most kHitsW1 / 2 hits, and an iteration adds at most 32
+static_assert(kPointsW1 <= 32 && kHitsW1 % 32 == 0 && kHitsW1 >= 64,
+              "W1's shape");
+
+// Whether cos(x) > 0, as torch.cos(x) > 0 decides it, for a float x with
+// |x| < 5 pi / 2 (here x = edge - pang, both in [0, 2 pi]): a faithful
+// cosine never has the wrong sign, and cos of a float is never 0, so the
+// sign is the true cosine's, positive iff |x| < pi / 2 or |x| > 3 pi / 2;
+// no float equals either bound, so for a float |x| that is |x| below the
+// first float above pi / 2 (0x3fc90fdb) or above the last float below
+// 3 pi / 2 (0x4096cbe3). chip_smoke.py holds this against torch.cos on
+// every float with |x| <= 7 (trig_proof). It keeps cosf, whose
+// large-argument reduction works in local memory, out of the kernel.
+__device__ __forceinline__ bool cos_positive(float x) {
+  const float a = fabsf(x);
+  return a < __int_as_float(0x3fc90fdb) || a > __int_as_float(0x4096cbe3);
+}
 
 // The window assembly's hit test of candidate (px, py, pr, pang), its
 // range already found below the point's d_orig: the centre inside the
@@ -593,107 +650,400 @@ __device__ __forceinline__ bool window_hit(const Beam& b, float px, float py,
   const bool center_in = ((b.lo_a <= pang) & (pang <= b.hi_a)) |
                          ((b.lo_b <= pang) & (pang <= b.hi_b));
   right_hit = fabsf(px * b.sin_r - py * b.cos_r) < pr &&
-              cosf(b.right - pang) > 0.f;
+              cos_positive(b.right - pang);
   left_hit = fabsf(px * b.sin_l - py * b.cos_l) < pr &&
-             cosf(b.left - pang) > 0.f;
+             cos_positive(b.left - pang);
   return center_in | right_hit | left_hit;
 }
 
-// merge_write's merge of the G lanes' lists of one point, written as row p
-// of the (n, K) outputs; empty slots get a1 = a2 = 0, dist = inf and valid
-// = false. Every lane of the warp must call it.
-template <int G, int KMAX>
-__device__ void merge_window(LaneTopK<KMAX>& top, float* a1, float* a2,
-                             float* dist, bool* valid, int* ovf, size_t p,
-                             int k_occ, int sub, bool active) {
-  int total = top.n_hit;
-  for (int o = G / 2; o > 0; o >>= 1)
-    total += __shfl_xor_sync(0xffffffffu, total, o);
-  const int trips = min(k_occ, total);
-  int trips_w = trips;
-  for (int o = 16; o >= G; o >>= 1)
-    trips_w = max(trips_w, __shfl_xor_sync(0xffffffffu, trips_w, o));
-  const size_t row = p * k_occ;
-  for (int k = 0; k < trips_w; ++k) {
-    const bool has = top.head < top.n_kept;
-    float bd = has ? top.d[top.head] : INFINITY;
-    int bc = has ? top.col[top.head] : 0x7fffffff;
-    for (int o = G / 2; o > 0; o >>= 1) {
-      const float od = __shfl_xor_sync(0xffffffffu, bd, o);
-      const int oc = __shfl_xor_sync(0xffffffffu, bc, o);
-      if (od < bd || (od == bd && oc < bc)) { bd = od; bc = oc; }
-    }
-    if (has && top.col[top.head] == bc) {   // the winner: one lane
-      a1[row + k] = top.a1[top.head];
-      a2[row + k] = top.a2[top.head];
-      dist[row + k] = bd;
-      valid[row + k] = true;
-      ++top.head;
-    }
-  }
-  if (!active) return;
-  for (int k = trips + sub; k < k_occ; k += G) {
-    a1[row + k] = 0.f;
-    a2[row + k] = 0.f;
-    dist[row + k] = INFINITY;
-    valid[row + k] = false;
-  }
-  if (sub == 0) ovf[p] = total > k_occ ? total - k_occ : 0;
+// A candidate list's columns in global memory: property rows at stride ld
+// (data_t's x, y, r, dist and sort angle, or wide_t's first four) and the
+// angle rows [pang, start, end] at stride lda.
+struct GlobalCols {
+  const float* __restrict__ d;
+  const float* __restrict__ a;
+  int ld, lda;
+  __device__ float x(int c) const { return d[c]; }
+  __device__ float y(int c) const { return d[ld + c]; }
+  __device__ float r(int c) const { return d[2 * ld + c]; }
+  __device__ float dist(int c) const { return d[3 * ld + c]; }
+  __device__ float sang(int c) const { return d[kSangRow * ld + c]; }
+  __device__ float pang(int c) const { return a[c]; }
+  __device__ float start(int c) const { return a[lda + c]; }
+  __device__ float end(int c) const { return a[2 * lda + c]; }
+};
+
+// The same columns staged in shared memory from column c0 on, one row of
+// S floats a property: x, y, r, dist, then the sort angle (bank only),
+// then pang, start, end.
+template <int S, bool kBank>
+struct SharedCols {
+  const float* s;
+  int c0;
+  static constexpr int kA = kBank ? 5 : 4;   // the first angle row
+  __device__ float x(int c) const { return s[c - c0]; }
+  __device__ float y(int c) const { return s[S + c - c0]; }
+  __device__ float r(int c) const { return s[2 * S + c - c0]; }
+  __device__ float dist(int c) const { return s[3 * S + c - c0]; }
+  __device__ float sang(int c) const { return s[4 * S + c - c0]; }
+  __device__ float pang(int c) const { return s[kA * S + c - c0]; }
+  __device__ float start(int c) const { return s[(kA + 1) * S + c - c0]; }
+  __device__ float end(int c) const { return s[(kA + 2) * S + c - c0]; }
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
 }
 
-template <int KMAX>
-__global__ void __launch_bounds__(kLanesW1 * kPointsW1) w1_kernel(
+// Copy n columns from c0 on of R rows (row i at src[i], stride S in
+// shared memory) with the CTA's threads; the caller waits and syncs.
+template <int R>
+__device__ __forceinline__ void stage_rows(float* s,
+                                           const float* const (&src)[R],
+                                           int S, int c0, int n) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    for (int c = threadIdx.x; c < n; c += blockDim.x)
+      cp_async4(s + i * S + c, src[i] + c0 + c);
+}
+
+// lax.top_k's order on hits: nearer first, equal ranges by list position.
+__device__ __forceinline__ bool key_less(float d, int j, float od, int oj) {
+  return d < od || (d == od && j < oj);
+}
+
+// A warp's hit buffer in shared memory.
+struct HitBuf {
+  float* d;
+  float* a1;
+  float* a2;
+  int* j;
+};
+
+// Rank the warp's `count` buffered hits in lax.top_k's order and move the
+// first `keep` of them to positions 0 .. keep - 1, in order; returns the
+// key (range, position) of the last one kept through od, oj. Every lane of
+// the warp calls it, with count <= kHitsW1.
+__device__ void rank_keep(const HitBuf& h, int count, int keep, int lane,
+                          float& od, int& oj) {
+  constexpr int U = kHitsW1 / 32;
+  float d[U], a1[U], a2[U];
+  int j[U], rank[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int i = lane + 32 * u;
+    rank[u] = kHitsW1;
+    if (i < count) {
+      d[u] = h.d[i];
+      j[u] = h.j[i];
+      a1[u] = h.a1[i];
+      a2[u] = h.a2[i];
+      int r = 0;
+      for (int t = 0; t < count; ++t) r += key_less(h.d[t], h.j[t], d[u], j[u]);
+      rank[u] = r;
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (rank[u] < keep) {
+      h.d[rank[u]] = d[u];
+      h.j[rank[u]] = j[u];
+      h.a1[rank[u]] = a1[u];
+      h.a2[rank[u]] = a2[u];
+    }
+  }
+  __syncwarp();
+  od = h.d[keep - 1];
+  oj = h.j[keep - 1];
+}
+
+// One pass's state of a point's selection (every value warp-uniform).
+struct Selection {
+  int count = 0;              // hits in the buffer
+  int n_hit = 0;              // hits counted (first pass)
+  bool first = true;          // the first pass counts every hit
+  bool cut = false;           // the buffer was cut to its T smallest
+  int take = 0;               // T
+  float last_d = -INFINITY;   // the last hit written: later passes take
+  int last_j = -1;            // only hits after it
+  float thr_d = INFINITY;     // after a cut: only hits before the T-th
+  int thr_j = 0x7fffffff;
+};
+
+// Offer one candidate a lane (hit h at key (d, j), interval [v1, v2]) to
+// the warp's buffer. Every lane of the warp calls it.
+__device__ __forceinline__ void offer(Selection& sel, const HitBuf& hb,
+                                      bool h, float d, int j, float v1,
+                                      float v2, int lane) {
+  const unsigned hits = __ballot_sync(kFullW1, h);
+  if (hits == 0u) return;
+  if (sel.first) sel.n_hit += __popc(hits);
+  bool e = h && key_less(sel.last_d, sel.last_j, d, j) &&
+           key_less(d, j, sel.thr_d, sel.thr_j);
+  unsigned bits = __ballot_sync(kFullW1, e);
+  if (sel.count + __popc(bits) > kHitsW1) {
+    rank_keep(hb, sel.count, sel.take, lane, sel.thr_d, sel.thr_j);
+    sel.count = sel.take;
+    sel.cut = true;
+    e = e && key_less(d, j, sel.thr_d, sel.thr_j);
+    bits = __ballot_sync(kFullW1, e);
+  }
+  if (e) {
+    const int at = sel.count + __popc(bits & ((1u << lane) - 1u));
+    hb.d[at] = d;
+    hb.j[at] = j;
+    hb.a1[at] = v1;
+    hb.a2[at] = v2;
+  }
+  sel.count += __popc(bits);
+  __syncwarp();
+}
+
+// One pass over a point's window columns (kWindow: clamped bank columns
+// lo + j, with the sort-angle test; list positions j) or its wide columns
+// (list positions j_base + j). With `ends` (a sorted bank row, and a point
+// whose out-of-window columns, at range 1e9, fail the range test), the
+// window pass stops at the first 32 columns whose first is past hi_ang:
+// the columns ascend, so every later one is out of the window.
+template <bool kWindow, typename Cols>
+__device__ void scan_list(Selection& sel, const HitBuf& hb, const Cols& src,
+                          const Beam& b, int n_list, int j_base, int lo,
+                          int k_last, float lo_ang, float hi_ang, bool ends,
+                          int lane) {
+  for (int j0 = 0; j0 < n_list; j0 += 32) {
+    if (kWindow && ends && src.sang(min(max(lo + j0, 0), k_last)) > hi_ang)
+      break;
+    const int j = j0 + lane;
+    bool h = false, rh = false, lh = false;
+    float d = 0.f;
+    int c = 0;
+    if (j < n_list) {
+      c = kWindow ? min(max(lo + j, 0), k_last) : j;
+      d = src.dist(c);
+      if (kWindow) {
+        const float sa = src.sang(c);
+        if (!(sa >= lo_ang && sa <= hi_ang)) d = 1e9f;
+      }
+      if (d < b.d_orig)
+        h = window_hit(b, src.x(c), src.y(c), src.r(c), src.pang(c), rh, lh);
+    }
+    const float v1 = h ? (rh ? b.right : src.start(c)) : 0.f;
+    const float v2 = h ? (lh ? b.left : src.end(c)) : 0.f;
+    offer(sel, hb, h, d, j_base + j, v1, v2, lane);
+  }
+}
+
+// Row p's slots [from, K): the buffer's first m hits, then empty slots.
+__device__ __forceinline__ void write_slots(const HitBuf& hb, int from, int m,
+                                            int to, float* a1, float* a2,
+                                            float* dist, bool* valid,
+                                            size_t row, int lane) {
+  for (int s = from + lane; s < to; s += 32) {
+    const int i = s - from;
+    const bool v = i < m;
+    a1[row + s] = v ? hb.a1[i] : 0.f;
+    a2[row + s] = v ? hb.a2[i] : 0.f;
+    dist[row + s] = v ? hb.d[i] : INFINITY;
+    valid[row + s] = v;
+  }
+}
+
+// One live point: its passes over window and wide columns, its K slots
+// and its overflow. Every lane of the warp calls it.
+template <typename Bank, typename Wide>
+__device__ void w1_point(const HitBuf& hb, const Bank& bank, const Wide& wide,
+                         const Beam& b, float lo_ang, float hi_ang, int lo,
+                         bool ends, int k_ext, int window, int n_wide,
+                         int wide_tested, int k_occ, float* a1, float* a2,
+                         float* dist, bool* valid, int* ovf, int p,
+                         int lane) {
+  const size_t row = (size_t)p * k_occ;
+  Selection sel;
+  int written = 0;
+  while (true) {
+    sel.count = 0;
+    sel.cut = false;
+    sel.take = min(k_occ - written, kHitsW1 / 2);
+    sel.thr_d = INFINITY;
+    sel.thr_j = 0x7fffffff;
+    scan_list<true>(sel, hb, bank, b, window, 0, lo, k_ext - 1, lo_ang,
+                    hi_ang, ends, lane);
+    scan_list<false>(sel, hb, wide, b, wide_tested, window, 0, 0, 0.f, 0.f,
+                     false, lane);
+    const int want = min(k_occ, sel.n_hit);
+    const int m = sel.cut ? sel.take : min(sel.count, k_occ - written);
+    if (sel.count > 1) {
+      rank_keep(hb, sel.count, m, lane, sel.last_d, sel.last_j);
+    } else if (m == 1) {   // one hit: already in place
+      sel.last_d = hb.d[0];
+      sel.last_j = hb.j[0];
+    }
+    const bool done = written + m >= want;
+    write_slots(hb, written, m, done ? k_occ : written + m, a1, a2, dist,
+                valid, row, lane);
+    written += m;
+    sel.first = false;
+    __syncwarp();
+    if (done) break;
+  }
+  if (lane == 0) ovf[p] = sel.n_hit > k_occ ? sel.n_hit - k_occ : 0;
+}
+
+__global__ void __launch_bounds__(kWarpsW1 * 32, kCtasW1) w1_kernel(
     const float* __restrict__ feats, const int* __restrict__ rows,
-    const int* __restrict__ los, const float* __restrict__ bounds,
+    const int* __restrict__ los, const bool* __restrict__ live,
     const float* __restrict__ data_t, const float* __restrict__ wide_t,
     const float* __restrict__ ang_t, const float* __restrict__ wang_t,
     float* __restrict__ a1, float* __restrict__ a2, float* __restrict__ dist,
     bool* __restrict__ valid, int* __restrict__ ovf, int n, int k_ext, int wc,
-    int n_wide, int window, int k_occ) {
-  constexpr int G = kLanesW1;
-  const int sub = threadIdx.x % G;
-  const int p = blockIdx.x * kPointsW1 + threadIdx.x / G;
-  const bool active = p < n;
-  const int pc = min(p, n - 1);
-  const Beam b(feats + (size_t)pc * kFeat);
-  const int row = rows[pc];
-  const int lo = los[pc];
-  const float lo_ang = bounds[2 * (size_t)pc];
-  const float hi_ang = bounds[2 * (size_t)pc + 1];
-  const float* bank = data_t + (size_t)row * kProp * k_ext;
-  const float* ang = ang_t + (size_t)row * 3 * k_ext;
-  const float* wide = wide_t + (size_t)row * kProp * wc;
-  const float* wang = wang_t + (size_t)row * 3 * n_wide;
-  LaneTopK<KMAX> top;
-  int n_hit = 0;
-  const int n_tot = active ? window + n_wide : 0;
-  for (int j = sub; j < n_tot; j += G) {
-    const bool in_window = j < window;
-    const int c = in_window ? min(max(lo + j, 0), k_ext - 1) : j - window;
-    const float* src = in_window ? bank + c : wide + c;
-    const size_t ld = in_window ? k_ext : wc;
-    float pdist = src[3 * ld];
-    if (in_window) {
-      const float sa = bank[(size_t)kSangRow * k_ext + c];
-      if (!(sa >= lo_ang && sa <= hi_ang)) pdist = 1e9f;
+    int n_wide, int window, int k_occ, float delta) {
+  extern __shared__ float smem[];
+  __shared__ int s_row, s_c0, s_c1, s_dmax, s_wide_end;
+  __shared__ float s_feat[kPointsW1 * kFeat];
+  __shared__ int s_rows[kPointsW1], s_los[kPointsW1], s_live[kPointsW1];
+  float* s_bank = smem;
+  float* s_wide = s_bank + kBankRowsW1 * kSpanW1;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* hbase = s_wide + kWideRowsW1 * kWideW1 + warp * 4 * kHitsW1;
+  const HitBuf hb{hbase, hbase + kHitsW1, hbase + 2 * kHitsW1,
+                  reinterpret_cast<int*>(hbase + 3 * kHitsW1)};
+  const int p0 = blockIdx.x * kPointsW1;
+  const int np = min(kPointsW1, n - p0);
+
+  // the CTA's points (features, rows, starts, live flags) in shared
+  // memory; the staged row (the first live point's) and its span over the
+  // CTA's live points on that row
+  for (int i = threadIdx.x; i < np * kFeat; i += blockDim.x)
+    cp_async4(s_feat + i, feats + (size_t)p0 * kFeat + i);
+  if (warp == 0) {
+    const int p = p0 + lane;
+    const bool in = lane < np;
+    const bool on = in && (live == nullptr || live[p]);
+    const int r = in ? rows[p] : -1;
+    const int l = in ? los[p] : 0;
+    if (in) {
+      s_rows[lane] = r;
+      s_los[lane] = l;
+      s_live[lane] = on;
     }
-    if (!(pdist < b.d_orig)) continue;   // the range test fails
-    const float* ends = in_window ? ang + c : wang + c;
-    const size_t ld_a = in_window ? k_ext : n_wide;
-    const float pang = ends[0];
-    bool right_hit, left_hit;
-    if (!window_hit(b, src[0], src[ld], src[2 * ld], pang, right_hit,
-                    left_hit))
-      continue;
-    ++n_hit;
-    if (top.takes(pdist, k_occ))
-      top.insert(pdist, right_hit ? b.right : ends[ld_a],
-                 left_hit ? b.left : ends[2 * ld_a], j, k_occ);
+    const unsigned any = __ballot_sync(kFullW1, on);
+    const int first = any ? __ffs(any) - 1 : 0;
+    const int row = __shfl_sync(kFullW1, r, first);
+    const bool mine = on && r == row;
+    int c0 = 0x7fffffff, c1 = -1;
+    if (mine) {
+      c0 = min(max(l, 0), k_ext - 1);
+      c1 = min(max(l + window - 1, 0), k_ext - 1);
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      c0 = min(c0, __shfl_xor_sync(kFullW1, c0, o));
+      c1 = max(c1, __shfl_xor_sync(kFullW1, c1, o));
+    }
+    if (lane == 0) {
+      s_row = any ? row : -1;
+      s_c0 = c0;
+      s_c1 = c1;
+      s_dmax = 0;       // +0.0: the farthest live point's range, as bits
+      s_wide_end = 0;   // the staged wide columns a point tests
+    }
   }
-  top.n_hit = n_hit;
-  merge_window<G>(top, a1, a2, dist, valid, ovf, (size_t)pc, k_occ, sub,
-                  active);
+  __syncthreads();
+  const int srow = s_row, c0 = s_c0, span = s_c1 - s_c0 + 1;
+  const bool stage_bank = srow >= 0 && window > 0 && span <= kSpanW1;
+  const bool stage_wide = srow >= 0 && n_wide > 0 && n_wide <= kWideW1;
+  if (stage_bank) {
+    const float* bank = data_t + (size_t)srow * kProp * k_ext;
+    const float* ang = ang_t + (size_t)srow * 3 * k_ext;
+    const float* src[kBankRowsW1] = {bank, bank + k_ext, bank + 2 * k_ext,
+                                     bank + 3 * k_ext,
+                                     bank + (size_t)kSangRow * k_ext, ang,
+                                     ang + k_ext, ang + 2 * k_ext};
+    stage_rows(s_bank, src, kSpanW1, c0, span);
+  }
+  if (stage_wide) {
+    const float* w = wide_t + (size_t)srow * kProp * wc;
+    const float* wa = wang_t + (size_t)srow * 3 * n_wide;
+    const float* src[kWideRowsW1] = {w, w + wc, w + 2 * wc, w + 3 * wc, wa,
+                                     wa + n_wide, wa + 2 * n_wide};
+    stage_rows(s_wide, src, kWideW1, 0, n_wide);
+  }
+  asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  // whether the staged sort angles ascend (a bank row's do; NaN does not),
+  // and the range of the farthest live point on the staged row (ranges
+  // are >= 0, so their bits order as ints; a NaN range hits nothing)
+  bool unsorted = false;
+  if (stage_bank) {
+    const float* sang = s_bank + 4 * kSpanW1;
+    for (int c = threadIdx.x; c + 1 < span; c += blockDim.x)
+      unsorted = unsorted || !(sang[c] <= sang[c + 1]);
+  }
+  if (threadIdx.x < np && s_live[threadIdx.x] &&
+      s_rows[threadIdx.x] == srow && s_feat[threadIdx.x * kFeat] > 0.f)
+    atomicMax(&s_dmax, __float_as_int(s_feat[threadIdx.x * kFeat]));
+  const bool sorted = !__syncthreads_or(unsorted);
+  // a staged wide column past the last one nearer than that point fails
+  // every staged point's range test: those columns are not tested
+  if (stage_wide) {
+    const float dmax = __int_as_float(s_dmax);
+    for (int c = threadIdx.x; c < n_wide; c += blockDim.x)
+      if (s_wide[3 * kWideW1 + c] < dmax) atomicMax(&s_wide_end, c + 1);
+  }
+  __syncthreads();
+  const int wide_end = s_wide_end;
+
+  for (int q = warp; q < np; q += kWarpsW1) {
+    const int p = p0 + q;
+    const size_t row_out = (size_t)p * k_occ;
+    if (!s_live[q]) {
+      write_slots(hb, 0, 0, k_occ, a1, a2, dist, valid, row_out, lane);
+      if (lane == 0) ovf[p] = 0;
+      continue;
+    }
+    const float* f = s_feat + q * kFeat;
+    const Beam b(f);
+    const float lo_ang = f[8] - delta;
+    const float hi_ang = f[8] + delta;
+    const int row = s_rows[q];
+    const int lo = s_los[q];
+    const GlobalCols gbank{data_t + (size_t)row * kProp * k_ext,
+                           ang_t + (size_t)row * 3 * k_ext, k_ext, k_ext};
+    const GlobalCols gwide{wide_t + (size_t)row * kProp * wc,
+                           wang_t + (size_t)row * 3 * n_wide, wc, n_wide};
+    const SharedCols<kSpanW1, true> sbank{s_bank, c0};
+    const SharedCols<kWideW1, false> swide{s_wide, 0};
+    const bool on_bank = stage_bank && row == srow;
+    const bool on_wide = stage_wide && row == srow;
+    // out-of-window columns (range 1e9) cannot hit this point
+    const bool ends = on_bank && sorted && !(1e9f < b.d_orig);
+    if (on_bank && on_wide)
+      w1_point(hb, sbank, swide, b, lo_ang, hi_ang, lo, ends, k_ext, window,
+               n_wide, wide_end, k_occ, a1, a2, dist, valid, ovf, p, lane);
+    else if (on_bank)
+      w1_point(hb, sbank, gwide, b, lo_ang, hi_ang, lo, ends, k_ext, window,
+               n_wide, n_wide, k_occ, a1, a2, dist, valid, ovf, p, lane);
+    else if (on_wide)
+      w1_point(hb, gbank, swide, b, lo_ang, hi_ang, lo, false, k_ext, window,
+               n_wide, wide_end, k_occ, a1, a2, dist, valid, ovf, p, lane);
+    else
+      w1_point(hb, gbank, gwide, b, lo_ang, hi_ang, lo, false, k_ext, window,
+               n_wide, n_wide, k_occ, a1, a2, dist, valid, ovf, p, lane);
+  }
 }
+
+// W1's dynamic shared memory: the staged bank and wide rows and the warps'
+// hit buffers; and its static shared memory (the CTA's points and the
+// staging bounds). Both fit the 48 KB default, so the launch needs no
+// cudaFuncSetAttribute call (a host call on every launch).
+constexpr int kSmemW1 =
+    (kBankRowsW1 * kSpanW1 + kWideRowsW1 * kWideW1 + kWarpsW1 * 4 * kHitsW1) *
+    static_cast<int>(sizeof(float));
+constexpr int kStaticW1 = (kPointsW1 * (kFeat + 3) + 5) * 4;
+static_assert(kSmemW1 + kStaticW1 <= 48 * 1024,
+              "kernel W1 needs more than the 48 KB default of shared memory");
 
 // Launch a lane-split kernel on grid (grid_x, grid_y) of `threads`, with
 // nl staged lists of cap columns in its dynamic shared memory, raising the
@@ -817,26 +1167,25 @@ extern "C" int occluders_a4b(
       k_ext, wc, k_occ))
 }
 
-// Kernel W1: feats (n, 9) f32 (point_features); rows, los (n,) i32; bounds
-// (n, 2) f32, each point's window [lo_ang, hi_ang] in the bank's sort
-// angle; data_t (C, 8, k_ext), wide_t (C, 8, wc) f32; ang_t (C, 3, k_ext)
-// and wang_t (C, 3, n_wide) f32 rows [pang, start, end]; outputs a1, a2,
-// dist (n, K) f32, valid (n, K) bool, ovf (n,) i32. Needs K <= window +
-// n_wide and n_wide <= wc. Returns cudaGetLastError().
+// Kernel W1: feats (n, 9) f32 (point_features; feature 8 is the point's
+// centre azimuth); rows, los (n,) i32; live (n,) bool or null (every
+// point); data_t (C, 8, k_ext), wide_t (C, 8, wc) f32; ang_t (C, 3, k_ext)
+// and wang_t (C, 3, n_wide) f32 rows [pang, start, end]; delta, the
+// window's half-width; outputs a1, a2, dist (n, K) f32, valid (n, K) bool,
+// ovf (n,) i32. Needs 1 <= K <= window + n_wide and n_wide <= wc. Returns
+// cudaGetLastError().
 extern "C" int occluders_w1(
-    const float* feats, const int* rows, const int* los, const float* bounds,
+    const float* feats, const int* rows, const int* los, const bool* live,
     const float* data_t, const float* wide_t, const float* ang_t,
     const float* wang_t, float* a1, float* a2, float* dist, bool* valid,
     int* ovf, int n, int k_ext, int wc, int n_wide, int window, int k_occ,
-    void* stream) {
+    float delta, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 0) return static_cast<int>(cudaGetLastError());
-  if (k_occ > window + n_wide || n_wide > wc)
+  if (k_occ < 1 || k_occ > window + n_wide || n_wide > wc)
     return static_cast<int>(cudaErrorInvalidValue);
-  DISPATCH_K(k_occ, {
-    w1_kernel<KMAX><<<cdiv(n, kPointsW1), kLanesW1 * kPointsW1, 0, s>>>(
-        feats, rows, los, bounds, data_t, wide_t, ang_t, wang_t, a1, a2,
-        dist, valid, ovf, n, k_ext, wc, n_wide, window, k_occ);
-    return static_cast<int>(cudaGetLastError());
-  })
+  w1_kernel<<<cdiv(n, kPointsW1), kWarpsW1 * 32, kSmemW1, s>>>(
+      feats, rows, los, live, data_t, wide_t, ang_t, wang_t, a1, a2, dist,
+      valid, ovf, n, k_ext, wc, n_wide, window, k_occ, delta);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -533,7 +533,8 @@ __global__ void c2_kernel(
 // lidar_snow_sim_tpu/models/snowfall.py:151-199), and the port's plain
 // version, ops/pulse.window_pulse_plain, evaluates every bump over the
 // whole M-bin grid, a (P, M) plane of ~10 operations a bump. For each
-// point, from kernel W1's (n, K) rows:
+// live point (live[p]; a null live means every point), from kernel W1's
+// (n, K) rows:
 //   1. the first-claim sweep: window_side_init loads the valid occluders
 //      (C1's side_init, with W1's row layout and bool valid), then C1's
 //      sweep_all, which sums each occluder's widths and the target's in
@@ -551,54 +552,110 @@ __global__ void c2_kernel(
 //      (C1's rule for the bins outside: +0.0, the lowest of them ties).
 //      A NaN term (the target of a point at the origin: 0/0) makes the
 //      peak NaN and the bin M, as torch's amax and the equality test do.
-// The transcendentals (cos and sin of each slot's, the target's and the
-// grid's pulse phase) come from the wrapper, computed by torch, as C1
-// takes them. Design: C1's, kLanesW2 lanes a point and the point's state in
-// its slice of shared memory. Unlike C1's, the selected bumps' windows are
-// not in ascending order, so each bin sums every selected window that
-// holds it (a check a window). What bounds it: little. It reads W1's valid
-// flags (a byte a slot), the intervals of the few valid slots and the
-// range, cos and sin of the selected bumps, and writes 13 bytes a point:
+// A point that is not live gets peak 0, bin 0, touched false and bump
+// overflow 0 (what an all-zero wave gives) without a sweep; a warp whose
+// points are all padding (sorted last) writes those and stops.
+// The point's range and beam edges are W1's feature rows (point_features,
+// (n, 9)), and its amplitude scale 0.9 * max_int is one float product, as
+// torch's. The cos and sin of a selected bump's and of the target's pulse
+// phase are computed here (phase_cos_sin: the phase product rounded once,
+// then cosf and sinf), only for the bumps the wave reads; chip_smoke.py
+// holds cosf and sinf of every non-negative float, and of the phase
+// product of every non-negative float, equal to torch.cos and torch.sin on
+// the card (pulse_trig_table). The grid's (M,) cos and sin come from the
+// wrapper (torch). Design: C1's, kLanesW2 lanes a point and the point's
+// state in its slice of shared memory. Unlike C1's, the selected bumps'
+// windows are not in ascending order, so each bin sums every selected
+// window that holds it (a check a window). What bounds it: little. It
+// reads W1's valid flags (a byte a slot), the intervals of the few valid
+// slots and the range of the selected bumps, and writes 13 bytes a point:
 // a few MB at the bench's 65,536 points x K = 64, a few microseconds at
-// 3.35 TB/s. Its time is each point's chain of dependent steps.
+// 3.35 TB/s. Its time is each point's chain of dependent steps. No tensor
+// cores: there is no product to give them.
 constexpr int kLanesW2 = 16;
+constexpr int kFeatW2 = 9;   // point-feature rows (ops/occluders.py)
 
-// C1's side_init on W1's rows: (n, K) occluders, row p, with bool valid.
+// cos and sin of the pulse phase at range r, as torch takes them in
+// ops/waveform.waveform_peak: beta = phase * r rounded once (-fmad=false),
+// then cosf and sinf (the library's, not the fast intrinsics).
+__device__ __forceinline__ void phase_cos_sin(float phase, float r, float& c,
+                                              float& s) {
+  const float beta = phase * r;
+  c = cosf(beta);
+  s = sinf(beta);
+}
+
+// Slot k's valid occluder into the compacted lists at position `at`, its
+// claimed width zeroed (only valid slots' widths are read).
+__device__ __forceinline__ void window_side_put(Side& s, int at, int k,
+                                                float a1, float a2,
+                                                bool wrapped) {
+  s.claimed[k] = 0.f;
+  if (wrapped && a1 > a2) a1 = a1 - kTwoPi;
+  s.a1s[at] = a1;
+  s.a2s[at] = a2;
+  s.kidx[at] = k;
+  s.score[2 + 2 * at] = a1;
+  s.score[3 + 2 * at] = a2;
+}
+
+// C1's side_init on W1's rows: (n, K) occluders, row p, with bool valid;
+// the range and edges from the point's feature row. A point that is not
+// live loads no occluder. Where K is a multiple of 4 and the row aligned,
+// a lane reads four valid flags in one word (slots 4w .. 4w + 3), the
+// group numbers the valid slots by a prefix sum of its lanes' counts, and
+// only the valid slots' a1 and a2 are read; else a slot a lane.
 template <int G>
 __device__ void window_side_init(Side& s, const float* __restrict__ feats,
                                  const float* __restrict__ a1g,
                                  const float* __restrict__ a2g,
-                                 const bool* __restrict__ validg, int n,
-                                 int K, int lane) {
+                                 const bool* __restrict__ validg, int K,
+                                 int lane, bool live) {
   const int gl = lane & (G - 1);
   const int p = s.p;
-  s.d_orig = feats[p];
-  const float right = feats[(size_t)n + p];
-  s.left = feats[2 * (size_t)n + p];
+  const float* f = feats + (size_t)p * kFeatW2;
+  s.d_orig = f[0];
+  const float right = f[1];
+  s.left = f[2];
   const bool wrapped = right > s.left;
+  const size_t row = (size_t)p * K;
   int nv = 0;
-  for (int k0 = 0; k0 < K; k0 += G) {
-    const int k = k0 + gl;
-    bool v = false;
-    float a1 = 0.f, a2 = 0.f;
-    if (k < K) {
-      const size_t at = (size_t)p * K + k;
-      a1 = a1g[at];
-      a2 = a2g[at];
-      v = validg[at];
-      if (wrapped && a1 > a2) a1 = a1 - kTwoPi;
-      s.claimed[k] = 0.f;
+  if ((K & 3) == 0 &&
+      (reinterpret_cast<size_t>(validg + row) & 3) == 0) {
+    const unsigned* words = reinterpret_cast<const unsigned*>(validg + row);
+    for (int w0 = 0; w0 < K / 4; w0 += G) {
+      const int w = w0 + gl;
+      unsigned bits = 0u;   // bit b: slot 4w + b is valid (bool is 0 or 1)
+      if (live && w < K / 4) {
+        const unsigned word = words[w];
+        bits = (word & 1u) | ((word >> 7) & 2u) | ((word >> 14) & 4u) |
+               ((word >> 21) & 8u);
+      }
+      const int own = __popc(bits);
+      int incl = own;
+      for (int o = 1; o < G; o <<= 1) {
+        const int v = __shfl_up_sync(kFull, incl, o, G);
+        if (gl >= o) incl += v;
+      }
+      int at = nv + incl - own;
+      for (int b = 0; b < 4; ++b) {
+        if (bits >> b & 1u) {
+          const int k = 4 * w + b;
+          window_side_put(s, at++, k, a1g[row + k], a2g[row + k], wrapped);
+        }
+      }
+      nv += __shfl_sync(kFull, incl, G - 1, G);
     }
-    const unsigned bits = __ballot_sync(kFull, v) & group_bits<G>(lane);
-    if (v) {   // compacted in index order
-      const int at = nv + __popc(bits & ((1u << lane) - 1u));
-      s.a1s[at] = a1;
-      s.a2s[at] = a2;
-      s.kidx[at] = k;
-      s.score[2 + 2 * at] = a1;
-      s.score[3 + 2 * at] = a2;
+  } else {
+    for (int k0 = 0; k0 < K; k0 += G) {
+      const int k = k0 + gl;
+      const bool v = live && k < K && validg[row + k];
+      const unsigned bits = __ballot_sync(kFull, v) & group_bits<G>(lane);
+      if (v)   // compacted in index order
+        window_side_put(s, nv + __popc(bits & ((1u << lane) - 1u)), k,
+                        a1g[row + k], a2g[row + k], wrapped);
+      nv += __popc(bits);
     }
-    nv += __popc(bits);
   }
   s.nv = nv;
   if (gl == 0) {
@@ -612,18 +669,16 @@ __device__ void window_side_init(Side& s, const float* __restrict__ feats,
 // walk entries q = 0 .. n_sel (written over the Side's free arrays: the
 // positive ratios' slots over kidx and their ratios over a1s, then each
 // entry's amplitude, cos, sin in amp, cb, sb and its bins [lo, hi] over
-// wlo, whi; an entry of zero amplitude gets an empty window). Returns the
-// entry count n_sel + 1; sets touched, the remainder and bump_over.
+// wlo, whi; an entry of zero amplitude, and a point that is not live, gets
+// an empty window). Returns the entry count n_sel + 1; sets touched, the
+// remainder and bump_over.
 template <int G>
-__device__ int window_bumps(Side& s, const float* __restrict__ feats,
-                            const float* __restrict__ dist,
-                            const float* __restrict__ cos_b,
-                            const float* __restrict__ sin_b,
-                            const float* __restrict__ cos_t,
-                            const float* __restrict__ sin_t, int n, int K,
-                            int M, int max_bumps, int lane, float beam_rad,
+__device__ int window_bumps(Side& s, const float* __restrict__ max_int,
+                            const float* __restrict__ dist, int K, int M,
+                            int max_bumps, int lane, float beam_rad,
                             float ipm, float c_tau, float xsi_r1,
-                            float xsi_den, int& bump_over) {
+                            float xsi_den, float phase, bool live,
+                            int& bump_over) {
   const int gl = lane & (G - 1);
   const int p = s.p;
   int* pos_k = s.kidx;
@@ -633,10 +688,18 @@ __device__ int window_bumps(Side& s, const float* __restrict__ feats,
   s.remainder = fminf(fmaxf(s.unclaimed / beam_rad, 0.f), 1.f);
   bool touched = false;
   int n_pos = 0;
-  for (int k0 = 0; k0 < K; k0 += G) {
-    const int k = k0 + gl;
+  // the valid slots in slot order (an invalid slot claims nothing); the
+  // positive ones are written over kidx below the slots still to be read.
+  // The trips are the warp's most, as the ballots need every lane.
+  int trips = s.nv;
+  for (int o = 16; o >= G; o >>= 1)
+    trips = max(trips, __shfl_xor_sync(kFull, trips, o));
+  for (int t0 = 0; t0 < trips; t0 += G) {
+    const int t = t0 + gl;
     float r = 0.f;
-    if (k < K) {
+    int k = 0;
+    if (t < s.nv) {
+      k = s.kidx[t];
       const float c = s.claimed[k];
       touched = touched || c > 0.f;
       r = fminf(fmaxf(c / beam_rad, 0.f), 1.f);
@@ -654,7 +717,7 @@ __device__ int window_bumps(Side& s, const float* __restrict__ feats,
   bump_over = max(n_pos - max_bumps, 0);
   const int n_sel = min(n_pos, min(max_bumps, K));
   __syncwarp();
-  const float amp_scale = feats[3 * (size_t)n + p];
+  const float amp_scale = 0.9f * max_int[p];
   for (int i = gl; i <= n_pos; i += G) {
     int q;
     float r, ratio, cb, sb;
@@ -664,17 +727,13 @@ __device__ int window_bumps(Side& s, const float* __restrict__ feats,
       for (int j = 0; j < n_pos; ++j)
         q += (pos_r[j] > ratio || (pos_r[j] == ratio && j < i)) ? 1 : 0;
       if (q >= n_sel) continue;
-      const size_t at = (size_t)p * K + pos_k[i];
-      r = dist[at];
-      cb = cos_b[at];
-      sb = sin_b[at];
+      r = dist[(size_t)p * K + pos_k[i]];
     } else {           // the target, last
       q = n_sel;
       ratio = s.remainder;
       r = s.d_orig;
-      cb = cos_t[p];
-      sb = sin_t[p];
     }
+    phase_cos_sin(phase, r, cb, sb);
     const float xsi = fminf(fmaxf((r - xsi_r1) / xsi_den, 0.f), 1.f);
     const float amp = amp_scale * ratio * xsi / (r * r);
     s.amp[q] = amp;
@@ -682,12 +741,12 @@ __device__ int window_bumps(Side& s, const float* __restrict__ feats,
     s.sb[q] = sb;
     lo[q] = M;
     hi[q] = -1;
-    if (amp != 0.f) window_bins(r * ipm, (r + c_tau) * ipm, M, lo[q], hi[q]);
+    if (live && amp != 0.f)
+      window_bins(r * ipm, (r + c_tau) * ipm, M, lo[q], hi[q]);
   }
   __syncwarp();
   return n_sel + 1;
 }
-
 // Step 4: the peak over the union of the n_walk entries' windows, each bin
 // once (in the first window that holds it), summed over every entry that
 // holds it in entry order; then +0.0 at the lowest bin outside the union
@@ -746,43 +805,67 @@ __device__ void window_wave_peak(const Side& s, int n_walk, int M, int lane,
   }
 }
 
-// Kernel W2: kLanesW2 lanes a point. A slot past n computes the last point
-// again and writes nothing (its lanes take part in the warp's shuffles).
+// Kernel W2: kLanesW2 lanes a point. A slot past n, and a point that is
+// not live in a warp with a live one, runs with no occluder and an empty
+// target window (its lanes take part in the warp's shuffles) and writes
+// the empty outputs.
 __global__ void w2_kernel(
-    const float* __restrict__ feats, const float* __restrict__ a1g,
-    const float* __restrict__ a2g, const float* __restrict__ dist,
-    const bool* __restrict__ validg, const float* __restrict__ cos_b,
-    const float* __restrict__ sin_b, const float* __restrict__ cos_t,
-    const float* __restrict__ sin_t, const float* __restrict__ cos_g,
+    const float* __restrict__ feats, const float* __restrict__ max_int,
+    const float* __restrict__ a1g, const float* __restrict__ a2g,
+    const float* __restrict__ dist, const bool* __restrict__ validg,
+    const bool* __restrict__ live, const float* __restrict__ cos_g,
     const float* __restrict__ sin_g, float* __restrict__ peak_out,
     int* __restrict__ idx_out, bool* __restrict__ touched_out,
     int* __restrict__ bump_out, int n, int K, int M, int max_bumps,
     int per_beam, float beam_rad, float ipm, float c_tau, float xsi_r1,
-    float xsi_den) {
+    float xsi_den, float phase) {
   constexpr int G = kLanesW2;
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
   const int slot = threadIdx.x / G;
   const int p = blockIdx.x * (blockDim.x / G) + slot;
+  const bool out = p < n && (lane & (G - 1)) == 0;
+  const bool is_live = p < n && (live == nullptr || live[p]);
+  if (__all_sync(kFull, !is_live)) {
+    if (out) {
+      peak_out[p] = 0.f;
+      idx_out[p] = 0;
+      touched_out[p] = false;
+      bump_out[p] = 0;
+    }
+    return;
+  }
 
   Side s(smem + (size_t)slot * per_beam, K, min(p, n - 1));
-  window_side_init<G>(s, feats, a1g, a2g, validg, n, K, lane);
+  window_side_init<G>(s, feats, a1g, a2g, validg, K, lane, is_live);
   sweep_all<G>(s, K, lane & (G - 1));
   int bump_over;
   const int n_walk = window_bumps<G>(
-      s, feats, dist, cos_b, sin_b, cos_t, sin_t, n, K, M, max_bumps, lane,
-      beam_rad, ipm, c_tau, xsi_r1, xsi_den, bump_over);
+      s, max_int, dist, K, M, max_bumps, lane, beam_rad, ipm, c_tau, xsi_r1,
+      xsi_den, phase, is_live, bump_over);
   float best;
   int best_i;
   window_wave_peak<G>(s, n_walk, M, lane, cos_g, sin_g, best, best_i);
-  if (p < n && (lane & (G - 1)) == 0) {
-    peak_out[p] = best;
-    idx_out[p] = best_i;
-    touched_out[p] = s.touched;
-    bump_out[p] = bump_over;
+  if (out) {
+    peak_out[p] = is_live ? best : 0.f;
+    idx_out[p] = is_live ? best_i : 0;
+    touched_out[p] = is_live && s.touched;
+    bump_out[p] = is_live ? bump_over : 0;
   }
 }
 
+// cos and sin of the pulse phase of the floats with bit patterns first,
+// first + step, ..., each times `phase` (phase_cos_sin, as kernel W2 takes
+// them); chip_smoke.py compares them with torch.cos and torch.sin.
+__global__ void trig_kernel(int first, int count, int step, float phase,
+                            float* __restrict__ c, float* __restrict__ s) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  float cv, sv;
+  phase_cos_sin(phase, __int_as_float(first + i * step), cv, sv);
+  c[i] = cv;
+  s[i] = sv;
+}
 // The launch shape of a kernel of `lanes` lanes a beam: up to 4 warps a
 // CTA, as many as fit at 12 K + 8 floats of shared memory a beam (see
 // Side), the kernel allowed its size above the default 48 KB. Sets warps
@@ -850,19 +933,19 @@ extern "C" int pulse_c2(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Kernel W2: feats (4, n) f32 rows [d_orig, right, left, 0.9 *
-// max_intensity]; a1, a2, dist (n, K) f32 and valid (n, K) bool (kernel
-// W1's rows); cos_b, sin_b (n, K) f32 of each slot's pulse phase, cos_t,
-// sin_t (n,) of the target's, cos_g, sin_g (M,) of the grid's. Outputs
-// (n,): peak f32, first peak bin i32, touched bool, bump overflow i32.
-// Returns cudaGetLastError().
+// Kernel W2: feats (n, 9) f32 (W1's point_features rows: range, right,
+// left, ...); max_int (n,) f32; a1, a2, dist (n, K) f32 and valid (n, K)
+// bool (kernel W1's rows); live (n,) bool or null (every point); cos_g,
+// sin_g (M,) f32 of the grid's pulse phase. Outputs (n,): peak f32, first
+// peak bin i32, touched bool, bump overflow i32. Returns
+// cudaGetLastError().
 extern "C" int pulse_w2(
-    const float* feats, const float* a1, const float* a2, const float* dist,
-    const bool* valid, const float* cos_b, const float* sin_b,
-    const float* cos_t, const float* sin_t, const float* cos_g,
-    const float* sin_g, float* peak, int* idx, bool* touched, int* bump,
-    int n, int K, int M, int max_bumps, float beam_rad, float ipm,
-    float c_tau, float xsi_r1, float xsi_den, void* stream) {
+    const float* feats, const float* max_int, const float* a1,
+    const float* a2, const float* dist, const bool* valid, const bool* live,
+    const float* cos_g, const float* sin_g, float* peak, int* idx,
+    bool* touched, int* bump, int n, int K, int M, int max_bumps,
+    float beam_rad, float ipm, float c_tau, float xsi_r1, float xsi_den,
+    float phase, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 0) return static_cast<int>(cudaGetLastError());
   int warps, smem;
@@ -870,8 +953,20 @@ extern "C" int pulse_w2(
   if (e != cudaSuccess) return static_cast<int>(e);
   const int points = warps * 32 / kLanesW2;
   w2_kernel<<<(n + points - 1) / points, warps * 32, smem, s>>>(
-      feats, a1, a2, dist, valid, cos_b, sin_b, cos_t, sin_t, cos_g, sin_g,
-      peak, idx, touched, bump, n, K, M, max_bumps, 12 * K + 8, beam_rad,
-      ipm, c_tau, xsi_r1, xsi_den);
+      feats, max_int, a1, a2, dist, valid, live, cos_g, sin_g, peak, idx,
+      touched, bump, n, K, M, max_bumps, 12 * K + 8, beam_rad, ipm, c_tau,
+      xsi_r1, xsi_den, phase);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cos and sin (c, s: count f32 each) of phase times the floats with bit
+// patterns first, first + step, ... (count of them, all below 2^31), as
+// kernel W2 computes them. Returns cudaGetLastError().
+extern "C" int pulse_trig_table(int first, int count, int step, float phase,
+                                float* c, float* s, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (count <= 0) return static_cast<int>(cudaGetLastError());
+  trig_kernel<<<(count + 255) / 256, 256, 0, st>>>(first, count, step, phase,
+                                                   c, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -336,7 +336,7 @@ class WindowInputs(NamedTuple):
     bank_row: torch.Tensor     # (N,) int64
     lo: torch.Tensor           # (N,) first window column
     n_window: torch.Tensor     # (N,) particles in the angular window
-    center: torch.Tensor       # (N,) signed azimuth
+    feats: torch.Tensor        # (N, 9) point_features (8: signed azimuth)
     min_int: torch.Tensor      # (N,) the channel's calibration
     max_int: torch.Tensor
     focal_slope: torch.Tensor
@@ -349,7 +349,10 @@ def window_inputs(points, mask, bank: BankTensors, calib: CalibTensors,
                   plane=None) -> WindowInputs:
     """Steps 1-3 of the window assembly (models/snowfall.py:307-350): the
     stable sort by channel, the plane and noise floor, the per-point
-    channel tables and angular windows in the bank's signed sort azimuth."""
+    channel tables and angular windows in the bank's signed sort azimuth.
+    The points' feature rows (`ops/occluders.point_features`) are made once
+    here: their signed azimuth is the window's centre, and kernels W1 and
+    W2 both read them."""
     n_ch = order.shape[0]
     perm = torch.sort(torch.where(mask, points[:, 4], 1e9), stable=True
                       ).indices
@@ -359,7 +362,9 @@ def window_inputs(points, mask, bank: BankTensors, calib: CalibTensors,
     noise_at = _plane_and_noise(xyz, intensity, mask, norm3(xyz), draws, cfg,
                                 plane)
     bank_row = order[channel]
-    center = torch.atan2(xyz[:, 1], xyz[:, 0])
+    feats = point_features(xyz[:, 0], xyz[:, 1], xyz[:, 2],
+                           cfg.beam_divergence_rad)
+    center = feats[:, 8]
     delta = window_delta(cfg)
     k_ext = bank.angle.shape[1]
     lo = _batched_searchsorted(bank.angle, bank_row, center - delta, k_ext)
@@ -367,7 +372,7 @@ def window_inputs(points, mask, bank: BankTensors, calib: CalibTensors,
                                      k_ext) - lo
     return WindowInputs(
         xyz=xyz, intensity=intensity, mask=mask, noise_at=noise_at,
-        bank_row=bank_row, lo=lo, n_window=n_window, center=center,
+        bank_row=bank_row, lo=lo, n_window=n_window, feats=feats,
         min_int=calib.min_intensity[channel],
         max_int=calib.max_intensity[channel],
         focal_slope=calib.focal_slope[channel],
@@ -385,22 +390,24 @@ def window_delta(cfg: SnowfallConfig) -> float:
 def window_occluder_call(inp: WindowInputs, bank: BankTensors,
                          cfg: SnowfallConfig, sl=slice(None)):
     """(args, kwargs) of `find_occluders_window` (kernel W1) and its plain
-    version for the points `sl` of `inp`."""
-    return ((inp.xyz[sl], inp.bank_row[sl], inp.lo[sl], inp.center[sl],
-             bank.data_t, bank.wide_t, bank.ang_t, bank.wang_t),
+    version for the points `sl` of `inp`, on their feature rows, with the
+    scan's mask as the live mask (the padding rows get the empty outputs;
+    `dict(kw, live=None)` computes every row)."""
+    return ((inp.feats[sl], inp.bank_row[sl], inp.lo[sl], bank.data_t,
+             bank.wide_t, bank.ang_t, bank.wang_t),
             dict(window_size=cfg.window_size, delta=window_delta(cfg),
-                 k_occ=cfg.max_occluders, beam_rad=cfg.beam_divergence_rad))
+                 k_occ=cfg.max_occluders, live=inp.mask[sl]))
 
 
 def window_pulse_call(inp: WindowInputs, occ, cfg: SnowfallConfig,
                       sl=slice(None)):
     """(args, kwargs) of `window_pulse_peaks` (kernel W2) and its plain
     version for the points `sl` of `inp` with their occluders `occ` (the
-    first four outputs of W1)."""
-    return ((inp.xyz[sl], inp.max_int[sl], *occ[:4], inp.range_grid),
+    first four outputs of W1), as `window_occluder_call` makes W1's."""
+    return ((inp.feats[sl], inp.max_int[sl], *occ[:4], inp.range_grid),
             dict(beam_rad=cfg.beam_divergence_rad,
                  ipm=cfg.intervals_per_meter, tau_h=cfg.tau_h,
-                 max_bumps=cfg.max_bumps))
+                 max_bumps=cfg.max_bumps, live=inp.mask[sl]))
 
 
 def window_augment(points, mask, bank: BankTensors, calib: CalibTensors,
@@ -410,7 +417,10 @@ def window_augment(points, mask, bank: BankTensors, calib: CalibTensors,
 
     On CUDA tensors: kernel W1 (`ops/occluders.find_occluders_window`) and
     kernel W2 (`ops/pulse.window_pulse_peaks`), one launch each over all
-    points. On CPU tensors, or with plain=True on any device: their plain
+    points, on one set of feature rows (`window_inputs`) and with the scan's
+    mask as their live mask: the padding rows, which no consumer reads (the
+    keep rule and every counter are masked), get the kernels' empty outputs
+    without a test. On CPU tensors, or with plain=True on any device: their plain
     versions chunk by chunk of `point_chunk` points, as the JAX package's
     lax.map (a (P, M) waveform plane per bump). Both give the same bytes on
     one device: the kernels equal their plain versions, and the decision

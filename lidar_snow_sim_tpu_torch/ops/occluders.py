@@ -34,14 +34,16 @@ window assembly.
   :1080-1128): B frames' A1 chunks in one A1 launch.
 - W1 (`find_occluders_window`, `occluders_window_plain`): the window
   assembly's occluders, which the JAX package leaves to XLA
-  (models/snowfall.py:112-148, 352-373): each point against its own
+  (models/snowfall.py:112-148, 352-373): each live point against its own
   angular window of `window_size` bank columns and its row's wide list,
   the nearest K hits with the window assembly's hit test
-  (`ops/geometry.candidate_intervals`), outputs (N, K).
+  (`ops/geometry.candidate_intervals`), outputs (N, K); a point outside
+  the `live` mask gets the empty row.
 
 The dense assembly's five kernels run one lane-split body in the CUDA
-source (W1 reuses its per-lane top-K and merge): a beam's
-candidates split over a few lanes and merged in lax.top_k order. A1, A4a,
+source: a beam's
+candidates split over a few lanes and merged in lax.top_k order (W1 has
+its own: one warp a point, its hits selected in shared memory). A1, A4a,
 A4b and A2's mode-1 chunks test A1's whole list; A2's mode-2 chunks and A3
 test their group's band runs and the wide prefix.
 
@@ -74,13 +76,12 @@ from lidar_snow_sim_tpu_torch.ops.geometry import (
     beam_limits,
     candidate_angles,
     candidate_intervals,
-    norm3,
 )
 
 BIG = 3.0e38
 N_FEAT = 9
 SANG_ROW = 6          # bank property row of the signed sort angle
-MAX_OCCLUDERS = 512   # largest K the kernel's per-thread list is built for
+MAX_OCCLUDERS = 512   # largest K of the kernels' per-thread lists (W1: as A1)
 _GROUP = 32           # chunks per step of the plain versions (bounds memory)
 
 
@@ -538,9 +539,9 @@ def fold_args(frame_args, blk: int):
 WINDOW_FAR = 1e9   # the range of a window entry outside the point's window
 
 
-def occluders_window_plain(xyz, row, lo, center, data_t, wide_t, ang_t,
-                           wang_t, *, window_size: int, delta: float,
-                           k_occ: int, beam_rad: float):
+def occluders_window_plain(feats, row, lo, data_t, wide_t, ang_t, wang_t, *,
+                           window_size: int, delta: float, k_occ: int,
+                           live=None):
     """Plain torch version of kernel W1: the window assembly's occluders of
     P points (the JAX package's `_occluder_phase` on the candidates its
     `chunk_fn` gathers, models/snowfall.py:112-148, 356-368).
@@ -549,11 +550,15 @@ def occluders_window_plain(xyz, row, lo, center, data_t, wide_t, ang_t,
     (clamped to the row's last column, so a window past the row's end
     repeats that column), of bank row row[i], then the row's n_wide wide
     columns (n_wide = wang_t.shape[2]). A window column whose sort angle
-    lies outside [center - delta, center + delta] takes the range
+    lies outside [center - delta, center + delta], center the point's
+    signed azimuth (feature 8 of `point_features`), takes the range
     WINDOW_FAR, so it fails the range test, and keeps its index. The hit
     test is `candidate_intervals` on the columns' angles from the bank's
     tables ang_t and wang_t (`window_angles`), which kernel W1 reads too;
     the K nearest hits in lax.top_k's order (range, then candidate index).
+    `feats` are the points' (P, 9) `point_features` rows (kernel W2 reads
+    the same rows); `live` (P,) bool marks the points that count (None:
+    all), a point outside it has no hit.
 
     Returns occ_a1, occ_a2, occ_dist (P, K) f32, occ_valid (P, K) bool and
     occ_overflow (P,) int32, the hits beyond K. An empty slot holds a1 = a2
@@ -565,6 +570,7 @@ def occluders_window_plain(xyz, row, lo, center, data_t, wide_t, ang_t,
     if k_occ > window_size + n_wide:
         raise ValueError(f"max_occluders {k_occ} exceeds the "
                          f"{window_size + n_wide} candidates of a point")
+    center = feats[:, 8]
     data = data_t[:, :4].transpose(1, 2)                 # (C, k_ext, 4)
     angle = data_t[:, SANG_ROW]
     wide = wide_t[:, :4, :n_wide].transpose(1, 2)        # (C, n_wide, 4)
@@ -582,12 +588,12 @@ def occluders_window_plain(xyz, row, lo, center, data_t, wide_t, ang_t,
     # hits, and an empty slot's a1/a2 are 0)
     ang = torch.cat([ang_t.transpose(1, 2)[row[:, None], widx],
                      wang_t.transpose(1, 2)[row]], dim=1)
-    right, left = beam_limits(xyz[:, 0], xyz[:, 1], beam_rad)
     a1, a2, hit = candidate_intervals(
-        right, left, cand[:, :, 0], cand[:, :, 1], cand[:, :, 2],
-        cand[:, :, 3], torch.ones(cand.shape[:2], dtype=torch.bool,
-                                  device=cand.device), norm3(xyz),
-        angles=ang.unbind(2))
+        feats[:, 1], feats[:, 2], cand[:, :, 0], cand[:, :, 1],
+        cand[:, :, 2], cand[:, :, 3],
+        torch.ones(cand.shape[:2], dtype=torch.bool, device=cand.device)
+        if live is None else live[:, None].expand(cand.shape[:2]),
+        feats[:, 0], angles=ang.unbind(2))
     occ_overflow = (hit.sum(dim=1) - k_occ).clamp_min(0).to(torch.int32)
     # lax.top_k's order: the nearest first, equal ranges by candidate index
     score = torch.where(hit, cand[:, :, 3], float("inf"))
@@ -613,42 +619,38 @@ def window_angles(data_t, wide_t, n_wide: int):
     return table(data_t), table(wide_t[:, :, :n_wide])
 
 
-def find_occluders_window(xyz, row, lo, center, data_t, wide_t, ang_t,
-                          wang_t, *, window_size: int, delta: float,
-                          k_occ: int, beam_rad: float):
+def find_occluders_window(feats, row, lo, data_t, wide_t, ang_t, wang_t, *,
+                          window_size: int, delta: float, k_occ: int,
+                          live=None):
     """The window assembly's occluders of P points: kernel W1 on CUDA
-    tensors, `occluders_window_plain` on CPU tensors. xyz (P, 3) f32, row
-    and lo (P,) integer, center (P,) f32 (each point's signed azimuth),
-    data_t (C, 8, k_ext) and wide_t (C, 8, wc) f32, ang_t (C, 3, k_ext) and
-    wang_t (C, 3, n_wide) the bank's angle tables (`window_angles`).
-    Returns what `occluders_window_plain` returns."""
-    if xyz.device.type == "cpu":
+    tensors, `occluders_window_plain` on CPU tensors. feats (P, 9) f32 the
+    points' `point_features`, row and lo (P,) integer, data_t (C, 8, k_ext)
+    and wide_t (C, 8, wc) f32, ang_t (C, 3, k_ext) and wang_t (C, 3,
+    n_wide) the bank's angle tables (`window_angles`); live (P,) bool (None:
+    every point). Returns what `occluders_window_plain` returns."""
+    if feats.device.type == "cpu":
         return occluders_window_plain(
-            xyz, row, lo, center, data_t, wide_t, ang_t, wang_t,
-            window_size=window_size, delta=delta, k_occ=k_occ,
-            beam_rad=beam_rad)
-    return launch_w1(w1_inputs(xyz, row, lo, center, data_t, wide_t, ang_t,
-                               wang_t, delta=delta, beam_rad=beam_rad),
-                     window_size=window_size, k_occ=k_occ)
+            feats, row, lo, data_t, wide_t, ang_t, wang_t,
+            window_size=window_size, delta=delta, k_occ=k_occ, live=live)
+    return launch_w1(w1_inputs(feats, row, lo, data_t, wide_t, ang_t, wang_t,
+                               live=live),
+                     window_size=window_size, delta=delta, k_occ=k_occ)
 
 
-def w1_inputs(xyz, row, lo, center, data_t, wide_t, ang_t, wang_t, *,
-              delta: float, beam_rad: float) -> tuple:
-    """Kernel W1's arrays, made by torch as `occluders_window_plain` makes
-    its values: the point features (`point_features`), each point's window
-    [center - delta, center + delta], row and lo as int32, the bank and its
-    angle tables."""
-    feats = point_features(xyz[:, 0], xyz[:, 1], xyz[:, 2],
-                           beam_rad).contiguous()
-    bounds = torch.stack([center - delta, center + delta], dim=1)
-    return (feats, row.to(torch.int32), lo.to(torch.int32), bounds, data_t,
-            wide_t, ang_t, wang_t)
+def w1_inputs(feats, row, lo, data_t, wide_t, ang_t, wang_t, *,
+              live=None) -> tuple:
+    """Kernel W1's arrays: the point features, row and lo as int32, the
+    live mask (or None), the bank and its angle tables. The kernel forms
+    each point's window [center - delta, center + delta] from feature 8
+    itself."""
+    return (feats.contiguous(), row.to(torch.int32), lo.to(torch.int32),
+            live, data_t, wide_t, ang_t, wang_t)
 
 
-def launch_w1(inputs: tuple, *, window_size: int, k_occ: int):
+def launch_w1(inputs: tuple, *, window_size: int, delta: float, k_occ: int):
     """Launch kernel W1 on `w1_inputs`' arrays (CUDA tensors) and count
     the launch; returns (a1, a2, dist, valid, overflow)."""
-    feats, row, lo, bounds, data_t, wide_t, ang_t, wang_t = inputs
+    feats, row, lo, live, data_t, wide_t, ang_t, wang_t = inputs
     n = feats.shape[0]
     c_banks, _, k_ext = data_t.shape
     wc, n_wide = wide_t.shape[2], wang_t.shape[2]
@@ -661,7 +663,8 @@ def launch_w1(inputs: tuple, *, window_size: int, k_occ: int):
     check("feats", feats, torch.float32, (n, N_FEAT))
     check("row", row, torch.int32, (n,))
     check("lo", lo, torch.int32, (n,))
-    check("bounds", bounds, torch.float32, (n, 2))
+    if live is not None:
+        check("live", live, torch.bool, (n,))
     check("data_t", data_t, torch.float32, (c_banks, 8, k_ext))
     check("wide_t", wide_t, torch.float32, (c_banks, 8, wc))
     check("ang_t", ang_t, torch.float32, (c_banks, 3, k_ext))
@@ -673,9 +676,10 @@ def launch_w1(inputs: tuple, *, window_size: int, k_occ: int):
     ovf = torch.empty(n, dtype=torch.int32, device=dev)
     err = _kernels.launch(
         dev, _kernels.load("occluders").occluders_w1,
-        *(t.data_ptr() for t in inputs), a1.data_ptr(), a2.data_ptr(),
-        dist.data_ptr(), valid.data_ptr(), ovf.data_ptr(), n, k_ext, wc,
-        n_wide, window_size, k_occ, _stream(feats),
+        *(None if t is None else t.data_ptr() for t in inputs),
+        a1.data_ptr(), a2.data_ptr(), dist.data_ptr(), valid.data_ptr(),
+        ovf.data_ptr(), n, k_ext, wc, n_wide, window_size, k_occ, delta,
+        _stream(feats),
     )
     _kernels.check(err, "kernel W1 (occluders_w1)")
     find_occluders_window.launches += 1

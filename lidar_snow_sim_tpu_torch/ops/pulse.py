@@ -40,7 +40,7 @@ import torch
 from lidar_snow_sim_tpu_torch import _kernels
 from lidar_snow_sim_tpu_torch.config import SPEED_OF_LIGHT
 from lidar_snow_sim_tpu_torch.ops.f32 import div
-from lidar_snow_sim_tpu_torch.ops.geometry import TWO_PI, beam_limits, norm3
+from lidar_snow_sim_tpu_torch.ops.geometry import TWO_PI
 from lidar_snow_sim_tpu_torch.ops.sweep import occlusion_sweep
 from lidar_snow_sim_tpu_torch.ops.waveform import waveform_peak, xsi
 
@@ -264,9 +264,9 @@ def pulse_peaks_pair(*args, blk: int, **kw):
     return out
 
 
-def window_pulse_plain(xyz, max_int, occ_a1, occ_a2, occ_dist, occ_valid,
+def window_pulse_plain(feats, max_int, occ_a1, occ_a2, occ_dist, occ_valid,
                        range_grid, *, beam_rad: float, ipm: int,
-                       tau_h: float, max_bumps: int):
+                       tau_h: float, max_bumps: int, live=None):
     """Plain torch version of kernel W2 (the JAX package's `_pulse_phase`
     up to the waveform's peak, models/snowfall.py:172-199) for P points with
     their occluders (P, K) from `occluders_window_plain`: the first-claim
@@ -274,14 +274,17 @@ def window_pulse_plain(xyz, max_int, occ_a1, occ_a2, occ_dist, occ_valid,
     ratios (lax.top_k's order: ties by column, zeros fill the tail), the
     amplitudes 0.9 * max_int * ratio * xsi(r) / r^2 with the hard target
     last, and the summed waveform's peak (`ops/waveform.waveform_peak`).
+    The range and beam edges are columns 0-2 of the points' (P, 9)
+    `point_features` rows `feats`, as kernel W1 takes them. A point
+    outside `live` (P,) bool (None: every point) gets the empty outputs:
+    peak 0, bin 0, touched false, bump_overflow 0.
 
     Returns four (P,) tensors: the peak (f32), its first bin (int32),
     touched (bool) and bump_overflow (int32: the count of nonzero ratios
     beyond max_bumps). A point at the origin has a NaN target amplitude
     (0/0), so peak NaN and bin M.
     """
-    d_orig = norm3(xyz)
-    right, left = beam_limits(xyz[:, 0], xyz[:, 1], beam_rad)
+    d_orig, right, left = feats[:, 0], feats[:, 1], feats[:, 2]
     ratio, remainder, touched = occlusion_sweep(right, left, occ_a1, occ_a2,
                                                 occ_valid, beam_rad)
     bump_overflow = ((ratio > 0).sum(dim=1) - max_bumps).clamp_min(0)
@@ -300,54 +303,63 @@ def window_pulse_plain(xyz, max_int, occ_a1, occ_a2, occ_dist, occ_valid,
         torch.cat([bump_r, d_orig[:, None]], dim=1),
         torch.cat([bump_amp, tgt_amp[:, None]], dim=1),
         range_grid, ipm, tau_h)
-    return (peak, idx.to(torch.int32), touched.any(dim=1),
-            bump_overflow.to(torch.int32))
+    out = (peak, idx.to(torch.int32), touched.any(dim=1),
+           bump_overflow.to(torch.int32))
+    if live is None:
+        return out
+    return tuple(torch.where(live, v, torch.zeros((), dtype=v.dtype,
+                                                  device=v.device))
+                 for v in out)
 
 
-def window_pulse_peaks(xyz, max_int, occ_a1, occ_a2, occ_dist, occ_valid,
+def window_pulse_peaks(feats, max_int, occ_a1, occ_a2, occ_dist, occ_valid,
                        range_grid, *, beam_rad: float, ipm: int,
-                       tau_h: float, max_bumps: int):
+                       tau_h: float, max_bumps: int, live=None):
     """Kernel W2 on CUDA tensors, `window_pulse_plain` on CPU tensors;
     arguments and outputs as `window_pulse_plain`."""
-    if xyz.device.type == "cpu":
-        return window_pulse_plain(xyz, max_int, occ_a1, occ_a2, occ_dist,
+    if feats.device.type == "cpu":
+        return window_pulse_plain(feats, max_int, occ_a1, occ_a2, occ_dist,
                                   occ_valid, range_grid, beam_rad=beam_rad,
-                                  ipm=ipm, tau_h=tau_h, max_bumps=max_bumps)
-    return launch_w2(w2_inputs(xyz, max_int, occ_a1, occ_a2, occ_dist,
-                               occ_valid, range_grid, beam_rad=beam_rad,
-                               tau_h=tau_h),
+                                  ipm=ipm, tau_h=tau_h, max_bumps=max_bumps,
+                                  live=live)
+    return launch_w2(w2_inputs(feats, max_int, occ_a1, occ_a2, occ_dist,
+                               occ_valid, range_grid, tau_h=tau_h,
+                               live=live),
                      beam_rad=beam_rad, ipm=ipm, tau_h=tau_h,
                      max_bumps=max_bumps)
 
 
-def w2_inputs(xyz, max_int, occ_a1, occ_a2, occ_dist, occ_valid,
-              range_grid, *, beam_rad: float, tau_h: float) -> tuple:
-    """Kernel W2's arrays, with the transcendentals made by torch as
-    `window_pulse_plain` makes them: feats (4, P) rows [d_orig, right,
-    left, 0.9 * max_int]; W1's four (P, K) rows; cos and sin of each slot's
-    pulse phase (P, K), of the target's (P,) and of the grid's (M,)."""
-    phase = 2.0 * math.pi / (SPEED_OF_LIGHT * tau_h)   # as waveform_peak
-    d_orig = norm3(xyz)
-    right, left = beam_limits(xyz[:, 0], xyz[:, 1], beam_rad)
-    beta, beta_t, gph = phase * occ_dist, phase * d_orig, phase * range_grid
-    return (torch.stack([d_orig, right, left, 0.9 * max_int]), occ_a1,
-            occ_a2, occ_dist, occ_valid, torch.cos(beta), torch.sin(beta),
-            torch.cos(beta_t), torch.sin(beta_t), torch.cos(gph),
-            torch.sin(gph))
+def pulse_phase(tau_h: float) -> float:
+    """The pulse's phase per metre, 2 pi / (c tau_h), as waveform_peak
+    takes it."""
+    return 2.0 * math.pi / (SPEED_OF_LIGHT * tau_h)
+
+
+def w2_inputs(feats, max_int, occ_a1, occ_a2, occ_dist, occ_valid,
+              range_grid, *, tau_h: float, live=None) -> tuple:
+    """Kernel W2's arrays: the point features (the kernel reads range,
+    right and left), the channels' max_int, W1's four (P, K) rows, the live
+    mask (or None), and cos and sin of the grid's pulse phase (M,), made by
+    torch as `waveform_peak` makes them. The kernel computes the cos and
+    sin of the bumps' and the target's phase itself."""
+    gph = pulse_phase(tau_h) * range_grid
+    return (feats.contiguous(), max_int, occ_a1, occ_a2, occ_dist,
+            occ_valid, live, torch.cos(gph), torch.sin(gph))
 
 
 def launch_w2(inputs: tuple, *, beam_rad: float, ipm: int, tau_h: float,
               max_bumps: int):
     """Launch kernel W2 on `w2_inputs`' arrays (CUDA tensors) and count
     the launch; returns (peak, first bin, touched, bump_overflow)."""
-    n, k_occ = inputs[1].shape
+    n, k_occ = inputs[2].shape
     m_bins = inputs[-1].shape[0]
-    names = ("feats", "occ_a1", "occ_a2", "occ_dist", "occ_valid", "cos_b",
-             "sin_b", "cos_t", "sin_t", "cos_g", "sin_g")
-    shapes = ((4, n), *[(n, k_occ)] * 6, (n,), (n,), (m_bins,), (m_bins,))
+    names = ("feats", "max_int", "occ_a1", "occ_a2", "occ_dist", "occ_valid",
+             "live", "cos_g", "sin_g")
+    shapes = ((n, 9), (n,), *[(n, k_occ)] * 4, (n,), (m_bins,), (m_bins,))
     for name, t, shape in zip(names, inputs, shapes):
-        _kernels.check_input(name, t, torch.bool if name == "occ_valid"
-                             else torch.float32, shape)
+        if t is not None or name != "live":
+            _kernels.check_input(name, t, torch.bool if name in (
+                "occ_valid", "live") else torch.float32, shape)
     dev = inputs[0].device
     peak = torch.empty(n, dtype=torch.float32, device=dev)
     idx = torch.empty(n, dtype=torch.int32, device=dev)
@@ -357,14 +369,30 @@ def launch_w2(inputs: tuple, *, beam_rad: float, ipm: int, tau_h: float,
     # takes
     err = _kernels.launch(
         dev, _kernels.load("pulse").pulse_w2,
-        *(t.data_ptr() for t in inputs), peak.data_ptr(), idx.data_ptr(),
-        touched.data_ptr(), bump_overflow.data_ptr(), n, k_occ, m_bins,
-        max_bumps, beam_rad, float(ipm), SPEED_OF_LIGHT * tau_h, 0.9,
-        1.0 - 0.9, torch.cuda.current_stream(dev).cuda_stream,
+        *(None if t is None else t.data_ptr() for t in inputs),
+        peak.data_ptr(), idx.data_ptr(), touched.data_ptr(),
+        bump_overflow.data_ptr(), n, k_occ, m_bins, max_bumps, beam_rad,
+        float(ipm), SPEED_OF_LIGHT * tau_h, 0.9, 1.0 - 0.9,
+        pulse_phase(tau_h), torch.cuda.current_stream(dev).cuda_stream,
     )
     _kernels.check(err, "kernel W2 (pulse_w2)")
     window_pulse_peaks.launches += 1
     return peak, idx, touched, bump_overflow
+
+
+def trig_table(first: int, count: int, phase: float, device,
+               step: int = 1):
+    """cos and sin, as kernel W2 computes them, of phase times the float32
+    values with bit patterns first, first + step, ... (`count` f32 each):
+    what chip_smoke.py holds against torch.cos and torch.sin."""
+    c, s = (torch.empty(count, dtype=torch.float32, device=device)
+            for _ in range(2))
+    err = _kernels.launch(
+        device, _kernels.load("pulse").pulse_trig_table, first, count, step,
+        phase, c.data_ptr(), s.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream)
+    _kernels.check(err, "pulse_trig_table")
+    return c, s
 
 
 pulse_peaks.launches = 0

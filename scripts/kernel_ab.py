@@ -17,6 +17,14 @@ it folded into one launch, and C1 and C2 (pulse block 512, as chip_smoke's
 phase 7) on its compacted beams. Each version's phase C writes touched in
 its own width (an int32 before it became one byte a beam; touched_bytes)
 into a buffer of that width.
+Kernels W1 and W2 (the window assembly's) run on chip_smoke.py phase 12's
+inspect config (window_size 256, wide_capacity 128, max_occluders 64,
+max_bumps 32) on the channel-sorted bench scan, each version's W2 on its
+own W1's rows; a checkout whose W1 and W2 take no live mask (before
+pulse_trig_table existed in its pulse.cu) is called through those
+kernels' earlier C signatures (W1_W2_BEFORE_LIVE) with the arrays they
+took (window bounds, the (4, n) feature rows, torch's cos and sin
+tables), and computes every row; the two are compared on the live rows.
 Their outputs must be equal (touched as 0/1); then each kernel's device_ms
 (`tools/kernel_times.device_ms`) in turns, other, this, this, other per
 round. Prints one JSON line after the card's name and power limit.
@@ -48,11 +56,29 @@ from lidar_snow_sim_tpu_torch.tools.kernel_times import (
 
 NAMES = ("occluders", "pulse")
 C2_BLOCK = 512   # C2's pulse block on the bench scene (chip_smoke phase 7)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the C signatures of kernels W1 and W2 before they took a live mask: W1
+# took the window bounds (n, 2) in place of live and no delta; W2 the
+# (4, n) rows [d_orig, right, left, 0.9 max_int] and torch's cos and sin
+# of each slot's, the target's and the grid's phase
+W1_W2_BEFORE_LIVE = {
+    "occluders_w1": [_P] * 13 + [_I] * 6 + [_P],
+    "pulse_w2": [_P] * 15 + [_I] * 4 + [_F] * 5 + [_P],
+}
+WINDOW_INSPECT = dict(window_size=256, wide_capacity=128, max_occluders=64,
+                      max_bumps=32, point_chunk=2048)
+
+
+def live_api(root: Path) -> bool:
+    """Whether <root>'s kernels W1 and W2 take a live mask."""
+    return "pulse_trig_table" in (
+        root / "lidar_snow_sim_tpu_torch" / "csrc" / "pulse.cu").read_text()
 
 
 def build_other(root: Path, name: str) -> ctypes.CDLL:
     """Compile <root>'s csrc/<name>.cu into its _build/ with this tree's
-    nvcc flags; load it with this tree's signatures for it."""
+    nvcc flags; load it with this tree's signatures for it (W1's and W2's
+    earlier ones where its kernels take no live mask)."""
     pkg = root / "lidar_snow_sim_tpu_torch"
     out = pkg / "_build" / f"lib{name}_other.so"
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -64,13 +90,148 @@ def build_other(root: Path, name: str) -> ctypes.CDLL:
         raise RuntimeError(f"nvcc failed on {root}'s {name}.cu:\n"
                            f"{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(str(out))
+    before = {} if live_api(root) else W1_W2_BEFORE_LIVE
     for fn, argtypes in _kernels.SIGNATURES[name].items():
         f = getattr(lib, fn, None)
         if f is None:   # an entry point newer than the other checkout
             continue
-        f.argtypes = argtypes
+        f.argtypes = before.get(fn, argtypes)
         f.restype = ctypes.c_int
     return lib
+
+
+def window_bench(dev):
+    """(WindowInputs, bank tensors, config) of chip_smoke.py phase 12's
+    inspect config on the channel-sorted bench scan, the RANSAC plane
+    fitted on its padded points."""
+    import torch
+
+    from lidar_snow_sim_tpu_torch import (
+        SnowfallConfig,
+        build_bank,
+        load_hdl64_calib,
+        pad_cloud,
+        synthetic_scan,
+    )
+    from lidar_snow_sim_tpu_torch.models import snowfall as ts
+    from lidar_snow_sim_tpu_torch.ops.fitting import (
+        ransac_draws,
+        ransac_plane,
+    )
+
+    calib = load_hdl64_calib()
+    pc = synthetic_scan(n_azimuth=870, seed=0, calib=calib)
+    srt = np.ascontiguousarray(pc[np.argsort(pc[:, 4], kind="stable")])
+    cap = 1 << int(np.ceil(np.log2(len(srt))))
+    cfg = SnowfallConfig(max_points=cap, **WINDOW_INSPECT)
+    sets = bank_sets(_kernels.BUILD_DIR / "banks")[0]
+    bank_t = ts.bank_to_torch(build_bank(
+        sets, window_size=cfg.window_size, wide_threshold=cfg.wide_threshold,
+        wide_capacity=cfg.wide_capacity), dev)
+    padded = pad_cloud(srt, cap)
+    points = torch.as_tensor(padded.points, device=dev)
+    mask = torch.as_tensor(padded.mask, device=dev)
+    plane = ransac_plane(points[:, :3], mask,
+                         ransac_draws(0, cfg.ransac_trials).to(dev))
+    inp = ts.window_inputs(
+        points, mask, bank_t, ts.calib_to_torch(calib, dev),
+        torch.as_tensor(np.random.default_rng(0).permutation(64),
+                        device=dev), None, cfg, plane=plane)
+    return inp, bank_t, cfg
+
+
+def w1_call(lib, with_live: bool, inp, bank_t, cfg, live: bool = True,
+            n: int | None = None):
+    """fn() launching `lib`'s occluders_w1 on the first n points of `inp`
+    (all by default) into fixed outputs: with the C signature that takes a
+    live mask (`live`: the scan's mask, else null) where `with_live`, else
+    with W1_W2_BEFORE_LIVE's."""
+    import torch
+
+    from lidar_snow_sim_tpu_torch.models.snowfall import window_delta
+    from lidar_snow_sim_tpu_torch.ops.occluders import w1_inputs
+
+    n = inp.xyz.shape[0] if n is None else n
+    k = cfg.max_occluders
+    delta = window_delta(cfg)
+    feats = inp.feats[:n].contiguous()
+    ins = w1_inputs(feats, inp.bank_row[:n], inp.lo[:n], bank_t.data_t,
+                    bank_t.wide_t, bank_t.ang_t, bank_t.wang_t,
+                    live=inp.mask[:n] if live else None)
+    if not with_live:
+        bounds = torch.stack([feats[:, 8] - delta, feats[:, 8] + delta],
+                             dim=1)
+        ins = (*ins[:3], bounds, *ins[4:])
+    dev = feats.device
+    outs = (*(torch.empty((n, k), device=dev) for _ in range(3)),
+            torch.empty((n, k), dtype=torch.bool, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev))
+    ptrs = [None if t is None else t.data_ptr() for t in (*ins, *outs)]
+    extra = (delta,) if with_live else ()
+    dims = (n, bank_t.data_t.shape[2], bank_t.wide_t.shape[2],
+            bank_t.wang_t.shape[2], cfg.window_size, k)
+
+    def run():
+        _kernels.check(lib.occluders_w1(
+            *ptrs, *dims, *extra, torch.cuda.current_stream().cuda_stream),
+            "occluders_w1")
+        return outs
+    run.inputs = ins   # the arrays behind ptrs live as long as run
+    return run
+
+
+def w2_call(lib, with_live: bool, inp, occ, cfg, live: bool = True,
+            n: int | None = None):
+    """fn() launching `lib`'s pulse_w2 on the first n points of `inp` with
+    their W1 rows `occ` into fixed outputs, as w1_call calls W1."""
+    import torch
+
+    from lidar_snow_sim_tpu_torch.config import SPEED_OF_LIGHT
+    from lidar_snow_sim_tpu_torch.ops.pulse import pulse_phase, w2_inputs
+
+    n = inp.xyz.shape[0] if n is None else n
+    occ = [t[:n] for t in occ[:4]]
+    ins = w2_inputs(inp.feats[:n], inp.max_int[:n], *occ, inp.range_grid,
+                    tau_h=cfg.tau_h, live=inp.mask[:n] if live else None)
+    phase = pulse_phase(cfg.tau_h)
+    if not with_live:
+        f = inp.feats[:n]
+        beta, beta_t = phase * occ[2], phase * f[:, 0]
+        ins = (torch.stack([f[:, 0], f[:, 1], f[:, 2],
+                            0.9 * inp.max_int[:n]]), *occ,
+               torch.cos(beta), torch.sin(beta), torch.cos(beta_t),
+               torch.sin(beta_t), *ins[-2:])
+    dev = occ[0].device
+    outs = (torch.empty(n, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty(n, dtype=torch.bool, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev))
+    ptrs = [None if t is None else t.data_ptr() for t in (*ins, *outs)]
+    scalars = (cfg.beam_divergence_rad, float(cfg.intervals_per_meter),
+               SPEED_OF_LIGHT * cfg.tau_h, 0.9, 1.0 - 0.9)
+    extra = (phase,) if with_live else ()
+    m_bins = inp.range_grid.shape[0]
+
+    def run():
+        _kernels.check(lib.pulse_w2(
+            *ptrs, n, cfg.max_occluders, m_bins, cfg.max_bumps, *scalars,
+            *extra, torch.cuda.current_stream().cuda_stream), "pulse_w2")
+        return outs
+    run.inputs = ins   # the arrays behind ptrs live as long as run
+    return run
+
+
+def live_rows_equal(got, want, mask) -> bool:
+    """Whether two W1 or W2 outputs agree on the rows of `mask` (a peak
+    NaN where the other is)."""
+    import torch
+
+    def same(a, b):
+        a, b = a[mask[:a.shape[0]]], b[mask[:b.shape[0]]]
+        return torch.equal(a, b) or (a.is_floating_point() and torch.equal(
+            a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(),
+                                                  b.nan_to_num()))
+    return all(same(a, b) for a, b in zip(got, want))
 
 
 class BenchInputs(NamedTuple):
@@ -338,10 +499,24 @@ def main(argv=None) -> int:
             "C2": (_c2_call(lib["pulse"], comp.pulse_args, comp.pulse_kw,
                             widths[ver]), "c2_kernel"),
         }
+    inp, bank_wt, wcfg = window_bench(dev)
+    for ver, lib in libs.items():
+        api = live_api(root) if ver == "other" else True
+        w1 = w1_call(lib["occluders"], api, inp, bank_wt, wcfg)
+        occ = [t.clone() for t in w1()]
+        calls[ver]["W1"] = (w1, "w1_kernel")
+        calls[ver]["W2"] = (w2_call(lib["pulse"], api, inp, occ, wcfg),
+                            "w2_kernel")
     for name in calls["this"]:
         got = [t.clone() for t in calls["this"][name][0]()]
         want = calls["other"][name][0]()
         torch.cuda.synchronize()
+        if name in ("W1", "W2"):
+            if not live_rows_equal(got, want, inp.mask):
+                print(f"kernel_ab: {name} differs between the two versions "
+                      "on the live rows", file=sys.stderr)
+                return 1
+            continue
         if not outputs_equal(name, got, want, kw["k_occ"]):
             print(f"kernel_ab: {name} differs between the two versions",
                   file=sys.stderr)

@@ -5,8 +5,10 @@
 Run from the repository root. Runs `cuobjdump -sass` on LIB.so (a
 library that `lidar_snow_sim_tpu_torch._kernels.build` made)
 and takes the functions whose mangled name holds KERNEL (for instance
-`a1_kernelILi32E`, A1 built for K <= 32). For each function it prints one
-JSON line: its instruction count and its loops, found as backward branches.
+`a1_kernelILi32E`, A1 built for K <= 32, or `w1_kernel`). For each
+function it prints one JSON line: its instruction count, its local-memory
+loads and stores (LDL, STL: a kernel that keeps its state in registers and
+shared memory has none), and its loops, found as backward branches.
 A loop is [target, branch]; for each it gives the instructions in it, the
 loops nested in it, and its count of FMUL, FADD, FSETP, LDS, LDG and
 branch instructions. In the hit tests of csrc/occluders.cu every
@@ -33,6 +35,7 @@ _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 _FUNC = re.compile(r"Function : (\S+)")
 _OPS = ("FMUL", "FADD", "FSETP", "LDS", "LDG", "BRA")
+_LOCAL = ("LDL", "STL")   # local-memory loads and stores (spills, arrays)
 
 
 def cuobjdump() -> str:
@@ -161,6 +164,7 @@ def main(argv=None) -> int:
     for name, instrs in funcs.items():
         print(json.dumps({"lib": args.lib.name, "function": name,
                           "instructions": len(instrs),
+                          **{op: _count(instrs, op) for op in _LOCAL},
                           "loops": loops(instrs)}), flush=True)
     return 0
 

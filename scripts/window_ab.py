@@ -15,7 +15,10 @@ checkout, unpacked with `git archive`, with this one), and measures:
   sorted by channel, max_points 65,536) and bank (`tools/kernel_times.
   bank_sets`): the median of --reps CUDA-event times after 2 warm-ups, with
   RANSAC on the card as a scan runs it; and kernel W1's wrapper call
-  (`ops/occluders.find_occluders_window`) where the tree has it. The bank's
+  (`ops/occluders.find_occluders_window`) where the tree has it, as the
+  tree's scan makes it (live mask and all), the point features included
+  (where the scan makes them once for W1 and W2, the timed call makes them
+  first). The bank's
   tensors are made once, outside the timing, as a user's augmenter makes
   them.
 - datagen: the experiment tool's `snowify` at its defaults (batch 4,
@@ -130,8 +133,22 @@ def scan(counters: Counters, reps: int) -> dict:
     if hasattr(occ_ops, "find_occluders_window"):
         inp = ts.window_inputs(*args)
         w_args, w_kw = ts.window_occluder_call(inp, bank_t, cfg)
-        out["w1_call_ms"] = _time_ms(
-            lambda: occ_ops.find_occluders_window(*w_args, **w_kw), 20)
+        if hasattr(inp, "feats"):
+            # the scan makes the feature rows once, for W1 and W2: time
+            # them with W1's call, which the earlier trees' call made them
+            # in, so both sides time the same work
+            xyz = inp.xyz
+
+            def w1_call():
+                feats = occ_ops.point_features(xyz[:, 0], xyz[:, 1],
+                                               xyz[:, 2],
+                                               cfg.beam_divergence_rad)
+                return occ_ops.find_occluders_window(feats, *w_args[1:],
+                                                     **w_kw)
+        else:
+            def w1_call():
+                return occ_ops.find_occluders_window(*w_args, **w_kw)
+        out["w1_call_ms"] = _time_ms(w1_call, 20)
     return out
 
 

@@ -17,9 +17,18 @@ reach the row's end and repeat its last column) and K = 512 (the largest
 list the kernel takes). W2 also runs on crafted points: one at the origin
 (a 0/0 target amplitude), equal ratios (ties by slot) with max_bumps 1, a
 bump nearer than the receiver ramp (amplitude 0) and three overlapping
-bumps.
+bumps. The redesigned kernels are also held, with and without a live
+mask, at each K of the earlier per-thread lists (32 ... 512), on points
+shuffled across bank rows (CTAs that cross a row, live and padding points
+mixed in a warp), on windows wider than W1's staging room, on far points
+in a wide beam (more hits than W1's hit buffer of 64), on windows whose
+bound equals a column's sort angle, on a point at the origin, on point
+counts that are no multiple of a CTA's, and with no point or every point
+live; and W2's cos and sin against torch's on a strided sample of the
+non-negative floats (chip_smoke.py checks every one).
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -93,6 +102,7 @@ def test_cuda_window_kernels_match_plain(cuda, case, k, twins, window_size,
     cfg, bank_t, inp = window_case(case, cuda, k, twins, window_size,
                                    max_bumps)
     args, kw = ts.window_occluder_call(inp, bank_t, cfg)
+    kw["live"] = None   # every row
     n0 = tocc.find_occluders_window.launches
     occ = tocc.find_occluders_window(*args, **kw)
     assert tocc.find_occluders_window.launches == n0 + 1
@@ -100,6 +110,7 @@ def test_cuda_window_kernels_match_plain(cuda, case, k, twins, window_size,
         assert torch.equal(got, want)
     assert occ[3].any()
     pargs, pkw = ts.window_pulse_call(inp, occ, cfg)
+    pkw["live"] = None
     n0 = tpulse.window_pulse_peaks.launches
     peaks = tpulse.window_pulse_peaks(*pargs, **pkw)
     assert tpulse.window_pulse_peaks.launches == n0 + 1
@@ -143,7 +154,9 @@ def crafted_points(device):
 @pytest.mark.parametrize("max_bumps", [1, 4])
 def test_cuda_w2_crafted_points(cuda, max_bumps):
     (xyz, a1, a2, dist, valid), cfg = crafted_points(cuda)
-    args = (xyz, torch.full((4,), 255.0, device=cuda), a1, a2, dist, valid,
+    feats = tocc.point_features(xyz[:, 0], xyz[:, 1], xyz[:, 2],
+                                cfg.beam_divergence_rad)
+    args = (feats, torch.full((4,), 255.0, device=cuda), a1, a2, dist, valid,
             torch.as_tensor(cfg.range_grid(), device=cuda))
     kw = dict(beam_rad=cfg.beam_divergence_rad, ipm=cfg.intervals_per_meter,
               tau_h=cfg.tau_h, max_bumps=max_bumps)
@@ -163,7 +176,7 @@ def test_cuda_window_wrappers_check_inputs(cuda):
     args, kw = ts.window_occluder_call(inp, bank_t, cfg)
     with pytest.raises(ValueError, match="max_occluders"):
         tocc.find_occluders_window(*args, **dict(kw, k_occ=513))
-    no_wide = (*args[:7], bank_t.wang_t[:, :, :0])   # n_wide 0
+    no_wide = (*args[:6], bank_t.wang_t[:, :, :0])   # n_wide 0
     with pytest.raises(ValueError, match="do not fit"):
         tocc.find_occluders_window(*no_wide, **dict(kw, window_size=4,
                                                     k_occ=8))
@@ -191,3 +204,168 @@ def test_cuda_window_scan_equals_plain_path(cuda):
     want = ts.window_augment(*args, plane=plane, plain=True)
     for name, a, b in zip(ts.SnowfallResult._fields, got, want):
         assert torch.equal(a, b), name
+
+
+def check_window(inp, bank_t, cfg, live):
+    """W1 and then W2 on W1's rows, each equal to its plain version with the
+    live mask `live` (None: every point); returns (W1's, W2's outputs)."""
+    args, kw = ts.window_occluder_call(inp, bank_t, cfg)
+    kw["live"] = live
+    occ = tocc.find_occluders_window(*args, **kw)
+    for name, got, want in zip(("a1", "a2", "dist", "valid", "overflow"),
+                               occ, tocc.occluders_window_plain(*args, **kw)):
+        assert torch.equal(got, want), name
+    pargs, pkw = ts.window_pulse_call(inp, occ, cfg)
+    pkw["live"] = live
+    peaks = tpulse.window_pulse_peaks(*pargs, **pkw)
+    for name, got, want in zip(("peak", "bin", "touched", "bump_overflow"),
+                               peaks,
+                               tpulse.window_pulse_plain(*pargs, **pkw)):
+        assert _same(got, want), name
+    if live is not None:
+        dead = ~live
+        assert not occ[3][dead].any() and not occ[4][dead].any()
+        assert not peaks[0][dead].any() and not peaks[1][dead].any()
+        assert not peaks[2][dead].any() and not peaks[3][dead].any()
+    return occ, peaks
+
+
+def _subset(inp, idx):
+    """`inp` restricted to the points `idx` (a slice or index tensor)."""
+    return inp._replace(**{f: getattr(inp, f)[idx] for f in (
+        "xyz", "intensity", "mask", "noise_at", "bank_row", "lo",
+        "n_window", "feats", "min_int", "max_int", "focal_slope",
+        "focal_offset")})
+
+
+def _with_xyz(inp, xyz, cfg):
+    feats = tocc.point_features(xyz[:, 0], xyz[:, 1], xyz[:, 2],
+                                cfg.beam_divergence_rad)
+    return inp._replace(xyz=xyz, feats=feats)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live", [False, True])
+@pytest.mark.parametrize("k", [32, 64, 128, 256, 512])
+def test_cuda_window_kernels_each_k_tier(cuda, k, live):
+    """W1 and W2 equal their plain versions at each K of the earlier
+    per-thread lists' tiers, with the scan's mask as live mask and
+    without."""
+    cfg, bank_t, inp = window_case("scene", cuda, k, True, 1024, 32)
+    occ, _ = check_window(inp, bank_t, cfg, inp.mask if live else None)
+    assert occ[3].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["scene", "dense"])
+def test_cuda_window_points_across_rows(cuda, case):
+    """Points in a random order, so that W1's CTAs cross bank rows and
+    live and padding points share warps, with a random live mask."""
+    cfg, bank_t, inp = window_case(case, cuda)
+    g = torch.Generator().manual_seed(5)
+    perm = torch.randperm(inp.xyz.shape[0], generator=g).to(cuda)
+    inp = _subset(inp, perm)
+    live = torch.rand(inp.xyz.shape[0], generator=g).to(cuda) < 0.7
+    rows = inp.bank_row[:32]
+    assert (rows != rows[0]).any()
+    check_window(inp, bank_t, cfg, live & inp.mask)
+    check_window(inp, bank_t, cfg, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window_size", [1024, 2048])
+def test_cuda_window_span_past_the_staging_room(cuda, window_size):
+    """Windows wider than W1's staged span (1,024 columns a CTA)."""
+    cfg, bank_t, inp = window_case("dense", cuda, 24, False, window_size, 8)
+    check_window(inp, bank_t, cfg, inp.mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [8, 64, 200])
+def test_cuda_w1_more_hits_than_its_buffer(cuda, k):
+    """Far points in a beam 30 times as wide: more than 64 hits a point
+    (W1's hit buffer), so W1 cuts its buffer and, past K > 32, takes more
+    than one pass over a point's list."""
+    cfg, bank_t, inp = window_case("dense", cuda, k, False, 256, 8)
+    cfg = dataclasses.replace(cfg,
+                              beam_divergence_deg=cfg.beam_divergence_deg * 30)
+    inp = _with_xyz(_subset(inp, slice(0, 2048)), inp.xyz[:2048] * 40.0, cfg)
+    occ, _ = check_window(inp, bank_t, cfg, inp.mask)
+    assert int((occ[3].sum(dim=1) + occ[4]).max()) > 64
+
+
+@pytest.mark.cuda
+def test_cuda_w1_points_on_a_window_bound(cuda):
+    """Points whose window bound, feature 8 -+ delta in float32, equals the
+    sort angle of a column in their window: the column is in the window
+    (>= and <=), in W1 as in its plain version."""
+    cfg, bank_t, inp = window_case("dense", cuda)
+    delta = torch.tensor(ts.window_delta(cfg), dtype=torch.float32,
+                         device=cuda)
+    k_ext = bank_t.data_t.shape[2]
+    col = (inp.lo + 3).clamp(0, k_ext - 1)
+    sang = bank_t.data_t[inp.bank_row, tocc.SANG_ROW, col]
+    center = inp.feats[:, 8].clone()
+    hits = torch.zeros_like(inp.mask)
+    for sign in (1.0, -1.0):   # the low bound on even, the high on odd
+        pick = (torch.arange(len(center), device=cuda) % 2) == (sign < 0)
+        for way in (1e30, -1e30):   # a few float steps either way
+            c = sang + sign * delta
+            for _ in range(5):
+                take = pick & ((c - sign * delta) == sang) & ~hits
+                center = torch.where(take, c, center)
+                hits |= take
+                c = torch.nextafter(c, torch.full_like(c, way))
+    assert int(hits.sum()) > len(center) // 2
+    feats = inp.feats.clone()
+    feats[:, 8] = center
+    check_window(inp._replace(feats=feats), bank_t, cfg, inp.mask)
+
+
+@pytest.mark.cuda
+def test_cuda_window_point_at_the_origin(cuda):
+    """A live point at the origin: no occluder (range 0), peak NaN, bin M."""
+    cfg, bank_t, inp = window_case("scene", cuda)
+    xyz = inp.xyz.clone()
+    xyz[0] = 0.0
+    inp = _with_xyz(inp, xyz, cfg)
+    occ, peaks = check_window(inp, bank_t, cfg, inp.mask)
+    assert not occ[3][0].any()
+    assert peaks[0][0].isnan() and int(peaks[1][0]) == len(cfg.range_grid())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 8187])
+def test_cuda_window_point_counts(cuda, n):
+    """Point counts that are no multiple of a CTA's points."""
+    cfg, bank_t, inp = window_case("dense", cuda)
+    inp = _subset(inp, slice(0, n))
+    check_window(inp, bank_t, cfg, inp.mask)
+    check_window(inp, bank_t, cfg, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("every", [False, True])
+def test_cuda_window_no_point_or_every_point_live(cuda, every):
+    cfg, bank_t, inp = window_case("dense", cuda)
+    live = torch.full_like(inp.mask, every)
+    occ, _ = check_window(inp, bank_t, cfg, live)
+    assert bool(occ[3].any()) == every
+
+
+@pytest.mark.cuda
+def test_cuda_w2_cos_sin_equal_torch_on_a_sample(cuda):
+    """Kernel W2's cos and sin (ops/pulse.trig_table) of x and of the
+    pulse phase times x equal torch.cos and torch.sin, bitwise, for every
+    1,009th non-negative float32 x up to +inf (chip_smoke.py's phase 12
+    takes every one)."""
+    step, last = 1009, 0x7F800000
+    phase = tpulse.pulse_phase(SnowfallConfig().tau_h)
+    for c0 in range(0, last + 1, step << 22):
+        n = min(1 << 22, (last - c0) // step + 1)
+        x = (torch.arange(n, dtype=torch.int32, device=cuda) * step
+             + c0).view(torch.float32)
+        for scale in (1.0, phase):
+            c, s = tpulse.trig_table(c0, n, scale, cuda, step=step)
+            arg = x if scale == 1.0 else scale * x
+            assert _same(c, torch.cos(arg)) and _same(s, torch.sin(arg))

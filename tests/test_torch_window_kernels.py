@@ -90,7 +90,7 @@ def _jax_candidates(bank, inp, cfg):
     """The JAX chunk_fn's (P, S + W, 4) candidates of every point."""
     k_ext = bank.angle.shape[1]
     row, lo = inp.bank_row.numpy(), inp.lo.numpy()
-    center = inp.center.numpy()
+    center = inp.feats[:, 8].numpy()
     delta = ts.window_delta(cfg)
     widx = np.clip(lo[:, None] + np.arange(cfg.window_size), 0, k_ext - 1)
     wcand = bank.data[row[:, None], widx].copy()
@@ -114,7 +114,8 @@ def _jax_occluders(bank, inp, cfg):
 def test_occluders_window_plain_matches_jax(scene, starved):
     cfg, bank, bank_t, inp = _inputs(scene, starved)
     args, kw = ts.window_occluder_call(inp, bank_t, cfg)
-    got = [v.numpy() for v in tocc.occluders_window_plain(*args, **kw)]
+    got = [v.numpy() for v in tocc.occluders_window_plain(
+        *args, **dict(kw, live=None))]
     want = _jax_occluders(bank, inp, cfg)
     valid = want[3]
     np.testing.assert_array_equal(got[3], valid)
@@ -149,7 +150,7 @@ def test_window_pulse_plain_matches_jax(scene, starved):
         jnp.asarray(grid), cfg=jcfg)]
     t_occ = [torch.tensor(v) for v in occ[:4]]
     peak, idx, touched, bump_of = tpulse.window_pulse_plain(
-        inp.xyz, inp.max_int, *t_occ, torch.as_tensor(grid),
+        inp.feats, inp.max_int, *t_occ, torch.as_tensor(grid),
         beam_rad=cfg.beam_divergence_rad, ipm=cfg.intervals_per_meter,
         tau_h=cfg.tau_h, max_bumps=cfg.max_bumps)
     new_xyz, new_int, label, diff = ts._pulse_tail(
@@ -193,8 +194,10 @@ def test_origin_point_peak_is_nan_at_bin_m():
     k = 4
     xyz = torch.tensor([[0.0, 0.0, 0.0], [10.0, 0.0, 0.0]])
     zeros = torch.zeros((2, k))
+    feats = tocc.point_features(xyz[:, 0], xyz[:, 1], xyz[:, 2],
+                                cfg.beam_divergence_rad)
     peak, idx, touched, bump_of = tpulse.window_pulse_plain(
-        xyz, torch.full((2,), 255.0), zeros, zeros, torch.full(
+        feats, torch.full((2,), 255.0), zeros, zeros, torch.full(
             (2, k), float("inf")), torch.zeros((2, k), dtype=torch.bool),
         torch.as_tensor(cfg.range_grid()), beam_rad=cfg.beam_divergence_rad,
         ipm=cfg.intervals_per_meter, tau_h=cfg.tau_h, max_bumps=2)
