@@ -1,0 +1,10 @@
+"""c1_roofline: kernel C1's share (%) of its roofline: the least time
+the card could take for the pulse phase's work of a frame
+(port_bench/workcount.py), over the mean time of a `c1_kernel` record
+in the traced window. Moves scans_per_s."""
+
+from port_bench.workcount import roofline_share
+
+
+def read(run):
+    return roofline_share(run, "c1_kernel", "pulse")
