@@ -1262,7 +1262,8 @@ def detector_phase(cloud, dev, cfg=None) -> None:
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation]
         busy[name] = (round(sum(e.time_range.elapsed_us() for e in ks) / 1e3,
                             4), len(ks))
     print(f"detector: card {card_line()!r} grid {cfg.grid_size} pillars "
@@ -1335,7 +1336,10 @@ def _busy(fn) -> tuple:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # a span's record_function range also shows on the card's timeline, as
+    # a user annotation: not a launch, and its time is not busy time
+    ks = [e for e in prof.events()
+          if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     return sum(e.time_range.elapsed_us() for e in ks) / 1e3, len(ks)
 
 

@@ -97,6 +97,7 @@ from lidar_snow_sim_tpu_torch.sampling.banks import (
     ParticleBank,
 )
 from lidar_snow_sim_tpu_torch.utils.pointcloud import pad_cloud
+from lidar_snow_sim_tpu_torch.utils.profiling import span
 from lidar_snow_sim_tpu_torch.ops.f32 import div
 from lidar_snow_sim_tpu_torch.ops.fitting import (
     masked_polyfit2,
@@ -240,22 +241,23 @@ def default_compact_capacity(cfg, num_lasers: int) -> int:
 def _plane_and_noise(xyz, intensity, mask, dist, draws, cfg, plane):
     """Ground plane -> incident angles -> adaptive noise polynomial at
     every point's range (simulation.py:449-469)."""
-    if plane is None:
-        w, h = ransac_plane(xyz, mask, draws)
-    else:
-        w, h = plane
-    hog = xyz @ w + h
-    ground = mask & (hog < cfg.ground_delta) & (hog > -cfg.ground_delta)
-    incident = torch.arccos(torch.clamp(
-        (xyz @ w) / (dist.clamp_min(1e-12) * torch.linalg.vector_norm(w)),
-        -1, 1,
-    ))
-    _, threshold = estimate_laser_parameters(
-        xyz, intensity, incident, ground, noise_floor=cfg.noise_floor
-    )
-    threshold = threshold * torch.cos(incident)
-    noise_poly = masked_polyfit2(dist, threshold, ground)
-    return polyval2(noise_poly, dist)
+    with span("snowfall.plane_noise"):
+        if plane is None:
+            w, h = ransac_plane(xyz, mask, draws)
+        else:
+            w, h = plane
+        hog = xyz @ w + h
+        ground = mask & (hog < cfg.ground_delta) & (hog > -cfg.ground_delta)
+        incident = torch.arccos(torch.clamp(
+            (xyz @ w) / (dist.clamp_min(1e-12) * torch.linalg.vector_norm(w)),
+            -1, 1,
+        ))
+        _, threshold = estimate_laser_parameters(
+            xyz, intensity, incident, ground, noise_floor=cfg.noise_floor
+        )
+        threshold = threshold * torch.cos(incident)
+        noise_poly = masked_polyfit2(dist, threshold, ground)
+        return polyval2(noise_poly, dist)
 
 
 def _batched_searchsorted(sorted_rows, rows, targets, length: int):
@@ -353,32 +355,34 @@ def window_inputs(points, mask, bank: BankTensors, calib: CalibTensors,
     The points' feature rows (`ops/occluders.point_features`) are made once
     here: their signed azimuth is the window's centre, and kernels W1 and
     W2 both read them."""
-    n_ch = order.shape[0]
-    perm = torch.sort(torch.where(mask, points[:, 4], 1e9), stable=True
-                      ).indices
-    points, mask = points[perm], mask[perm]
-    xyz, intensity = points[:, :3], points[:, 3]
-    channel = points[:, 4].to(torch.int64).clamp(0, n_ch - 1)
-    noise_at = _plane_and_noise(xyz, intensity, mask, norm3(xyz), draws, cfg,
-                                plane)
-    bank_row = order[channel]
-    feats = point_features(xyz[:, 0], xyz[:, 1], xyz[:, 2],
-                           cfg.beam_divergence_rad)
-    center = feats[:, 8]
-    delta = window_delta(cfg)
-    k_ext = bank.angle.shape[1]
-    lo = _batched_searchsorted(bank.angle, bank_row, center - delta, k_ext)
-    n_window = _batched_searchsorted(bank.angle, bank_row, center + delta,
-                                     k_ext) - lo
-    return WindowInputs(
-        xyz=xyz, intensity=intensity, mask=mask, noise_at=noise_at,
-        bank_row=bank_row, lo=lo, n_window=n_window, feats=feats,
-        min_int=calib.min_intensity[channel],
-        max_int=calib.max_intensity[channel],
-        focal_slope=calib.focal_slope[channel],
-        focal_offset=calib.focal_offset[channel],
-        range_grid=torch.as_tensor(cfg.range_grid(), device=points.device),
-    )
+    with span("snowfall.window_inputs"):
+        n_ch = order.shape[0]
+        perm = torch.sort(torch.where(mask, points[:, 4], 1e9), stable=True
+                          ).indices
+        points, mask = points[perm], mask[perm]
+        xyz, intensity = points[:, :3], points[:, 3]
+        channel = points[:, 4].to(torch.int64).clamp(0, n_ch - 1)
+        noise_at = _plane_and_noise(xyz, intensity, mask, norm3(xyz), draws,
+                                    cfg, plane)
+        bank_row = order[channel]
+        feats = point_features(xyz[:, 0], xyz[:, 1], xyz[:, 2],
+                               cfg.beam_divergence_rad)
+        center = feats[:, 8]
+        delta = window_delta(cfg)
+        k_ext = bank.angle.shape[1]
+        lo = _batched_searchsorted(bank.angle, bank_row, center - delta,
+                                   k_ext)
+        n_window = _batched_searchsorted(bank.angle, bank_row,
+                                         center + delta, k_ext) - lo
+        return WindowInputs(
+            xyz=xyz, intensity=intensity, mask=mask, noise_at=noise_at,
+            bank_row=bank_row, lo=lo, n_window=n_window, feats=feats,
+            min_int=calib.min_intensity[channel],
+            max_int=calib.max_intensity[channel],
+            focal_slope=calib.focal_slope[channel],
+            focal_offset=calib.focal_offset[channel],
+            range_grid=torch.as_tensor(cfg.range_grid(), device=points.device),
+        )
 
 
 def window_delta(cfg: SnowfallConfig) -> float:
@@ -432,52 +436,54 @@ def window_augment(points, mask, bank: BankTensors, calib: CalibTensors,
         raise ValueError(f"max_points {n} is not a multiple of point_chunk "
                          f"{p_chunk}")
     inp = window_inputs(points, mask, bank, calib, order, draws, cfg, plane)
-    if points.device.type == "cuda" and not plain:
-        args, kw = window_occluder_call(inp, bank, cfg)
-        occ = find_occluders_window(*args, **kw)
-        args, kw = window_pulse_call(inp, occ, cfg)
-        peaks = window_pulse_peaks(*args, **kw)
-        occ_of = occ[4]
-    else:
-        chunks = []
-        for c0 in range(0, n, p_chunk):
-            sl = slice(c0, c0 + p_chunk)
-            args, kw = window_occluder_call(inp, bank, cfg, sl)
-            occ = occluders_window_plain(*args, **kw)
-            args, kw = window_pulse_call(inp, occ, cfg, sl)
-            chunks.append((*window_pulse_plain(*args, **kw), occ[4]))
-        *peaks, occ_of = (torch.cat(parts) for parts in zip(*chunks))
-    i_peak, peak_idx, touched, bump_of = peaks
-    mask = inp.mask
-    new_xyz, new_int, label, diff = _pulse_tail(
-        inp.xyz, inp.intensity, mask, i_peak, peak_idx, touched,
-        inp.min_int, inp.max_int, inp.focal_slope, inp.focal_offset, cfg)
+    with span("snowfall.window_kernels"):
+        if points.device.type == "cuda" and not plain:
+            args, kw = window_occluder_call(inp, bank, cfg)
+            occ = find_occluders_window(*args, **kw)
+            args, kw = window_pulse_call(inp, occ, cfg)
+            peaks = window_pulse_peaks(*args, **kw)
+            occ_of = occ[4]
+        else:
+            chunks = []
+            for c0 in range(0, n, p_chunk):
+                sl = slice(c0, c0 + p_chunk)
+                args, kw = window_occluder_call(inp, bank, cfg, sl)
+                occ = occluders_window_plain(*args, **kw)
+                args, kw = window_pulse_call(inp, occ, cfg, sl)
+                chunks.append((*window_pulse_plain(*args, **kw), occ[4]))
+            *peaks, occ_of = (torch.cat(parts) for parts in zip(*chunks))
+    with span("snowfall.tail"):
+        i_peak, peak_idx, touched, bump_of = peaks
+        mask = inp.mask
+        new_xyz, new_int, label, diff = _pulse_tail(
+            inp.xyz, inp.intensity, mask, i_peak, peak_idx, touched,
+            inp.min_int, inp.max_int, inp.focal_slope, inp.focal_offset, cfg)
 
-    # 5. rounded intensities, the noise-floor keep rule, stats
-    new_int = torch.round(new_int)
-    keep = mask & ((label == 2) | (new_int > inp.noise_at))
-    num_removed = (mask & ~keep).sum()
-    num_attenuated = (keep & (label == 1)).sum()
-    diff_sum = torch.stack([d.sum() for d in diff.split(p_chunk)]).sum()
-    avg_diff = torch.where(
-        num_attenuated > 0,
-        (diff_sum / num_attenuated.clamp_min(1)).to(torch.int32), 0)
-    win_of = (inp.n_window - cfg.window_size).clamp_min(0)
-    i32 = torch.int32
-    zero = torch.zeros((), dtype=i32, device=points.device)
-    return SnowfallResult(
-        planes=torch.stack([new_xyz[:, 0], new_xyz[:, 1], new_xyz[:, 2],
-                            new_int, label]),
-        keep=keep,
-        num_attenuated=num_attenuated.to(i32),
-        num_removed=num_removed.to(i32),
-        avg_intensity_diff=avg_diff.to(i32),
-        window_overflow=torch.where(mask, win_of, 0).sum().to(i32),
-        occluder_overflow=torch.where(mask, occ_of, 0).sum().to(i32),
-        bump_overflow=torch.where(mask, bump_of, 0).sum().to(i32),
-        channel_overflow=zero,
-        compact_overflow=zero,
-    )
+        # 5. rounded intensities, the noise-floor keep rule, stats
+        new_int = torch.round(new_int)
+        keep = mask & ((label == 2) | (new_int > inp.noise_at))
+        num_removed = (mask & ~keep).sum()
+        num_attenuated = (keep & (label == 1)).sum()
+        diff_sum = torch.stack([d.sum() for d in diff.split(p_chunk)]).sum()
+        avg_diff = torch.where(
+            num_attenuated > 0,
+            (diff_sum / num_attenuated.clamp_min(1)).to(torch.int32), 0)
+        win_of = (inp.n_window - cfg.window_size).clamp_min(0)
+        i32 = torch.int32
+        zero = torch.zeros((), dtype=i32, device=points.device)
+        return SnowfallResult(
+            planes=torch.stack([new_xyz[:, 0], new_xyz[:, 1], new_xyz[:, 2],
+                                new_int, label]),
+            keep=keep,
+            num_attenuated=num_attenuated.to(i32),
+            num_removed=num_removed.to(i32),
+            avg_intensity_diff=avg_diff.to(i32),
+            window_overflow=torch.where(mask, win_of, 0).sum().to(i32),
+            occluder_overflow=torch.where(mask, occ_of, 0).sum().to(i32),
+            bump_overflow=torch.where(mask, bump_of, 0).sum().to(i32),
+            channel_overflow=zero,
+            compact_overflow=zero,
+        )
 
 
 @dataclasses.dataclass
@@ -561,9 +567,17 @@ def group_az_bounds(sx, sy, s_key, w0_raw, ch_of_chunk, gsz: int,
 
 
 def dense_layout(points, mask, bank: BankTensors, order, draws,
-                 cfg: SnowfallConfig, plane=None) -> DenseLayout:
+                 cfg: SnowfallConfig, plane=None,
+                 frame: int | None = None) -> DenseLayout:
     """Plane fit, noise floor and the phase-A layout of one padded scan
-    (models/snowfall.py:468-885, Pallas branch)."""
+    (models/snowfall.py:468-885, Pallas branch); `frame` is the scan's
+    index in a batch, for its span."""
+    with span("snowfall.layout", frame):
+        return _dense_layout(points, mask, bank, order, draws, cfg, plane)
+
+
+def _dense_layout(points, mask, bank: BankTensors, order, draws,
+                  cfg: SnowfallConfig, plane) -> DenseLayout:
     dev = points.device
     n = points.shape[0]
     n_ch = order.shape[0]
@@ -753,20 +767,21 @@ def dense_layout(points, mask, bank: BankTensors, order, draws,
     )
 
 
-def run_phase_a(lay: DenseLayout):
+def run_phase_a(lay: DenseLayout, frame: int | None = None):
     """Phase A on the layout's kernel. Returns (a12d, ovf,
     window_overflow): A3 adds to the layout's count the beams its coverage
     plane flags among `cover_mask`."""
-    if lay.kernel == "A3":
-        a12d, ovf, unc = find_occluders_banded(*lay.occluder_args,
-                                               **lay.occluder_kw)
-        return a12d, ovf, lay.window_overflow + torch.where(
-            lay.cover_mask, unc, 0
-        ).sum()
-    run = dict(A1=find_occluders, A2=find_occluders_routed,
-               A4a=find_occluders_t, A4b=find_occluders_pair)[lay.kernel]
-    a12d, ovf = run(*lay.occluder_args, **lay.occluder_kw)
-    return a12d, ovf, lay.window_overflow
+    with span("snowfall.phase_a", frame):
+        if lay.kernel == "A3":
+            a12d, ovf, unc = find_occluders_banded(*lay.occluder_args,
+                                                   **lay.occluder_kw)
+            return a12d, ovf, lay.window_overflow + torch.where(
+                lay.cover_mask, unc, 0
+            ).sum()
+        run = dict(A1=find_occluders, A2=find_occluders_routed,
+                   A4a=find_occluders_t, A4b=find_occluders_pair)[lay.kernel]
+        a12d, ovf = run(*lay.occluder_args, **lay.occluder_kw)
+        return a12d, ovf, lay.window_overflow
 
 
 def run_phase_a_folded(lays):
@@ -774,8 +789,9 @@ def run_phase_a_folded(lays):
     launch (`find_occluders_folded`). Returns B triples as `run_phase_a`."""
     if any(lay.kernel != "A1" for lay in lays):
         raise ValueError("only A1 layouts fold")
-    out = find_occluders_folded([lay.occluder_args for lay in lays],
-                                **lays[0].occluder_kw)
+    with span("snowfall.phase_a"):
+        out = find_occluders_folded([lay.occluder_args for lay in lays],
+                                    **lays[0].occluder_kw)
     return [(a12d, ovf, lay.window_overflow)
             for (a12d, ovf), lay in zip(out, lays)]
 
@@ -1007,10 +1023,16 @@ def snowfall_augment_dense(points, mask, bank: BankTensors,
 
 
 def finish_scan(lay: DenseLayout, a12d, ovf, window_overflow,
-                calib: CalibTensors, cfg: SnowfallConfig) -> SnowfallResult:
-    """Phases B, C and D of one scan after its phase A (`run_phase_a`)."""
-    comp = compact_occluded(lay, a12d, ovf, calib, cfg)
-    return scatter_back(lay, comp, run_phase_c(comp), cfg, window_overflow)
+                calib: CalibTensors, cfg: SnowfallConfig,
+                frame: int | None = None) -> SnowfallResult:
+    """Phases B, C and D of one scan after its phase A (`run_phase_a`);
+    `frame` as `dense_layout`'s."""
+    with span("snowfall.compact", frame):
+        comp = compact_occluded(lay, a12d, ovf, calib, cfg)
+    with span("snowfall.phase_c", frame):
+        pulse_out = run_phase_c(comp)
+    with span("snowfall.scatter", frame):
+        return scatter_back(lay, comp, pulse_out, cfg, window_overflow)
 
 
 def grown_config(cfg: SnowfallConfig, name: str, k_ext: int,
@@ -1083,47 +1105,55 @@ class SnowfallAugmenter:
         self.last_result: SnowfallResult | None = None
 
     def __call__(self, pc, order=None, shuffle: bool = True):
+        with span("augmenter.call"):
+            return self._augment(pc, order, shuffle)
+
+    def _augment(self, pc, order, shuffle: bool):
         dev = self.device
-        if order is None:
-            order = np.arange(self.calib.num_lasers)
-            if shuffle:
-                order = np.random.permutation(order)
-        k_ext = int(self.bank.data_t.shape[2])
-        padded = pad_cloud(np.asarray(pc), self.cfg.max_points)
-        args = (
-            torch.as_tensor(padded.points, device=dev),
-            torch.as_tensor(padded.mask, device=dev),
-            self._bank, self._calib,
-            torch.as_tensor(np.asarray(order), dtype=torch.int64, device=dev),
-            ransac_draws(self.seed, self.cfg.ransac_trials).to(dev),
-        )
+        with span("augmenter.pad"):
+            if order is None:
+                order = np.arange(self.calib.num_lasers)
+                if shuffle:
+                    order = np.random.permutation(order)
+            k_ext = int(self.bank.data_t.shape[2])
+            padded = pad_cloud(np.asarray(pc), self.cfg.max_points)
+            args = (
+                torch.as_tensor(padded.points, device=dev),
+                torch.as_tensor(padded.mask, device=dev),
+                self._bank, self._calib,
+                torch.as_tensor(np.asarray(order), dtype=torch.int64,
+                                device=dev),
+                ransac_draws(self.seed, self.cfg.ransac_trials).to(dev),
+            )
         for _attempt in range(8):
             res = snowfall_augment(*args, self.cfg)
-            counts = {n: int(getattr(res, n)) for n in OVERFLOW_COUNTERS}
-            overflowed = [n for n, c in counts.items() if c]
-            if not overflowed:
-                break
-            grown = self.cfg
-            for name in overflowed:
-                grown = grown and grown_config(
-                    grown, name, k_ext, self.calib.num_lasers
-                )
-            logger.warning("snowfall capacities grew after %s", counts)
-            if grown is None:
-                raise RuntimeError(
-                    f"capacity overflow not auto-resolvable: {counts}"
-                )
-            self.cfg = grown
+            with span("augmenter.growth_check"):
+                counts = {n: int(getattr(res, n)) for n in OVERFLOW_COUNTERS}
+                overflowed = [n for n, c in counts.items() if c]
+                if not overflowed:
+                    break
+                grown = self.cfg
+                for name in overflowed:
+                    grown = grown and grown_config(
+                        grown, name, k_ext, self.calib.num_lasers
+                    )
+                if grown is None:
+                    raise RuntimeError(
+                        f"capacity overflow not auto-resolvable: {counts}"
+                    )
+                self.cfg = grown
+                logger.warning("snowfall capacities grew after %s", counts)
         else:
             raise RuntimeError(
                 f"capacity overflows persisted after growth: {counts}"
             )
         self.last_result = res
-        stats = (
-            int(res.num_attenuated),
-            int(res.num_removed),
-            int(res.avg_intensity_diff),
-        )
-        planes = res.planes.cpu().numpy()
-        keep = res.keep.cpu().numpy()
-        return stats, np.ascontiguousarray(planes.T[keep])
+        with span("augmenter.compact"):
+            stats = (
+                int(res.num_attenuated),
+                int(res.num_removed),
+                int(res.avg_intensity_diff),
+            )
+            planes = res.planes.cpu().numpy()
+            keep = res.keep.cpu().numpy()
+            return stats, np.ascontiguousarray(planes.T[keep])

@@ -43,6 +43,7 @@ from lidar_snow_sim_tpu_torch.parallel.mesh import (
     gather_frames,
     run_shards,
 )
+from lidar_snow_sim_tpu_torch.utils.profiling import span
 
 IN_META_WIDTH = 3 + 64   # [n_points, seed_hi, seed_lo, order(64)]
 OUT_META_WIDTH = 13      # [n_keep, att, rem, avg_diff, 5 overflows,
@@ -68,23 +69,29 @@ def _batched_core(points, mask, bank, calib, orders, snow_draws, wet_draws,
     snowfall output (replace=False keeps the snow labels). points (B, N, 5),
     mask (B, N), orders (B, C) and the draws are indexed by frame. Returns
     (B SnowfallResults, B WetGroundResults or None)."""
-    frames = range(points.shape[0])
-    if snow_cfg.assembly == "dense":
-        lays = [dense_layout(points[b], mask[b], bank, orders[b],
-                             snow_draws[b], snow_cfg) for b in frames]
-        if snow_cfg.batch_fold and all(lay.kernel == "A1" for lay in lays):
-            phase_a = run_phase_a_folded(lays)
+    with span("batched.core"):
+        frames = range(points.shape[0])
+        if snow_cfg.assembly == "dense":
+            lays = [dense_layout(points[b], mask[b], bank, orders[b],
+                                 snow_draws[b], snow_cfg, frame=b)
+                    for b in frames]
+            if snow_cfg.batch_fold and all(lay.kernel == "A1"
+                                           for lay in lays):
+                phase_a = run_phase_a_folded(lays)
+            else:
+                phase_a = [run_phase_a(lay, frame=b)
+                           for b, lay in zip(frames, lays)]
+            snows = [finish_scan(lay, *pa, calib, snow_cfg, frame=b)
+                     for b, lay, pa in zip(frames, lays, phase_a)]
         else:
-            phase_a = [run_phase_a(lay) for lay in lays]
-        snows = [finish_scan(lay, *pa, calib, snow_cfg)
-                 for lay, pa in zip(lays, phase_a)]
-    else:
-        snows = [snowfall_augment(points[b], mask[b], bank, calib, orders[b],
-                                  snow_draws[b], snow_cfg) for b in frames]
-    if wet_cfg is None:
-        return snows, None
-    return snows, [wet_ground_augment(s.planes, s.keep, wet_draws[b], wet_cfg)
-                   for b, s in zip(frames, snows)]
+            snows = [snowfall_augment(points[b], mask[b], bank, calib,
+                                      orders[b], snow_draws[b], snow_cfg)
+                     for b in frames]
+        if wet_cfg is None:
+            return snows, None
+        return snows, [wet_ground_augment(s.planes, s.keep, wet_draws[b],
+                                          wet_cfg)
+                       for b, s in zip(frames, snows)]
 
 
 def _stack(results, cls):
@@ -130,53 +137,63 @@ def datagen_packed_step(points, chan, in_meta, bank, calib,
     window/occluder/bump/channel/compact overflow, out_overflow
     (max(n_keep - P, 0)), wet_modified, wet_removed, wet_bailed].
     """
+    with span("batched.step"):
+        return _packed_step(points, chan, in_meta, bank, calib, snow_cfg,
+                            wet_cfg, out_points)
+
+
+def _packed_step(points, chan, in_meta, bank, calib, snow_cfg, wet_cfg,
+                 out_points):
     n = points.shape[1]
     p_out = out_points or n
     dev = points.device
-    meta = torch.as_tensor(in_meta).cpu()
-    pts = torch.cat([points, chan.to(torch.float32)[..., None]], dim=2)
-    mask = torch.arange(n, device=dev)[None, :] < meta[:, :1].to(dev)
-    draws = [frame_draws(
-        ((int(m[1]) & 0xFFFFFFFF) << 32) | (int(m[2]) & 0xFFFFFFFF),
-        snow_cfg, wet_cfg,
-    ) for m in meta]
-    snows, wets = _batched_core(
-        pts, mask, bank, calib, meta[:, 3:].to(torch.int64).to(dev),
-        [d[0].to(dev) for d in draws],
-        None if wet_cfg is None else [d[1].to(dev) for d in draws],
-        snow_cfg, wet_cfg,
-    )
-    planes_out, metas = [], []
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
-    for b, snow in enumerate(snows):
-        wet = None if wets is None else wets[b]
-        res = wet if wet is not None else snow
-        perm = torch.argsort((~res.keep).to(torch.int8), stable=True)[:p_out]
-        planes_c = res.planes[:, perm]
-        n_keep = res.keep.sum().to(torch.int32)
-        if wet_cfg is None:
-            packed = (
-                (torch.round(planes_c[3]).to(torch.int32) << 2)
-                | planes_c[4].to(torch.int32)
-            ).view(torch.float32)
-            planes_c = torch.cat([planes_c[:3], packed[None]], dim=0)
-        metas.append(torch.stack([
-            n_keep,
-            snow.num_attenuated,
-            snow.num_removed,
-            snow.avg_intensity_diff,
-            snow.window_overflow,
-            snow.occluder_overflow,
-            snow.bump_overflow,
-            snow.channel_overflow,
-            snow.compact_overflow,
-            (n_keep - p_out).clamp_min(0),
-            zero if wet is None else wet.num_modified,
-            zero if wet is None else wet.num_removed,
-            zero if wet is None else wet.bailed_out.to(torch.int32),
-        ]))
-        planes_out.append(planes_c)
-    return torch.stack(planes_out), torch.stack(metas)
+    with span("batched.draws"):
+        meta = torch.as_tensor(in_meta).cpu()
+        pts = torch.cat([points, chan.to(torch.float32)[..., None]], dim=2)
+        mask = torch.arange(n, device=dev)[None, :] < meta[:, :1].to(dev)
+        draws = [frame_draws(
+            ((int(m[1]) & 0xFFFFFFFF) << 32) | (int(m[2]) & 0xFFFFFFFF),
+            snow_cfg, wet_cfg,
+        ) for m in meta]
+        orders = meta[:, 3:].to(torch.int64).to(dev)
+        snow_draws = [d[0].to(dev) for d in draws]
+        wet_draws = (None if wet_cfg is None
+                     else [d[1].to(dev) for d in draws])
+    snows, wets = _batched_core(pts, mask, bank, calib, orders, snow_draws,
+                                wet_draws, snow_cfg, wet_cfg)
+    with span("batched.pack_out"):
+        planes_out, metas = [], []
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        for b, snow in enumerate(snows):
+            wet = None if wets is None else wets[b]
+            res = wet if wet is not None else snow
+            perm = torch.argsort((~res.keep).to(torch.int8),
+                                 stable=True)[:p_out]
+            planes_c = res.planes[:, perm]
+            n_keep = res.keep.sum().to(torch.int32)
+            if wet_cfg is None:
+                packed = (
+                    (torch.round(planes_c[3]).to(torch.int32) << 2)
+                    | planes_c[4].to(torch.int32)
+                ).view(torch.float32)
+                planes_c = torch.cat([planes_c[:3], packed[None]], dim=0)
+            metas.append(torch.stack([
+                n_keep,
+                snow.num_attenuated,
+                snow.num_removed,
+                snow.avg_intensity_diff,
+                snow.window_overflow,
+                snow.occluder_overflow,
+                snow.bump_overflow,
+                snow.channel_overflow,
+                snow.compact_overflow,
+                (n_keep - p_out).clamp_min(0),
+                zero if wet is None else wet.num_modified,
+                zero if wet is None else wet.num_removed,
+                zero if wet is None else wet.bailed_out.to(torch.int32),
+            ]))
+            planes_out.append(planes_c)
+        return torch.stack(planes_out), torch.stack(metas)
 
 
 class _Replicas:

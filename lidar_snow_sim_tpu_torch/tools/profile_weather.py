@@ -29,9 +29,11 @@ from collections import defaultdict
 def profile_case(fn, reps: int, top: int = 6, trace_dir=None) -> dict:
     """fn() 3 times to warm up, then `reps` times under torch.profiler:
     host wall and summed device time per rep, their ratio, device ops per
-    rep and the `top` device items [name, ms per rep, calls per rep].
-    With `trace_dir` the session is `utils/profiling.device_trace`, which
-    also writes its Chrome trace there."""
+    rep and the `top` device items [name, ms per rep, calls per rep]:
+    the card's kernels, copies and memsets, not the spans' ranges
+    (`utils/profiling.span`) that the profiler also puts on the card's
+    timeline. With `trace_dir` the session is `utils/profiling.
+    device_trace`, which also writes its Chrome trace there."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -52,7 +54,7 @@ def profile_case(fn, reps: int, top: int = 6, trace_dir=None) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name, count = defaultdict(float), defaultdict(int)
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             by_name[e.name] += e.time_range.elapsed_us()
             count[e.name] += 1
     device_us = sum(by_name.values())

@@ -9,6 +9,7 @@ interleaving order, the overflow gate) are compared exactly with the JAX
 package's on the same fake clocks.
 """
 
+import json
 import runpy
 from pathlib import Path
 
@@ -120,6 +121,36 @@ def test_make_runner_computes_every_step():
 def test_tools_refuse_to_run_without_a_card(main, argv):
     with pytest.raises(RuntimeError, match="is_available"):
         main(argv)
+
+
+def test_profile_bench_reads_the_trace_on_the_spans_clock(tmp_path):
+    """profile_bench's device records: the Chrome trace's kernels, copies
+    and memsets at baseTimeNanoseconds + 1000 ts, in ns; its span table:
+    self ms, calls and host syncs a step, by self time."""
+    from lidar_snow_sim_tpu_torch.utils.profiling import Span
+
+    base = 1_790_000_000_000_000_000
+    events = [
+        {"ph": "X", "cat": "kernel", "name": "w1_kernel", "ts": 10.5,
+         "dur": 2.25},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoH", "ts": 20,
+         "dur": 1},
+        {"ph": "X", "cat": "gpu_memset", "name": "Memset", "ts": 30},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+         "ts": 9, "dur": 1},
+        {"ph": "i", "cat": "kernel", "name": "marker", "ts": 40},
+    ]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"baseTimeNanoseconds": base,
+                                "traceEvents": events}))
+    assert profile_bench.device_records(path) == [
+        (base + 10_500, base + 12_750), (base + 20_000, base + 21_000),
+        (base + 30_000, base + 30_000)]
+    spans = [Span(0, "root", 0, None, None, 0, 10_000_000, 1, 6_000_000),
+             Span(1, "leaf", 0, 0, 0, 1_000_000, 4_000_000, 2, 0),
+             Span(2, "leaf", 0, 0, 1, 5_000_000, 8_000_000, 3, 0)]
+    assert profile_bench.span_table(spans, steps=2) == [
+        ("root", 2.0, 0.5, 0.5), ("leaf", 3.0, 1.0, 2.5)][::-1]
 
 
 def _small_sets(cache_dir, rate_mm_h=2.5, velocity=1.6, seed=42):

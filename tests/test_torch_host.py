@@ -694,42 +694,13 @@ def test_split_files_bitwise(name):
         tsp.read_split(want / f"{name}.txt")
 
 
-def test_stage_profiler_matches_jax():
-    """The JAX package's StageProfiler case on the port's copy; both
-    classes give reports of the same shape and counters on the same
-    stages."""
-    import time
-
-    from lidar_snow_sim_tpu.utils.profiling import StageProfiler as JaxProf
-    from lidar_snow_sim_tpu_torch.utils.profiling import StageProfiler
-
-    reports = []
-    for cls in (StageProfiler, JaxProf):
-        p = cls()
-        with p.stage("load"):
-            time.sleep(0.01)
-        with p.stage("load"):
-            time.sleep(0.01)
-        p.count("scans", 4)
-        r = p.report()
-        assert r["stages"]["load"]["calls"] == 2
-        assert r["stages"]["load"]["s"] >= 0.02
-        assert r["counters"]["scans"] == 4
-        assert p.rate("scans") > 0
-        assert p.rate("scans", per_stage="load") > p.rate("scans")
-        assert json.loads(str(p))["counters"] == {"scans": 4.0}
-        reports.append(r)
-    assert reports[0].keys() == reports[1].keys()
-    assert reports[0]["stages"].keys() == reports[1]["stages"].keys()
-
-
 def test_device_trace_writes_a_trace_on_the_cpu(tmp_path):
     """device_trace without a card writes a Chrome trace of the CPU's
-    activity that holds the annotated region."""
-    from lidar_snow_sim_tpu_torch.utils.profiling import annotate, device_trace
+    activity that holds a span's region."""
+    from lidar_snow_sim_tpu_torch.utils.profiling import device_trace, span
 
     with device_trace(str(tmp_path / "trace")):
-        with annotate("port_region"):
+        with span("port_region"):
             torch.ones(64).cumsum(0)
     files = list((tmp_path / "trace").glob("*.json"))
     assert len(files) == 1
