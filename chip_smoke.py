@@ -106,7 +106,8 @@ Phases, each printing one line of numbers:
      against their plain versions exactly, with equal counters, at the JAX
      inspect CLI's config on the channel-sorted bench scan (measured), the
      JAX experiment's and a starved one (both overflows nonzero); a window
-     scan launching W1 and W2 once each and equal byte for byte to the
+     scan on a given plane launching W1, W2 and P2 once each and equal
+     byte for byte to the
      plain window path on the card, to the dense assembly through
      SnowfallAugmenter, and within the parity contract of the CPU's; its
      scan time, launches and busy share beside the plain path's, the dense
@@ -142,7 +143,16 @@ Phases, each printing one line of numbers:
      ab lisa base at chains of 1 and 3 steps (every arm overflow 0, step
      time above 0, A1, A2, C1 and L1 launched), profile_bench --model
      snow naming a1_kernel and c1_kernel, datagen_bench --frames 8
-     --batch 4 with every key of the JAX tool's report (tools_phase).
+     --batch 4 with every key of the JAX tool's report (tools_phase);
+ 17. the snowfall preamble's kernels P1 (RANSAC plane) and P2 (noise
+     floor) on the bench scan padded to 65,536 rows and channel-sorted, as
+     the window scan passes it: each against its plain version on the card
+     (P1: the crop's size, median and MAD, every trial's inliers and the
+     chosen trial equal, (w, h) within 1e-6; P2 on the plain plane: the
+     ground band, y_hi and each row's bin equal, the floor within 1e-4 of
+     max(|floor|, 1)), then each one's ms, plain_ms, bound and device times,
+     and the whole preamble's ms and launches on the kernels and plain
+     (preamble_phase).
 The line before the last is the kernels' JSON record: each kernel's
 launches on its path, max_abs_err, ms (CUDA events around one wrapper call,
 host enqueue included) and plain_ms, device_ms (the kernel's own duration
@@ -2095,7 +2105,8 @@ def window_phase(pc, sets, calib, dev) -> list:
     layout the port's inspect CLI took before) on the same order and draws:
     outputs and stats equal byte for byte, every counter 0. (c) One
     window scan (snowfall_augment) with every launch counter zeroed before:
-    W1 and W2 once each and no other kernel of the port; its result equal
+    W1, W2 and P2 (the plane is given, so no P1) once each and no other
+    kernel of the port; its result equal
     byte for byte to the plain window path on the card (window_augment,
     plain=True), and within the parity contract of the CPU's with one
     injected plane (RANSAC fitted once on the CPU). Prints the window
@@ -2114,6 +2125,7 @@ def window_phase(pc, sets, calib, dev) -> list:
         ransac_draws,
         ransac_plane,
     )
+    from lidar_snow_sim_tpu_torch.ops.laser import noise_floor_at
     from lidar_snow_sim_tpu_torch.ops.lut_lookup import lut_lookup_pairs
     from lidar_snow_sim_tpu_torch.tools.kernel_times import card_line
 
@@ -2206,7 +2218,8 @@ def window_phase(pc, sets, calib, dev) -> list:
                "A4a": occ_ops.find_occluders_t,
                "A4b": occ_ops.find_occluders_pair,
                "C1": pulse_ops.pulse_peaks, "C2": pulse_ops.pulse_peaks_pair,
-               "L1": lut_lookup_pairs}
+               "L1": lut_lookup_pairs, "P1": ransac_plane,
+               "P2": noise_floor_at}
     a = args_on(dev.type, wcfg)
     torch.cuda.synchronize()
     for fn in counted.values():
@@ -2214,8 +2227,10 @@ def window_phase(pc, sets, calib, dev) -> list:
     got = ts.snowfall_augment(*a, plane=plane[dev.type])
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counted.items()}
-    if launches != dict(dict.fromkeys(counted, 0), W1=1, W2=1):
-        fail(f"a window scan launched {launches}, not W1 and W2 once each")
+    # the plane is given: the preamble runs P2 alone
+    if launches != dict(dict.fromkeys(counted, 0), W1=1, W2=1, P2=1):
+        fail(f"a window scan launched {launches}, not W1, W2 and P2 once "
+             f"each")
     want = ts.window_augment(*a, plane=plane[dev.type], plain=True)
     for name, x, y in zip(ts.SnowfallResult._fields, got, want):
         if not torch.equal(x, y):
@@ -2256,6 +2271,119 @@ def window_phase(pc, sets, calib, dev) -> list:
                    m[k]["bound"], m[k]["times"],
                    replaces_kind="XLA-fused in lax.map (no Pallas kernel)")
             for k in ("W1", "W2")]
+
+
+def preamble_bound(n: int, n_live: int, trials: int, n_crop: int):
+    """((bound_ms, bound_by) of P1, of P2): P1 reads the mask, the live
+    rows' xyz and the draws and tests every trial on every crop point (6
+    operations); P2 reads the mask, every range and the live rows' xyz and
+    intensity, writes every floor, and makes ~40 operations a live row."""
+    p1 = bound(n + 12 * n_live + 12 * trials, 6 * trials * n_crop)
+    p2 = bound(9 * n + 16 * n_live, 40 * n_live)
+    return p1, p2
+
+
+def preamble_phase(pc, dev) -> list:
+    """Phase 17: kernels P1 and P2 on the bench scan padded to 65,536 rows
+    and channel-sorted (the window scan's layout), held against their
+    plain versions on the card, then timed beside them, and the whole
+    preamble (`_plane_and_noise`) on the kernels against the plain
+    composition. Returns P1's and P2's records for the kernels line."""
+    import torch
+
+    from lidar_snow_sim_tpu_torch import SnowfallConfig, pad_cloud
+    from lidar_snow_sim_tpu_torch.models import snowfall as ts
+    from lidar_snow_sim_tpu_torch.ops import fitting, laser
+    from lidar_snow_sim_tpu_torch.ops.geometry import norm3
+    from lidar_snow_sim_tpu_torch.tools.kernel_times import card_line
+
+    srt = np.ascontiguousarray(pc[np.argsort(pc[:, 4], kind="stable")])
+    padded = pad_cloud(srt, 65536)
+    pts = torch.as_tensor(padded.points, device=dev)
+    mask = torch.as_tensor(padded.mask, device=dev)
+    xyz, intensity, dist = pts[:, :3], pts[:, 3], norm3(pts[:, :3])
+    cfg = SnowfallConfig()
+    draws = fitting.ransac_draws(0, cfg.ransac_trials).to(dev)
+
+    out, info = fitting.ransac_plane_p1(xyz, mask, draws)
+    crop, med, mad, inliers = fitting.ransac_trials_plain(xyz, mask, draws)
+    counts = inliers.sum(dim=1)
+    if not (int(info[0]) == int(crop.sum()) and torch.equal(out[4], med)
+            and torch.equal(out[5], mad)
+            and torch.equal(info[2:].long(), counts)
+            and int(info[1]) == int(torch.argmax(counts))):
+        fail(f"P1: crop {int(info[0])} vs {int(crop.sum())}, median/MAD "
+             f"{out[4:6].tolist()} vs {[float(med), float(mad)]}, trial "
+             f"{int(info[1])} vs {int(torch.argmax(counts))}")
+    w, h = fitting.ransac_plane_plain(xyz, mask, draws)
+    w_err = max(float((out[:3] - w).abs().max()), float((out[3] - h).abs()))
+    if w_err > 1e-6:
+        fail(f"P1: (w, h) {out[:4].tolist()} vs {w.tolist()}, {float(h)}")
+    noise, stats, ground = laser.noise_floor_p2(xyz, intensity, mask, dist,
+                                                (w, h), cfg)
+    g, incident = laser.ground_and_incidence(xyz, mask, dist, (w, h),
+                                             cfg.ground_delta)
+    bins, y_hi = laser.noise_floor_bins(norm3(xyz),
+                                        intensity / torch.cos(incident), g)
+    want = laser.noise_floor_at_plain(xyz, intensity, mask, dist, (w, h),
+                                      cfg)
+    noise_err = float(((noise - want).abs() / want.abs().clamp_min(1.0))
+                      .max())
+    if not (torch.equal(ground != 0, g) and torch.equal(stats[1], y_hi)
+            and torch.equal(stats[10:60].long(), bins)) or noise_err > 1e-4:
+        fail(f"P2: ground {int(((ground != 0) != g).sum())} differ, y_hi "
+             f"{float(stats[1])} vs {float(y_hi)}, bins equal "
+             f"{torch.equal(stats[10:60].long(), bins)}, floor {noise_err}")
+
+    fitting.ransac_plane.launches = laser.noise_floor_at.launches = 0
+    ts._plane_and_noise(xyz, intensity, mask, dist, draws, cfg, None)
+    torch.cuda.synchronize()
+    launches = {"P1": fitting.ransac_plane.launches,
+                "P2": laser.noise_floor_at.launches}
+    if launches != {"P1": 1, "P2": 1}:
+        fail(f"a preamble launched {launches}, not P1 and P2 once each")
+
+    def plain_preamble():
+        plane = fitting.ransac_plane_plain(xyz, mask, draws)
+        return laser.noise_floor_at_plain(xyz, intensity, mask, dist, plane,
+                                          cfg)
+
+    preamble = {}
+    for name, fn in (("kernels", lambda: ts._plane_and_noise(
+            xyz, intensity, mask, dist, draws, cfg, None)),
+            ("plain", plain_preamble)):
+        busy, n_launch = _busy(fn)
+        preamble[name] = {"ms": round(time_ms(fn, reps=5, warmup=1), 4),
+                          "launches": n_launch, "busy_ms": round(busy, 4)}
+    n_live = int(mask.sum())
+    b1, b2 = preamble_bound(65536, n_live, cfg.ransac_trials,
+                            int(crop.sum()))
+    p1 = dict(ms=time_ms(lambda: fitting.ransac_plane_p1(xyz, mask, draws)),
+              plain_ms=time_ms(lambda: fitting.ransac_plane_plain(
+                  xyz, mask, draws), reps=3, warmup=1),
+              times=timed("P1", lambda: fitting.ransac_plane_p1(
+                  xyz, mask, draws), "p1_kernel"))
+    p2 = dict(ms=time_ms(lambda: laser.noise_floor_p2(
+                  xyz, intensity, mask, dist, (w, h), cfg)),
+              plain_ms=time_ms(lambda: laser.noise_floor_at_plain(
+                  xyz, intensity, mask, dist, (w, h), cfg), reps=3,
+                  warmup=1),
+              times=timed("P2", lambda: laser.noise_floor_p2(
+                  xyz, intensity, mask, dist, (w, h), cfg), "p2_kernel"))
+    print(f"preamble: card {card_line()!r} points {n_live} rows 65536 crop "
+          f"{int(crop.sum())} ground {int(g.sum())} p1_equal_to_plain True "
+          f"w_h_max_abs_err {w_err} p2_bins_equal True floor_max_rel_err "
+          f"{noise_err} launches {launches} {preamble}", flush=True)
+    src = "lidar_snow_sim_tpu_torch/csrc/preamble.cu"
+    return [record("P1 RANSAC ground plane (snowfall preamble)", src,
+                   "lidar_snow_sim_tpu/ops/fitting.py ransac_plane", 1,
+                   w_err, p1["ms"], p1["plain_ms"], b1, p1["times"],
+                   replaces_kind="XLA-fused (no Pallas kernel)"),
+            record("P2 noise floor at every point (snowfall preamble)", src,
+                   "lidar_snow_sim_tpu/ops/laser.py "
+                   "estimate_laser_parameters", 1, noise_err, p2["ms"],
+                   p2["plain_ms"], b2, p2["times"],
+                   replaces_kind="XLA-fused (no Pallas kernel)")]
 
 
 PARITY_STATS = dict(num_attenuated=29, num_removed=847,
@@ -3431,6 +3559,7 @@ def main() -> int:
     grid_phase(calib, dev)
     multi_gpu_phase(pc, sets, calib, dev)
     tools_phase(dev)
+    preamble = preamble_phase(pc, dev)
 
     occ_src = "lidar_snow_sim_tpu_torch/csrc/occluders.cu"
     tpu_occ = "lidar_snow_sim_tpu/ops/pallas_occluders.py"
@@ -3456,6 +3585,7 @@ def main() -> int:
         batched["C2"],
         l1,
         *window,
+        *preamble,
     ]
     # --- 8. each kernel's device times, after every end-to-end phase ---
     time_kernels()

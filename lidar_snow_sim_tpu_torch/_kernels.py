@@ -106,6 +106,25 @@ SIGNATURES = {
             _P,                                        # stream
         ],
     },
+    "preamble": {
+        "preamble_p1": [
+            _P, _I, _I, _P, _P,                        # xyz, its strides,
+                                                       # mask, draws
+            _I, _I, _F,                                # trials, n, height
+            _P, _P, _P,                                # scratch, out, info
+            _P,                                        # stream
+        ],
+        "preamble_p2": [
+            _P, _I, _I, _P, _I,                        # xyz, intensity and
+                                                       # their strides
+            _P, _P, _P, _P, _P,                        # mask, dist, w, h,
+                                                       # row centres
+            _I, _F, _F,                                # n, ground delta,
+                                                       # noise floor
+            _P, _P, _P,                                # scratch, stats, out
+            _P,                                        # stream
+        ],
+    },
 }
 
 
@@ -173,13 +192,31 @@ def load(name: str) -> ctypes.CDLL:
 def check_input(name: str, t, dtype, shape) -> None:
     """Raise unless tensor `t` is a contiguous CUDA tensor of `dtype` and
     `shape`, which is all a kernel's raw pointer can take."""
-    if t.dtype != dtype or not t.is_contiguous() or t.device.type != "cuda":
-        raise ValueError(
-            f"{name}: need a contiguous {dtype} CUDA tensor, got "
-            f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
-        )
+    check_layout(name, t, dtype, shape)
+    check_cuda(**{name: t})
+
+
+def check_layout(name: str, t, dtype, shape, strided: bool = False):
+    """Raise unless tensor `t` has `dtype` and `shape` and, unless
+    `strided` (a kernel that walks it by its strides), is contiguous,
+    checked in that order. Returns its strides in elements."""
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, need {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
+    if not strided and not t.is_contiguous():
+        raise ValueError(f"{name}: strides {t.stride()} are not contiguous")
+    return t.stride()
+
+
+def check_cuda(**tensors):
+    """Raise unless the named tensors lie on one CUDA device; returns it."""
+    devices = {t.device for t in tensors.values()}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError("need CUDA tensors on one device, got "
+                         + ", ".join(f"{k} on {t.device}"
+                                     for k, t in tensors.items()))
+    return devices.pop()
 
 
 def check(err: int, what: str) -> None:

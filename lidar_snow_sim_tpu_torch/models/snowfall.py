@@ -99,14 +99,9 @@ from lidar_snow_sim_tpu_torch.sampling.banks import (
 from lidar_snow_sim_tpu_torch.utils.pointcloud import pad_cloud
 from lidar_snow_sim_tpu_torch.utils.profiling import span
 from lidar_snow_sim_tpu_torch.ops.f32 import div
-from lidar_snow_sim_tpu_torch.ops.fitting import (
-    masked_polyfit2,
-    polyval2,
-    ransac_draws,
-    ransac_plane,
-)
+from lidar_snow_sim_tpu_torch.ops.fitting import ransac_draws, ransac_plane
 from lidar_snow_sim_tpu_torch.ops.geometry import beam_limits, norm3
-from lidar_snow_sim_tpu_torch.ops.laser import estimate_laser_parameters
+from lidar_snow_sim_tpu_torch.ops.laser import noise_floor_at
 from lidar_snow_sim_tpu_torch.ops.occluders import (
     find_occluders,
     find_occluders_banded,
@@ -240,24 +235,12 @@ def default_compact_capacity(cfg, num_lasers: int) -> int:
 
 def _plane_and_noise(xyz, intensity, mask, dist, draws, cfg, plane):
     """Ground plane -> incident angles -> adaptive noise polynomial at
-    every point's range (simulation.py:449-469)."""
+    every point's range (simulation.py:449-469): on CUDA tensors kernels P1
+    (skipped when `plane` is given) and P2, two launches and no host sync."""
     with span("snowfall.plane_noise"):
         if plane is None:
-            w, h = ransac_plane(xyz, mask, draws)
-        else:
-            w, h = plane
-        hog = xyz @ w + h
-        ground = mask & (hog < cfg.ground_delta) & (hog > -cfg.ground_delta)
-        incident = torch.arccos(torch.clamp(
-            (xyz @ w) / (dist.clamp_min(1e-12) * torch.linalg.vector_norm(w)),
-            -1, 1,
-        ))
-        _, threshold = estimate_laser_parameters(
-            xyz, intensity, incident, ground, noise_floor=cfg.noise_floor
-        )
-        threshold = threshold * torch.cos(incident)
-        noise_poly = masked_polyfit2(dist, threshold, ground)
-        return polyval2(noise_poly, dist)
+            plane = ransac_plane(xyz, mask, draws)
+        return noise_floor_at(xyz, intensity, mask, dist, plane, cfg)
 
 
 def _batched_searchsorted(sorted_rows, rows, targets, length: int):

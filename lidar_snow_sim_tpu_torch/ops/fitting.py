@@ -5,7 +5,9 @@ Fixed-shape, mask-driven estimators: linregress, a centered degree-2
 polyfit, masked medians, and the RANSAC ground-plane fit with the
 reference's crop and flat-earth fallback. RANSAC takes its random draws as
 an argument (`draws`, the (trials, 3) uniforms in [0, 1)), so a caller can
-hand both packages the same numbers.
+hand both packages the same numbers. On CUDA tensors RANSAC runs as kernel
+P1 (`csrc/preamble.cu`, one launch, no host sync), on CPU tensors as
+`ransac_plane_plain`.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from lidar_snow_sim_tpu_torch import _kernels
 
 _BIG = 3.0e38
 
@@ -182,6 +186,9 @@ def ransac_draws(seed: int, trials: int, generator=None) -> torch.Tensor:
     return torch.rand((trials, 3), generator=generator)
 
 
+MAX_TRIALS = 1024  # kernel P1: a trial a thread of its one CTA
+
+
 def ransac_plane(xyz, mask, draws, standard_height: float = -1.55):
     """RANSAC ground-plane fit with the reference's crop and fallback
     (oracle/fitting.ransac_plane; tools/wet_ground/planes.py:12-50).
@@ -189,8 +196,54 @@ def ransac_plane(xyz, mask, draws, standard_height: float = -1.55):
     `draws` holds the (trials, 3) uniforms in [0, 1) that pick each
     trial's three crop points. Returns (w, h): unit normal (3,) and raw
     intercept; the flat-earth plane ([0, 0, 1], -1.55) when the crop has
-    <= 3 points or the refit degenerates.
+    <= 3 points or the refit degenerates. CUDA tensors take kernel P1
+    (`ransac_plane_p1`), CPU tensors `ransac_plane_plain`.
     """
+    if xyz.device.type == "cpu":
+        return ransac_plane_plain(xyz, mask, draws, standard_height)
+    out, _ = ransac_plane_p1(xyz, mask.contiguous(), draws.contiguous(),
+                             standard_height)
+    return out[:3], out[3]
+
+
+ransac_plane.launches = 0
+
+
+def ransac_plane_p1(xyz, mask, draws, standard_height: float = -1.55):
+    """Kernel P1 (`csrc/preamble.cu`) on CUDA tensors: xyz (N, 3) f32 at
+    any strides (a column view of the points, or of their planes), mask (N,)
+    bool, draws (trials, 3) f32, 1 <= trials <= MAX_TRIALS. Returns
+    (out (6,) f32: w (3,), h, the crop's median and MAD of z; info
+    (2 + trials,) int32: the crop's size, the chosen trial, each trial's
+    inlier count), on the device; the host reads nothing."""
+    n = xyz.shape[0]
+    trials = draws.shape[0] if draws.dim() == 2 else 0
+    if n < 1 or not 1 <= trials <= MAX_TRIALS:
+        raise ValueError(f"ransac_plane: {n} points and {trials} trials; "
+                         f"kernel P1 takes >= 1 and 1 to {MAX_TRIALS}")
+    rs, cs = _kernels.check_layout("xyz", xyz, torch.float32, (n, 3),
+                                   strided=True)
+    _kernels.check_layout("mask", mask, torch.bool, (n,))
+    _kernels.check_layout("draws", draws, torch.float32, (trials, 3))
+    dev = _kernels.check_cuda(xyz=xyz, mask=mask, draws=draws)
+    scratch = torch.empty(3 * n, dtype=torch.float32, device=dev)
+    out = torch.empty(6, dtype=torch.float32, device=dev)
+    info = torch.empty(2 + trials, dtype=torch.int32, device=dev)
+    err = _kernels.launch(
+        dev, _kernels.load("preamble").preamble_p1,
+        xyz.data_ptr(), rs, cs, mask.data_ptr(), draws.data_ptr(), trials,
+        n, standard_height, scratch.data_ptr(), out.data_ptr(),
+        info.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _kernels.check(err, "kernel P1 (preamble_p1)")
+    ransac_plane.launches += 1
+    return out, info
+
+
+def ransac_trials_plain(xyz, mask, draws):
+    """The plain version's road crop (N,) bool, the crop's median and MAD
+    of z, and each trial's inliers (trials, N) bool: `ransac_plane`'s
+    steps before the refit, which kernel P1 matches exactly."""
     x, y, z = xyz[:, 0], xyz[:, 1], xyz[:, 2]
     crop = (
         mask
@@ -201,8 +254,7 @@ def ransac_plane(xyz, mask, draws, standard_height: float = -1.55):
         & (y > -3)
         & (y < 3)
     )
-    n_crop = crop.sum()
-    _, thresh = masked_median_and_mad(z, crop)
+    med, thresh = masked_median_and_mad(z, crop)
 
     # inverse-CDF sampling over crop points; clamping u to c[-1] - 0.5
     # keeps searchsorted(side="right") inside the last crop point when
@@ -223,6 +275,14 @@ def ransac_plane(xyz, mask, draws, standard_height: float = -1.55):
     # repeated samples land near 0 and are rejected explicitly
     ok = torch.isfinite(coef).all(dim=1) & (det.abs() > 1e-6)
     inliers = crop[None, :] & (resid ** 2 < thresh) & ok[:, None]
+    return crop, med, thresh, inliers
+
+
+def ransac_plane_plain(xyz, mask, draws, standard_height: float = -1.55):
+    """Plain torch version of kernel P1: `ransac_plane` on any device."""
+    x, y, z = xyz[:, 0], xyz[:, 1], xyz[:, 2]
+    crop, _, _, inliers = ransac_trials_plain(xyz, mask, draws)
+    n_crop = crop.sum()
     inl = _at(inliers, torch.argmax(inliers.sum(dim=1)))
 
     # weighted least-squares refit on the best trial's inliers (centered)
